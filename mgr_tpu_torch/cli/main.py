@@ -1,0 +1,188 @@
+"""CLI of the port: the serving commands of ``mgr_tpu/cli/main.py``
+(``:203-344``), with the same flags.
+
+    python -m mgr_tpu_torch.cli.main infer speech utt.csv --workdir runs
+    python -m mgr_tpu_torch.cli.main decode speech --workdir runs --data-dir ... --labels ...
+    python -m mgr_tpu_torch.cli.main evaluate speech --workdir runs --data-dir ... --labels ...
+    python -m mgr_tpu_torch.cli.main score refs.mlf hyps.mlf
+
+A workdir holds ``<pipeline>_config.json`` and
+``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``).
+The model runs on the first CUDA device when there is one (through the
+kernels), else on the CPU (through their plain versions). Only the
+speech and skeletal families are ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional
+
+PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
+
+
+def _device():
+    import torch
+
+    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+
+
+def _load_model(args):
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.models.zoo import build_model
+
+    cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
+    model = build_model(cfg, device=_device())
+    return cfg, ckpt_lib.load_params(args.workdir, args.pipeline, model, slot=args.slot)
+
+
+def _build_dataset(name: str, cfg, args, mode: str):
+    from mgr_tpu_torch.data import datasets
+
+    if name == "speech":
+        return datasets.build_audio_dataset(args.data_dir, args.labels, cfg, mode=mode)
+    if name == "skeletal":
+        return datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfg, mode=mode)
+    raise SystemExit(f"{name}: only the speech and skeletal families are ported")
+
+
+def cmd_decode(args) -> int:
+    from mgr_tpu_torch.decode.decoder import DECODE_SPECS, MLF_FILENAMES, Decoder
+
+    cfg, model = _load_model(args)
+    data = _build_dataset(args.pipeline, cfg, args, mode=args.dataset)
+    dec = Decoder.for_model(model, args.pipeline)
+    if args.beam and args.beam > 1:
+        from mgr_tpu_torch.decode.beam import beam_decode_batch
+        from mgr_tpu_torch.train.step import make_predict_step
+
+        spec = DECODE_SPECS[args.pipeline]
+        predict = make_predict_step(model)
+        results = []
+        for ids, batch in data.epoch(cfg.batch_size, train=False):
+            probs = predict(batch["inputs"]).cpu().numpy()
+            lengths = batch["input_length"] if args.true_lengths else None
+            seqs = beam_decode_batch(probs, lengths, beam_width=args.beam,
+                                     trim_frames=spec.trim_frames)
+            results.extend((fid, [spec.vocab[i] for i in s]) for fid, s in zip(ids, seqs))
+    else:
+        results = dec.decode_batches(data.epoch(cfg.batch_size, train=False),
+                                     use_lengths=args.true_lengths)
+    out = args.out or MLF_FILENAMES[args.pipeline]
+    dec.write_mlf(out, results)
+    print(json.dumps({"decoded": len(results), "mlf": out}))
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """One utterance file -> decoded tokens on stdout (the serving path)."""
+    import numpy as np
+
+    from mgr_tpu_torch.data import formats
+    from mgr_tpu_torch.data.batcher import pad_or_truncate
+    from mgr_tpu_torch.decode.decoder import Decoder
+
+    cfg, model = _load_model(args)
+    if args.pipeline == "speech":
+        x = formats.load_audio_file_csv(args.input)
+        if cfg.downsample > 1:
+            x = x[:: cfg.downsample]
+    elif args.pipeline == "skeletal":
+        x = next(iter(formats.load_skeletal_csv(args.input, normalize=True).values()))
+    else:
+        raise SystemExit("infer supports speech/skeletal inputs")
+    padded, true_len = pad_or_truncate(x.astype(np.float32), cfg.maxlen)
+    batch = {
+        "inputs": padded[None],
+        "input_length": np.asarray([true_len - cfg.ctc.trim_frames], np.int32),
+    }
+    results = Decoder.for_model(model, args.pipeline).decode_batches(
+        [((0,), batch)], use_lengths=args.true_lengths
+    )
+    print(json.dumps({"tokens": results[0][1]}))
+    return 0
+
+
+def cmd_score(args) -> int:
+    from mgr_tpu_torch.decode.mlf import read_mlf
+    from mgr_tpu_torch.decode.scorer import score_sequences
+
+    refs, hyps = read_mlf(args.refs), read_mlf(args.hyps)
+    print(json.dumps(score_sequences(refs, hyps, ignore_missing=args.partial)))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """Decode a split and score it against the dataset's own labels."""
+    from mgr_tpu_torch.decode.evaluate import evaluate_accuracy
+
+    cfg, model = _load_model(args)
+    data = _build_dataset(args.pipeline, cfg, args, mode=args.dataset)
+    metrics = evaluate_accuracy(
+        model, data, pipeline=args.pipeline,
+        train_split=args.split == "train", use_lengths=args.true_lengths,
+    )
+    print(json.dumps(metrics))
+    return 0
+
+
+def _add_corpus_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-dir")
+    p.add_argument("--labels")
+    p.add_argument("--skeletal-csv")
+    p.add_argument("--audio-csv")
+    p.add_argument("--audio-dir")
+    p.add_argument("--true-lengths", action="store_true")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="mgr-tpu-torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pd = sub.add_parser("decode", help="decode a trained pipeline to MLF")
+    pd.add_argument("pipeline", choices=PIPELINES)
+    pd.add_argument("--workdir", default="runs")
+    pd.add_argument("--dataset", default="val", choices=["val", "final"])
+    pd.add_argument("--slot", default="best", choices=["best", "latest"])
+    pd.add_argument("--out", default=None)
+    _add_corpus_flags(pd)
+    pd.add_argument("--beam", type=int, default=0,
+                    help="prefix beam search width (0/1 = best path)")
+    pd.set_defaults(fn=cmd_decode)
+
+    pe = sub.add_parser("evaluate", help="decode a split and score it in-framework")
+    pe.add_argument("pipeline", choices=PIPELINES)
+    pe.add_argument("--workdir", default="runs")
+    pe.add_argument("--dataset", default="train", choices=["train", "val", "final"])
+    pe.add_argument("--split", default="val", choices=["train", "val"],
+                    help="which side of the split to score (dataset=train)")
+    pe.add_argument("--slot", default="best", choices=["best", "latest"])
+    _add_corpus_flags(pe)
+    pe.set_defaults(fn=cmd_evaluate)
+
+    pi = sub.add_parser("infer", help="decode one utterance file")
+    pi.add_argument("pipeline", choices=["speech", "skeletal", "rgb"])
+    pi.add_argument("input", help="audio CSV / skeletal CSV / video npy")
+    pi.add_argument("--workdir", default="runs")
+    pi.add_argument("--slot", default="best", choices=["best", "latest"])
+    pi.add_argument("--true-lengths", action="store_true")
+    pi.set_defaults(fn=cmd_infer)
+
+    ps = sub.add_parser("score", help="HTK-style scoring of two MLFs")
+    ps.add_argument("refs")
+    ps.add_argument("hyps")
+    ps.add_argument("--partial", action="store_true",
+                    help="ignore refs missing from hyps")
+    ps.set_defaults(fn=cmd_score)
+    return p
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

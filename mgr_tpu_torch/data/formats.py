@@ -1,0 +1,94 @@
+"""Readers of the on-disk corpus formats (``mgr_tpu/data/formats.py``),
+with the standard ``csv`` module and numpy in place of pandas:
+
+  * per-file audio CSVs ``audio_<id>.csv``: a header row; 39 MFCC
+    columns, plus ``file_number`` and optionally '39'/'40', which are
+    dropped.
+  * the monolithic skeletal CSV: a header; the 20 kinematic feature
+    columns by name and ``file_number``.
+  * label CSVs: header ``Id,Sequence``, Sequence a space-separated
+    class-id string.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import re
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+# The 20 model features, in the order the reference selects them.
+SKELETAL_FEATURES: Tuple[str, ...] = (
+    "lh_v", "rh_v", "le_v", "re_v", "lh_dist_rp", "rh_dist_rp",
+    "lh_hip_d", "rh_hip_d", "le_hip_d", "re_hip_d", "lh_shc_d", "rh_shc_d",
+    "le_shc_d", "re_shc_d", "lh_hip_ang", "rh_hip_ang", "lh_shc_ang",
+    "rh_shc_ang", "lh_el_ang", "rh_el_ang",
+)
+
+NUM_AUDIO_FEATS = 39
+
+
+def _header(path: str | os.PathLike) -> List[str]:
+    with open(path, newline="") as f:
+        return next(csv.reader(f))
+
+
+def zscore(x: np.ndarray) -> np.ndarray:
+    """Column-wise zero mean, unit population variance (a constant column
+    is only centred)."""
+    mean = x.mean(axis=0)
+    std = x.std(axis=0)
+    std = np.where(std == 0.0, 1.0, std)
+    return (x - mean) / std
+
+
+def load_label_csv(path: str | os.PathLike) -> Dict[int, List[int]]:
+    """``Id,Sequence`` -> {file_id: [class ids]}; an empty Sequence maps
+    to []."""
+    with open(path, newline="") as f:
+        return {
+            int(row["Id"]): [int(x) for x in (row["Sequence"] or "").split()]
+            for row in csv.DictReader(f)
+        }
+
+
+def list_audio_files(data_dir: str | os.PathLike) -> List[int]:
+    """Sorted numeric ids of the ``audio_<id>.csv`` files."""
+    ids = []
+    for name in os.listdir(data_dir):
+        m = re.findall(r"audio_(\d+)\.csv", name)
+        if m:
+            ids.append(int(m[0]))
+    return sorted(ids)
+
+
+def load_audio_file_csv(path: str | os.PathLike) -> np.ndarray:
+    """One per-file audio CSV -> (T, 39) float32 features."""
+    keep = [i for i, name in enumerate(_header(path))
+            if name not in ("file_number", "39", "40")]
+    x = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2)
+    x = np.ascontiguousarray(x[:, keep])
+    if x.shape[1] != NUM_AUDIO_FEATS:
+        raise ValueError(
+            f"{path}: expected {NUM_AUDIO_FEATS} feature cols, got {x.shape[1]}"
+        )
+    return x
+
+
+def load_skeletal_csv(
+    path: str | os.PathLike, normalize: bool = True
+) -> Dict[int, np.ndarray]:
+    """Monolithic skeletal CSV -> {file_id: (T, 20) float32} in order of
+    first appearance, z-scored over the whole corpus first."""
+    col = {name: i for i, name in enumerate(_header(path))}
+    cols = [col[name] for name in SKELETAL_FEATURES] + [col["file_number"]]
+    table = np.loadtxt(path, delimiter=",", skiprows=1, usecols=cols,
+                       dtype=np.float64, ndmin=2)
+    feats = table[:, :-1].astype(np.float32)
+    if normalize:
+        feats = zscore(feats)
+    file_nums = table[:, -1].astype(np.int64)
+    return {int(fid): feats[file_nums == fid]
+            for fid in dict.fromkeys(file_nums.tolist())}

@@ -1,0 +1,28 @@
+"""Entry point: the flagship forward pass, as ``__graft_entry__.entry()``
+is for the JAX package (``__graft_entry__.py:16-32``).
+
+``entry()`` returns ``(fn, example_args)``: the speech BLSTM model at
+the preset's full width with seeded random weights, and a zero batch of
+B=8 utterances of T=1900 frames. ``fn(*example_args)`` gives (B, T, 44)
+logits. On a CUDA device it runs through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mgr_tpu_torch.core.config import get_preset
+from mgr_tpu_torch.models.zoo import build_model
+
+
+def entry():
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    cfg = get_preset("speech")
+    model = build_model(cfg, device=device)
+    x = torch.zeros((8, cfg.maxlen, cfg.num_feats), dtype=torch.float32, device=device)
+
+    @torch.inference_mode()
+    def fn(x):
+        return model(x)
+
+    return fn, (x,)

@@ -1,0 +1,88 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled by ``nvcc`` into ``mgr_tpu_torch/_build/lib<name>_<hash>.so``
+(the hash is of the source, so an edited kernel is rebuilt) and loaded
+with ``ctypes``. Only the repository's sources are compiled; nothing is
+downloaded. The build needs the CUDA toolkit, which the GPU machine has
+and a CPU-only host does not: nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_logs: Dict[str, str] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+        "mgr_tpu_torch/csrc at first use"
+    )
+
+
+def _compile(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    _logs[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{_logs[name]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_compile(name)))
+        return _libs[name]
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills)
+    from this process's build of ``name``, or "" if it was cached."""
+    return _logs.get(name, "")
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a kernel's C entry returned a CUDA error."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")

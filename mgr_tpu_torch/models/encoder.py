@@ -1,0 +1,60 @@
+"""Residual BLSTM encoder: GaussianNoise -> BiLSTM x depth -> residual
+sum of the last two layers (``mgr_tpu/models/encoder.py``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mgr_tpu_torch.core.config import EncoderConfig
+from mgr_tpu_torch.models.layers import gaussian_noise
+from mgr_tpu_torch.ops import lstm
+
+
+class BiLSTM(nn.Module):
+    """One bidirectional layer: gate-blocked ``W (2, F, 4, H)``,
+    ``U (2, H, 4, H)``, ``b (2, 4, H)`` (``ops/lstm.py:54-81``)."""
+
+    def __init__(self, params: lstm.Params):
+        super().__init__()
+        self.W = nn.Parameter(params["W"], requires_grad=False)
+        self.U = nn.Parameter(params["U"], requires_grad=False)
+        self.b = nn.Parameter(params["b"], requires_grad=False)
+
+    def forward(self, x_tm: torch.Tensor, *, train: bool = False,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+        return lstm.bilstm_layer_tm(
+            {"W": self.W, "U": self.U, "b": self.b}, x_tm,
+            train=train, compute_dtype=compute_dtype,
+        )
+
+
+class Encoder(nn.Module):
+    """Submodules ``blstm_0 .. blstm_{depth-1}``, as in the JAX pytree
+    (``encoder.blstm_0.W`` <-> ``params["encoder"]["blstm_0"]["W"]``)."""
+
+    def __init__(self, in_dim: int, cfg: EncoderConfig, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        d = in_dim
+        for i in range(cfg.depth):
+            self.add_module(
+                f"blstm_{i}",
+                BiLSTM(lstm.init_bilstm_params(generator, d, cfg.hidden)),
+            )
+            d = 2 * cfg.hidden
+
+    def apply_tm(self, x_tm: torch.Tensor, *, train: bool = False,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """(T, B, F) -> (T, B, 2H) residual stream in the compute dtype
+        (``apply_encoder_tm``, ``mgr_tpu/models/encoder.py:36-72``)."""
+        h = gaussian_noise(x_tm, self.cfg.input_noise, train)
+        outs = []
+        for i in range(self.cfg.depth):
+            h = getattr(self, f"blstm_{i}")(
+                h, train=train, compute_dtype=compute_dtype
+            )
+            outs.append(h)
+        if self.cfg.residual and self.cfg.depth >= 2:
+            return outs[-2] + outs[-1]
+        return outs[-1]

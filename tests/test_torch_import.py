@@ -1,0 +1,94 @@
+"""The port stands without JAX: every module imports with ``jax``,
+``flax``, ``optax`` and the JAX package ``mgr_tpu`` blocked, pulls in no
+pandas, and no source of the package (nor ``chip_smoke.py``) names JAX,
+``mgr_tpu`` or a library stand-in for the hand-written kernels."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "mgr_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py"))
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _modules():
+    return [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in SOURCES
+    ]
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'optax', 'mgr_tpu'): sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "assert 'pandas' not in sys.modules, 'pandas imported eagerly'\n"
+        "from mgr_tpu_torch.cli.main import build_parser\n"
+        "build_parser().parse_args(['score', 'a', 'b'])\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize(
+    "pattern",
+    [r"^\s*(import|from)\s+(jax|flax|optax|mgr_tpu)\b", r"torch\.compile",
+     r"nn\.LSTM", r"(F|functional)\.ctc_loss\("],
+)
+def test_package_sources_avoid(pattern):
+    hits = [
+        f"{p.relative_to(ROOT)}:{i}"
+        for p in SOURCES + [SMOKE]
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if re.search(pattern, line)
+    ]
+    assert not hits, hits
+
+
+def test_no_switch_sends_a_cuda_tensor_to_a_plain_version():
+    for name in ("kernels/bilstm_tm.py", "kernels/ctc.py", "ops/dispatch.py"):
+        text = (PKG / name).read_text()
+        assert not re.search(r"\btry:|os\.environ|getenv", text), name
+
+
+def test_each_kernel_source_states_what_it_replaces():
+    for cu in sorted((PKG / "csrc").glob("*.cu")):
+        text = cu.read_text()
+        assert "Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:" in text, cu
+        assert "What bounds it on this card" in text and "Design" in text, cu
+        assert re.search(r'extern "C" int \w+\(', text), cu
+
+
+def test_build_is_lazy_and_targets_sm90a():
+    from mgr_tpu_torch.kernels import build
+
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert build.BUILD_DIR == PKG / "_build"
+    assert "mgr_tpu_torch/_build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,184 @@
+"""The port's BiLSTM (mgr_tpu_torch.ops.lstm, kernel K1's plain version)
+held against the JAX package on the same parameters and inputs.
+
+Tolerances:
+  * plain f32 recurrence vs ``mgr_tpu.ops.lstm.bilstm_layer_tm`` with
+    ``compute_dtype=float32`` (the XLA path): 1e-5 (f32 sums in another
+    order).
+  * bf16 recurrence vs ``pallas_bilstm_tm(interpret=True)``: 3e-2, as in
+    tests/test_pallas.py (bf16 h stream; one bf16 ulp of h is ~4e-3).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from mgr_tpu.ops import lstm as jlstm
+from mgr_tpu.ops import pallas_kernels as pk
+from mgr_tpu_torch.kernels import bilstm_tm as k1
+from mgr_tpu_torch.ops import dispatch
+from mgr_tpu_torch.ops import lstm as tlstm
+
+torch.set_num_threads(1)
+
+T, B, F_IN, H = 24, 3, 5, 8
+TOL_F32 = 1e-5
+TOL_BF16 = 3e-2
+
+
+def _jax_params(seed=0, in_dim=F_IN, hidden=H):
+    p = jlstm.init_bilstm_params(jax.random.key(seed), in_dim, hidden)
+    return {k: np.array(v) for k, v in p.items()}
+
+
+def _torch(p):
+    return {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+
+
+def _x(seed=1, shape=(T, B, F_IN)):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def test_hard_sigmoid_is_keras_not_torch():
+    x = np.linspace(-4, 4, 81).astype(np.float32)
+    got = tlstm.hard_sigmoid(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jlstm.hard_sigmoid(jnp.asarray(x))))
+    # torch's hardsigmoid is x/6 + 1/2 (saturating at +-3): a different curve.
+    torch_hs = F.hardsigmoid(torch.from_numpy(x)).numpy()
+    assert np.abs(got - torch_hs).max() > 0.05
+    assert got[np.searchsorted(x, 1.0)] == pytest.approx(0.7)
+
+
+def test_gate_order_and_gate_blocked_columns():
+    # One step, U = 0: z = xp, so each gate reads its own column g*H + j.
+    zi, zf, zg, zo = 0.5, -1.0, 0.3, 2.0
+    xp = torch.zeros((1, 1, 4, 2))
+    xp[0, 0, :, 1] = torch.tensor([zi, zf, zg, zo])  # unit 1 only
+    U = torch.zeros((2, 2, 4, 2))
+    hs0, hs1 = tlstm.bilstm_scan_tm_plain(xp, xp.clone(), U)
+
+    def hsig(v):
+        return min(max(0.2 * v + 0.5, 0.0), 1.0)
+
+    c = hsig(zi) * np.tanh(zg)  # f * c_prev vanishes: c_prev = 0
+    want = hsig(zo) * np.tanh(c)
+    for hs in (hs0, hs1):
+        assert float(hs[0, 0, 1]) == pytest.approx(want, rel=1e-6)
+        assert float(hs[0, 0, 0]) == pytest.approx(hsig(0.0) * np.tanh(0.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bilstm_layer_f32_matches_xla(seed):
+    p = _jax_params(seed)
+    x = _x(seed + 10)
+    want = jlstm.bilstm_layer_tm(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        compute_dtype=jnp.float32,
+    )
+    got = tlstm.bilstm_layer_tm(_torch(p), torch.from_numpy(x),
+                                compute_dtype=torch.float32)
+    assert got.shape == (T, B, 2 * H) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL_F32, rtol=0)
+
+
+def test_bilstm_layer_bf16_matches_xla_bf16():
+    p = _jax_params(3)
+    x = _x(4)
+    want = jlstm.bilstm_layer_tm(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        compute_dtype=jnp.bfloat16,
+    )
+    got = tlstm.bilstm_layer_tm(_torch(p), torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+        atol=TOL_BF16, rtol=0,
+    )
+
+
+@pytest.mark.parametrize("hidden", [8, 7])
+def test_recurrence_bf16_matches_pallas_interpret(hidden):
+    rng = np.random.default_rng(5)
+    xp0, xp1 = (rng.standard_normal((T, B, 4, hidden)).astype(np.float32)
+                for _ in range(2))
+    U = _jax_params(6, hidden=hidden)["U"]
+    jh0, jh1 = pk.pallas_bilstm_tm(
+        jnp.asarray(xp0, jnp.bfloat16), jnp.asarray(xp1, jnp.bfloat16),
+        jnp.asarray(U), interpret=True,
+    )
+    bf = torch.bfloat16
+    th0, th1 = tlstm.bilstm_scan_tm_plain(
+        torch.from_numpy(xp0).to(bf), torch.from_numpy(xp1).to(bf),
+        torch.from_numpy(U).to(bf),
+    )
+    np.testing.assert_allclose(th0.numpy(), np.asarray(jh0), atol=TOL_BF16, rtol=0)
+    np.testing.assert_allclose(th1.numpy(), np.asarray(jh1), atol=TOL_BF16, rtol=0)
+
+
+def test_projection_adds_bias_in_f32_before_rounding():
+    # JAX: (bf16(x) . bf16(W) summed in f32) + b, THEN cast to bf16
+    # (mgr_tpu/ops/lstm.py:469-472). A bf16 matmul rounds before the bias.
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((64, 4, F_IN)).astype(np.float32)
+    W = rng.standard_normal((F_IN, 4, H)).astype(np.float32)
+    b = (1.0 + rng.standard_normal((4, H)) * 1e-2).astype(np.float32)
+    xc, Wc = jnp.asarray(x, jnp.bfloat16), jnp.asarray(W, jnp.bfloat16)
+    want = (jnp.einsum("tbf,fgh->tbgh", xc, Wc, preferred_element_type=jnp.float32)
+            + jnp.asarray(b)[None, None]).astype(jnp.bfloat16)
+    got = tlstm.input_projection(
+        torch.from_numpy(x), torch.from_numpy(W), torch.from_numpy(b), torch.bfloat16
+    )
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    bf = torch.bfloat16
+    rounded_first = (
+        torch.from_numpy(x).to(bf).reshape(-1, F_IN)
+        @ torch.from_numpy(W).to(bf).reshape(F_IN, 4 * H)
+    ) + torch.from_numpy(b).reshape(4 * H).to(bf)
+    assert (rounded_first.float().numpy().reshape(want.shape) != want).any()
+
+
+def test_init_matches_keras_conventions():
+    p = tlstm.init_bilstm_params(torch.Generator().manual_seed(0), F_IN, H)
+    assert p["W"].shape == (2, F_IN, 4, H) and p["U"].shape == (2, H, 4, H)
+    assert p["b"].shape == (2, 4, H)
+    assert float(p["W"].abs().max()) <= 0.05
+    for d in range(2):
+        u = p["U"][d].reshape(H, 4 * H)
+        np.testing.assert_allclose((u @ u.T).numpy(), np.eye(H), atol=1e-5)
+        np.testing.assert_array_equal(p["b"][d].numpy(), np.eye(4)[1][:, None] * np.ones(H))
+    shapes = jax.eval_shape(
+        lambda k: jlstm.init_bilstm_params(k, F_IN, H), jax.random.key(0)
+    )
+    assert {k: tuple(v.shape) for k, v in shapes.items()} == {
+        k: tuple(v.shape) for k, v in p.items()
+    }
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    rng = np.random.default_rng(8)
+    xp0, xp1 = (torch.from_numpy(rng.standard_normal((T, B, 4, H)).astype(np.float32))
+                for _ in range(2))
+    U = torch.from_numpy(_jax_params(9)["U"])
+    before = dispatch.launch_counts()["bilstm_tm_fwd"]
+    got = k1.bilstm_tm(xp0, xp1, U, store_c=True)
+    want = tlstm.bilstm_scan_tm_plain(xp0, xp1, U, store_c=True)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert dispatch.launch_counts()["bilstm_tm_fwd"] == before
+
+
+def test_mixed_devices_are_refused():
+    xp = torch.zeros((2, 1, 4, 2))
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        k1.bilstm_tm(xp, xp, torch.zeros((2, 2, 4, 2), device="meta"))
+
+
+def test_train_mode_is_not_ported_yet():
+    p = _torch(_jax_params())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlstm.bilstm_layer_tm(p, torch.zeros((T, B, F_IN)), train=True)
