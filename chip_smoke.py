@@ -1,14 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the speech shapes, then
-serves the speech BLSTM+CTC pipeline end to end through the kernels.
+serves and trains the speech BLSTM+CTC pipeline end to end through the
+kernels.
 
     python3 chip_smoke.py [--profile]
 
-Phases, one line each: device, build, K1 (BiLSTM recurrence) against
-its plain version, K3 (CTC forward) against its plain version, the
-serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer),
-with ``--profile`` a per-layer breakdown of a decode step at B=1, 32
-and 128, a JSON line of the kernels, and last
+Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
+adjoint), K3 (CTC forward, with and without the alpha store) and K4 (its
+adjoint) against their plain versions, the serving slice (decode -> MLF
+-> evaluate -> eval loss -> B=1 infer), the training slice (``fit`` at
+full speech width, a train step through the kernels against the same
+step through the plain versions, a learning check), with ``--profile`` a
+per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
+step at B=32, a JSON line of the kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed phase
 raises, so the exit code is not 0 and the last line is never printed.
 There is no CPU fallback: without a CUDA device the script fails.
@@ -34,13 +38,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SEED = 0
+KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
+B_K2 = 32                                   # the preset's train batch
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
+B_K4 = 32
 TOL_K1_H = 3e-2        # max |h| diff: bf16 h stream, f32 sums in another order
-TOL_K3_REL = 1e-4      # |loss| diff relative to max(1, |loss|): f32 lse chain
+TOL_K2_REL = 2e-2      # max |dz| diff / max |dz|, and dU relative Frobenius:
+                       # bf16 dz, recomputed z, f32 sums in another order, T steps
+TOL_K3_REL = 1e-4      # |loss| and |alpha| diff relative to max(1, |.|): f32 lse chain
+TOL_K4 = 1e-3          # max |d log_probs| diff: occupancies in [-1, 0], f32 exp
+                       # chains over 1898 steps
+TOL_FRAME_SUM = 5e-2   # |sum_k d lp[t] + 1|: the f32 alphas reach -7e3 at t=1898, where
+                       # one ulp is 5e-4, and y_pre = alpha - lp read back from them
+                       # carries it into every step's weights (the JAX kernel's algorithm)
 TOL_LOGITS = 3e-2      # slice logits, kernel path vs plain path (bf16 model)
-TOL_LOSS_REL = 1e-3    # slice mean eval loss, kernel path vs plain path
+TOL_LOSS_REL = 1e-3    # slice mean eval loss / train loss, kernel path vs plain path
+TOL_GRAD_REL = 5e-2    # train-step gradients, kernel path vs plain path, relative
+                       # Frobenius per parameter (bf16 model, 1900 recurrent steps)
 N_FILES, B_SLICE = 128, 32  # 4 batches at the preset's batch size
+N_TRAIN, N_VAL, EPOCHS = 64, 32, 3  # the training slice: 2 train + 1 val batch per epoch
+LEARN_STEPS = 10
 
 
 def phase(name: str, **fields) -> None:
@@ -77,13 +95,12 @@ def build_phase() -> None:
     from mgr_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    for name in ("bilstm_tm_fwd", "ctc_fwd"):
-        build.load(name)
+    build.load_all(KERNELS)  # one nvcc per source, all started together
     secs = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("bilstm_tm_fwd", "ctc_fwd")
+        for name in KERNELS
     }
     phase("build", seconds=secs, ptxas=ptxas)
 
@@ -162,22 +179,137 @@ def k3_phase(dev) -> dict:
     return {"max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms}
 
 
+def k2_phase(dev) -> dict:
+    """K2 against its plain version at B=32, T=1900, H=500, then the edge
+    shapes K1 is checked at (B=1, a partial tile B=130, three launches
+    B=520, an odd H)."""
+    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
+    from mgr_tpu_torch.ops.lstm import (
+        bilstm_scan_tm_bwd_plain, init_bilstm_params, recurrent_weight_grad)
+
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    bf = torch.bfloat16
+    worst = {"dz": 0.0, "dU": 0.0}
+
+    def case(T, B, H):
+        xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
+        xp[:, :, :, 1, :] += 1.0
+        xp = torch.from_numpy(xp).to(dev, bf)
+        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
+        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+        dhs = torch.from_numpy(
+            1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
+        got = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+        want = bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+        dU = recurrent_weight_grad(streams[0], streams[1], *got)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want[:2]):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"K2 gave non-finite dz at {(T, B, H)}")
+            rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            worst["dz"] = max(worst["dz"], rel)
+        worst["dU"] = max(worst["dU"], float((dU - want[2]).norm() / want[2].norm()))
+        return xp, U, streams, dhs, got, want
+
+    xp, U, streams, dhs, got, want = case(T_K1, B_K2, H_K1)
+    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want[:2]))
+    for T, B, H in ((64, 1, 500), (64, 130, 300), (32, 520, 64), (64, 3, 7)):
+        case(T, B, H)
+    if max(worst.values()) > TOL_K2_REL:
+        raise AssertionError(f"K2 disagrees with its plain version: {worst} > {TOL_K2_REL}")
+    ms = cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=5)
+    plain_ms = cuda_time_ms(
+        lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=1)
+    phase("k2_bilstm_tm_bwd", B=B_K2, T=T_K1, H=H_K1, max_abs_err_dz=abs_err,
+          max_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
+          ms=ms, plain_ms=plain_ms)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _ctc_batch(rng, B, T, K, N):
+    """Labels with L=0, L=N and runs of repeated labels; input lengths
+    below T on most rows."""
+    blank = K - 1
+    lab_len = rng.integers(1, N + 1, size=B)
+    lab_len[0], lab_len[1], lab_len[2] = 0, N, 1  # all-blank, full, single
+    in_len = rng.integers(2 * N + 2, T + 1, size=B)
+    in_len[1] = T
+    labels = np.full((B, N), -1, np.int32)
+    for b in range(B):
+        seq = rng.integers(0, blank, size=lab_len[b])
+        if b % 3 == 0 and lab_len[b] > 1:  # runs of repeated labels
+            seq[1::2] = seq[0::2][: len(seq[1::2])]
+        labels[b, : lab_len[b]] = seq
+    return labels, in_len.astype(np.int32), lab_len.astype(np.int32)
+
+
+def k4_phase(dev) -> dict:
+    """K3 with the alpha store and K4 against their plain versions at
+    B=32, T'=1898, K=44, N=150, seeded as the loss seeds them."""
+    from mgr_tpu_torch.kernels.ctc import ctc_alpha_bwd, ctc_alpha_loss
+    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
+
+    rng = np.random.default_rng(SEED + 6)
+    logits = rng.standard_normal((T_K3, B_K4, K_K3), dtype=np.float32)
+    lp = torch.log_softmax(torch.from_numpy(logits).to(dev), dim=-1)
+    blank = K_K3 - 1
+    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B_K4, T_K3, K_K3, N_K3)]
+    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
+    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
+    torch.cuda.synchronize()
+    alpha_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+                    for g, w in zip(got, want))
+    loss, a_phi, a_emit = want
+    rows = torch.arange(B_K4, device=dev)
+    L = args[2].long()
+    g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
+    g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
+    bwd_args = (lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    d_got = ctc_alpha_bwd(*bwd_args)
+    d_want = ctc_alpha_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    d_err = float((d_got - d_want).abs().max())
+    # Each valid frame's gradient sums to -1 (the posterior occupancies of
+    # the frame sum to 1); frames past the length are exactly 0.
+    t_idx = torch.arange(T_K3, device=dev)[:, None]
+    valid = t_idx < args[1][None, :]
+    frame_sum_err = float((d_got.sum(-1)[valid] + 1.0).abs().max())
+    past_zero = bool((d_got[~valid] == 0).all())
+    if (alpha_err > TOL_K3_REL or d_err > TOL_K4 or frame_sum_err > TOL_FRAME_SUM
+            or not past_zero):
+        raise AssertionError(
+            f"K3 alphas / K4 disagree with their plain versions: alpha rel {alpha_err} "
+            f"(tol {TOL_K3_REL}), d lp {d_err} (tol {TOL_K4}), frame sums "
+            f"{frame_sum_err} (tol {TOL_FRAME_SUM}), zero past the length {past_zero}")
+    ms = cuda_time_ms(lambda: ctc_alpha_bwd(*bwd_args), reps=20)
+    plain_ms = cuda_time_ms(lambda: ctc_alpha_bwd_plain(*bwd_args), reps=1)
+    store_ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True), reps=20)
+    phase("k4_ctc_bwd", B=B_K4, T=T_K3, K=K_K3, N=N_K3, alpha_max_rel_err=alpha_err,
+          tol_alpha_rel=TOL_K3_REL, max_abs_err_dlp=d_err, tol=TOL_K4,
+          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM, ms=ms, plain_ms=plain_ms, k3_with_alpha_store_ms=store_ms)
+    return {"max_abs_err": d_err, "ms": ms, "plain_ms": plain_ms}
+
+
 @contextlib.contextmanager
 def plain_path():
-    """Route the model's kernel calls to the plain versions, for the
-    comparison only (the package itself has no such switch)."""
+    """Route the model's kernel calls, forward and backward, to the plain
+    versions, for the comparison only (the package itself has no such
+    switch)."""
     from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3
-    from mgr_tpu_torch.ops.ctc import ctc_alpha_loss_plain
-    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_plain
+    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
+    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain
 
-    saved = k1.bilstm_tm, k3.ctc_alpha_loss
-    k1.bilstm_tm = lambda xp0, xp1, U, store_c=False: bilstm_scan_tm_plain(
-        xp0, xp1, U, store_c=store_c)
+    saved = k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd
+    k1.bilstm_tm_streams = lambda xp0, xp1, U, store_c=False: bilstm_scan_tm_plain(
+        xp0, xp1, U, store_c=store_c, out_dtype=torch.bfloat16)
+    k1.bilstm_tm_bwd = lambda *a: bilstm_scan_tm_bwd_plain(*a)[:2]
     k3.ctc_alpha_loss = ctc_alpha_loss_plain
+    k3.ctc_alpha_bwd = ctc_alpha_bwd_plain
     try:
         yield
     finally:
-        k1.bilstm_tm, k3.ctc_alpha_loss = saved
+        k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd = saved
 
 
 def slice_phase(dev) -> dict:
@@ -228,7 +360,8 @@ def slice_phase(dev) -> dict:
         t1 = time.perf_counter()
         tokens = dec.decode_batches([((ids[0],), one)])
         infer_ms.append(1e3 * (time.perf_counter() - t1))
-    launches = dispatch.launch_counts()
+    launches = {k: v for k, v in dispatch.launch_counts().items()
+                if k in ("bilstm_tm_fwd", "ctc_fwd")}
 
     if min(launches.values()) <= 0:
         raise AssertionError(f"the serving path skipped a kernel: {launches}")
@@ -271,6 +404,125 @@ def slice_phase(dev) -> dict:
           accuracy=metrics["accuracy"], eval_loss_mean=float(np.mean(losses)),
           logits_max_abs_err=d_logits, tol_logits=TOL_LOGITS,
           loss_rel_err=d_loss, tol_loss_rel=TOL_LOSS_REL)
+    return launches
+
+
+def _speech_corpus(cfg, n, seed):
+    """n files of seeded random features (T, F) and labels (1..N words)."""
+    rng = np.random.default_rng(seed)
+    T, F = cfg.maxlen, cfg.num_feats
+    feats = rng.standard_normal((n, T, F), dtype=np.float32)
+    lab_len = rng.integers(1, cfg.max_label_len + 1, size=n).astype(np.int32)
+    labels = np.full((n, cfg.max_label_len), -1, np.int32)
+    for i, k in enumerate(lab_len):
+        labels[i, :k] = rng.integers(0, cfg.nb_classes - 1, size=k)
+    in_len = np.full((n,), T - cfg.ctc.trim_frames, np.int32)
+    return feats, labels, lab_len, in_len
+
+
+def train_phase(dev) -> dict:
+    """The training slice at the full speech width: fit() for 3 epochs on
+    an in-memory corpus (launch counts of all four kernels), the train
+    step's wall time, the best slot reloaded and decoded, one train step
+    through the kernels against the same step through the plain versions
+    (same parameters, same masks), and a learning check."""
+    import copy
+
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.data.batcher import Batcher
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.loop import fit
+
+    cfg = get_preset("speech")
+    B = cfg.batch_size
+    feats, labels, lab_len, in_len = _speech_corpus(cfg, N_TRAIN + N_VAL, SEED + 7)
+    ids = list(range(1, N_TRAIN + N_VAL + 1))
+    data = Batcher(feats, labels, lab_len, in_len, ids,
+                   train_ids=ids[:N_TRAIN], val_ids=ids[N_TRAIN:])
+    model = build_model(cfg, seed=SEED, device=dev)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(model, data, workdir=workdir, epochs=EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"the training path skipped a kernel: {launches}")
+        if res.epochs_run != EPOCHS or not all(
+                np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in res.history):
+            raise AssertionError(f"fit ran {res.epochs_run} epochs: {res.history}")
+        fresh = build_model(cfg, seed=SEED + 99, device=dev)
+        ckpt_lib.load_params(workdir, "speech", fresh, slot="best")
+        one = next(iter(data.epoch(B, train=False)))
+        decoded = Decoder.for_model(fresh, "speech").decode_batches([one])
+        if len(decoded) != B:
+            raise AssertionError(f"the best slot decoded {len(decoded)} of {B}")
+
+    # The train step's wall time (host clock around steps ending in a sync).
+    state = step_lib.create_train_state(model)
+    train_step = step_lib.make_train_step(model)
+    batch = next(iter(data.epoch(B, train=True, shuffle_seed=0)))[1]
+    key = prng.fold_name(prng.root_key(SEED), "dropout")
+    walls = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = train_step(state, batch, prng.fold_in(key, i))
+        float(m["loss"])
+        walls.append(time.perf_counter() - t1)
+    step_s = float(np.median(walls[1:]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # One step through the kernels and through the plain versions, from
+    # the same parameters and the same masks (the draws depend on the key).
+    twin = copy.deepcopy(model)
+    tb = {k: step_lib.to_device(batch[k], dev) for k in step_lib.BATCH_KEYS}
+    sk = prng.fold_in(key, 1000)
+    loss_k, grads_k = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, sk)
+    grads_k = {k: g.clone() for k, g in grads_k.items()}
+    with plain_path():
+        t2 = time.perf_counter()
+        loss_p, grads_p = step_lib._loss_and_grads(twin, dict(twin.named_parameters()), tb, sk)
+        torch.cuda.synchronize()
+        plain_step_s = time.perf_counter() - t2
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel = {k: float((grads_k[k] - g).norm() / g.norm().clamp_min(1e-30))
+                for k, g in grads_p.items()}
+    if loss_rel > TOL_LOSS_REL or max(grad_rel.values()) > TOL_GRAD_REL:
+        raise AssertionError(
+            f"the kernel train step disagrees with the plain one: loss rel {loss_rel} "
+            f"(tol {TOL_LOSS_REL}), grads {grad_rel} (tol {TOL_GRAD_REL})")
+    for p in model.parameters():
+        p.grad = None
+
+    # Learning check: a fixed batch's eval loss falls over steps on it.
+    eval_step = step_lib.make_eval_step(model)
+    before = float(eval_step(batch))
+    for i in range(LEARN_STEPS):
+        state, m = train_step(state, batch, prng.fold_in(key, 2000 + i))
+    after = float(eval_step(batch))
+    if not after < before:
+        raise AssertionError(f"no learning: eval loss {before} -> {after}")
+
+    phase("train", pipeline="speech", B=B, T=cfg.maxlen, H=cfg.encoder.hidden,
+          files_train=N_TRAIN, files_val=N_VAL, epochs=EPOCHS, fit_s=fit_s,
+          launches=launches,
+          epoch_train_loss=[h["train_loss"] for h in res.history],
+          epoch_val_loss=[h["val_loss"] for h in res.history],
+          epoch_seq_per_s=[h["seqs_per_sec"] for h in res.history],
+          step_wall_ms_median=1e3 * step_s, step_seq_per_s=B / step_s, peak_mem_gb=peak_gb,
+          plain_loss_and_grads_s=plain_step_s, loss_rel_err=loss_rel,
+          tol_loss_rel=TOL_LOSS_REL, grad_max_rel_err=max(grad_rel.values()),
+          grad_rel_err=grad_rel, tol_grad_rel=TOL_GRAD_REL,
+          learning_check={"eval_loss_before": before, "eval_loss_after": after,
+                          "steps": LEARN_STEPS})
     return launches
 
 
@@ -378,28 +630,164 @@ def profile_phase(dev) -> None:
               idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None)
 
 
+@contextlib.contextmanager
+def timed_calls(marks: list):
+    """Wrap the train step's kernels and GEMMs so each call records a pair
+    of CUDA events under a label (profiling only: the package has no such
+    hook). Labels: K1 / K2 per layer (layer 0 is the first K1 of a step,
+    the second K2), K3, K4, dU GEMM, projection and head GEMMs."""
+    from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3
+    from mgr_tpu_torch.ops import lstm as lstm_lib
+
+    counts = {}
+
+    def wrap(fn, label_of):
+        def inner(*a, **kw):
+            label = label_of(*a, **kw)
+            n = counts.get(label, 0)
+            counts[label] = n + 1
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks.append((label, n, start, end))
+            return out
+        return inner
+
+    mm = lstm_lib._MatmulF32
+    saved = (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
+             lstm_lib.recurrent_weight_grad, mm.forward, mm.backward)
+
+    def gemm(kind):
+        def label(ctx, *a):
+            w = a[1] if kind == "forward" else ctx.saved_tensors[1]
+            return f"{'head' if w.shape[-1] == 44 else 'projection'} GEMM {kind}"
+        return label
+
+    k1.bilstm_tm_streams = wrap(saved[0], lambda *a, **k: "K1")
+    k1.bilstm_tm_bwd = wrap(saved[1], lambda *a, **k: "K2")
+    k3.ctc_alpha_loss = wrap(saved[2], lambda *a, **k: "K3 (with alpha store)")
+    k3.ctc_alpha_bwd = wrap(saved[3], lambda *a, **k: "K4")
+    lstm_lib.recurrent_weight_grad = wrap(saved[4], lambda *a, **k: "dU GEMM")
+    mm.forward = staticmethod(wrap(saved[5], gemm("forward")))
+    mm.backward = staticmethod(wrap(saved[6], gemm("backward")))
+    try:
+        yield
+    finally:
+        (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
+         lstm_lib.recurrent_weight_grad) = saved[:5]
+        mm.forward, mm.backward = staticmethod(saved[5]), staticmethod(saved[6])
+
+
+def profile_train_phase(dev) -> None:
+    """Where a train step's time goes at B=32, T=1900: CUDA-event times of
+    the forward, the backward and the optimizer tail of one step (the
+    step's own functions, called in its order), and within them of each
+    kernel and GEMM; the log-softmax backward at the step's shape on its
+    own; the host-clock wall of the real step; the device's idle share of
+    a profiled step (device rows only)."""
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.train import optimizer as opt_lib
+    from mgr_tpu_torch.train import step as step_lib
+
+    cfg = get_preset("speech")
+    B = cfg.batch_size
+    feats, labels, lab_len, in_len = _speech_corpus(cfg, B, SEED + 8)
+    batch = {"inputs": feats, "labels": labels, "input_length": in_len, "label_length": lab_len}
+    model = build_model(cfg, seed=SEED, device=dev)
+    state = step_lib.create_train_state(model)
+    tx = opt_lib.keras_adam(cfg.optimizer)
+    train_step = step_lib.make_train_step(model)
+    key = prng.fold_name(prng.root_key(SEED), "dropout")
+    for i in range(2):
+        state, m = train_step(state, batch, prng.fold_in(key, i))  # warm-up
+    float(m["loss"])
+
+    def one_step(i):
+        marks = []
+        tb = {k: step_lib.to_device(batch[k], dev) for k in step_lib.BATCH_KEYS}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with timed_calls(marks):
+            for p in state.params.values():
+                p.grad = None
+            ev[0].record()
+            with torch.enable_grad():
+                loss = step_lib._loss_from_batch(model, tb, train=True,
+                                                 rng=prng.fold_in(key, 100 + i))
+                ev[1].record()
+                loss.backward()
+            ev[2].record()
+            grads = {k: p.grad for k, p in state.params.items()}
+            step_lib._apply_updates(model, state, tx, loss.detach(), grads, 1.0)
+            ev[3].record()
+        torch.cuda.synchronize()
+        out = {"forward (total)": ev[0].elapsed_time(ev[1]),
+               "backward (total)": ev[1].elapsed_time(ev[2]),
+               "optimizer tail (clip, Adam, maxnorm, grad norm)": ev[2].elapsed_time(ev[3])}
+        for label, n, start, end in marks:
+            name = f"{label}, layer {n if label == 'K1' else 1 - n}" \
+                if label in ("K1", "K2") else label
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+    steps = [one_step(i) for i in range(3)]
+    layers_ms = {k: float(np.median([s[k] for s in steps])) for k in steps[0]}
+    # Log-softmax backward at the step's shape (T', B, 44), on its own.
+    logits = torch.randn((cfg.maxlen - cfg.ctc.trim_frames, B, cfg.nb_classes),
+                         device=dev, requires_grad=True)
+    lsm = torch.log_softmax(logits, dim=-1)
+    g = torch.randn_like(lsm)
+    layers_ms["log-softmax backward (alone, same shape)"] = cuda_time_ms(
+        lambda: torch.autograd.grad(lsm, logits, g, retain_graph=True), reps=20)
+    walls = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, prng.fold_in(key, 200 + i))
+        float(m["loss"])
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, prng.fold_in(key, 300))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall_us = 1e6 * (time.perf_counter() - t0)
+    dev_us = _device_us(prof)
+    phase("profile_train", pipeline="speech", B=B, T=cfg.maxlen,
+          step_wall_ms_median=float(np.median(walls)), n=len(walls), layers_ms=layers_ms,
+          profiled_wall_ms=prof_wall_us / 1e3, device_ms=dev_us / 1e3,
+          idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print where a decode step's time goes (B=1, 32, 128)")
+                        help="also print where a decode step's time goes (B=1, 32, 128) "
+                             "and a train step's (B=32)")
     args = parser.parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
-    k1 = k1_phase(dev)
-    k3 = k3_phase(dev)
-    launches = slice_phase(dev)
+    measured = {"bilstm_tm_fwd": k1_phase(dev), "bilstm_tm_bwd": k2_phase(dev),
+                "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev)}
+    serving = slice_phase(dev)
+    training = train_phase(dev)
     if args.profile:
         profile_phase(dev)
+        profile_train_phase(dev)
+    replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491}
+    # launches: the training path's counts (this slice's main path); the
+    # serving path's counts of K1 and K3 beside them.
     kernels = [
-        {"name": "bilstm_tm_fwd", "route": "cuda",
-         "source": "mgr_tpu_torch/csrc/bilstm_tm_fwd.cu",
-         "replaces": "mgr_tpu/ops/pallas_kernels.py:775",
-         "launches": launches["bilstm_tm_fwd"], **k1},
-        {"name": "ctc_fwd", "route": "cuda",
-         "source": "mgr_tpu_torch/csrc/ctc_fwd.cu",
-         "replaces": "mgr_tpu/ops/pallas_kernels.py:410",
-         "launches": launches["ctc_fwd"], **k3},
+        {"name": name, "route": "cuda", "source": f"mgr_tpu_torch/csrc/{name}.cu",
+         "replaces": f"mgr_tpu/ops/pallas_kernels.py:{replaces[name]}",
+         "launches": training[name],
+         **({"launches_serving": serving[name]} if name in serving else {}),
+         **measured[name]}
+        for name in KERNELS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,24 +4,26 @@
 the reference; this package mirrors its layout so every module has a
 counterpart of the same name:
 
-  core      pipeline config and presets; checkpoints in the port's own
-            format (``params.pt``)
+  core      pipeline config and presets; named random streams (prng);
+            checkpoints in the port's own format (``.pt``); JSONL metrics
   data      vocabularies, batch assembly, speech and skeletal corpus
             readers (numpy, no pandas)
-  ops       dispatch rule, BiLSTM recurrence, CTC loss, best-path decode
-  kernels   wrappers around the hand-written CUDA kernels (``csrc/``)
-  models    dense head, residual BLSTM encoder, model zoo
-  train     eval / predict / decode steps (the serving path)
+  ops       dispatch rule, BiLSTM recurrence, CTC loss (each with its
+            adjoint), best-path decode
+  kernels   wrappers around the hand-written CUDA kernels (``csrc/``) and
+            the autograd Functions that pair them
+  models    dense head, residual BLSTM encoder, model zoo (train mode)
+  train     train / eval / predict / decode steps, Keras-parity Adam, fit
   decode    MLF writer, scorer, decoder, in-framework evaluation
-  cli       ``infer`` / ``decode`` / ``evaluate`` / ``score``
+  cli       ``train`` / ``infer`` / ``decode`` / ``evaluate`` / ``score``
 
 The port imports ``torch`` and never ``jax``, and nothing of ``mgr_tpu``:
 it stands alone on a machine that has only this package.
 
-Every Pallas kernel on the serving path has a hand-written CUDA kernel
-(``csrc/*.cu``) beside a plain PyTorch version of the same function. A
-tensor on the CPU goes to the plain version; a tensor on a CUDA device
-goes to the kernel (``ops/dispatch.py``).
+Every Pallas kernel on the train and serving paths has a hand-written
+CUDA kernel (``csrc/*.cu``) beside a plain PyTorch version of the same
+function. A tensor on the CPU goes to the plain version; a tensor on a
+CUDA device goes to the kernel (``ops/dispatch.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,20 @@
-"""CLI of the port: the serving commands of ``mgr_tpu/cli/main.py``
-(``:203-344``), with the same flags.
+"""CLI of the port: the train and serving commands of
+``mgr_tpu/cli/main.py`` (``:128-170``, ``:203-344``), with the same flags.
 
+    python -m mgr_tpu_torch.cli.main train speech --data-dir ... --labels ... --workdir runs
     python -m mgr_tpu_torch.cli.main infer speech utt.csv --workdir runs
     python -m mgr_tpu_torch.cli.main decode speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main evaluate speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main score refs.mlf hyps.mlf
 
 A workdir holds ``<pipeline>_config.json`` and
-``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``).
-The model runs on the first CUDA device when there is one (through the
-kernels), else on the CPU (through their plain versions). Only the
-speech and skeletal families are ported.
+``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``);
+``train`` writes them. The model runs on the first CUDA device when there
+is one (through the kernels), else on the CPU (through their plain
+versions). Only the speech and skeletal families are ported, on one
+device: the JAX CLI's ``--mesh``, ``--async-checkpoints``,
+``--trace-dir``, ``--debug-nans`` and ``--cache-dir`` wait with
+ROADMAP.md items 8 and 12.
 """
 
 from __future__ import annotations
@@ -36,6 +40,53 @@ def _load_model(args):
     cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
     model = build_model(cfg, device=_device())
     return cfg, ckpt_lib.load_params(args.workdir, args.pipeline, model, slot=args.slot)
+
+
+def _config_for(args, name: str):
+    """The preset with the command line's overrides
+    (``mgr_tpu/cli/main.py:60-90``, without the mesh)."""
+    import dataclasses
+
+    from mgr_tpu_torch.core import config as cfglib
+
+    cfg = cfglib.get_preset(name)
+    over = {}
+    if args.batch_size:
+        over["batch_size"] = args.batch_size
+    if args.true_lengths:
+        over["ctc"] = cfglib.CTCConfig(padded_length_parity=False)
+    opt_over = {}
+    if args.accum_steps is not None:
+        if args.accum_steps < 1:
+            raise SystemExit(f"--accum-steps must be >= 1, got {args.accum_steps}")
+        opt_over["accum_steps"] = args.accum_steps
+    if args.lr is not None:
+        if args.lr <= 0:
+            raise SystemExit(f"--lr must be > 0, got {args.lr}")
+        opt_over["learning_rate"] = args.lr
+    if opt_over:
+        over["optimizer"] = dataclasses.replace(cfg.optimizer, **opt_over)
+    if args.compute_dtype:
+        over["compute_dtype"] = args.compute_dtype
+    return cfg.replace(**over) if over else cfg
+
+
+def cmd_train(args) -> int:
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.train.loop import fit
+
+    cfg = _config_for(args, args.pipeline)
+    data = _build_dataset(args.pipeline, cfg, args, mode="train")
+    model = build_model(cfg, device=_device())
+    res = fit(model, data, workdir=args.workdir, resume=args.resume,
+              epochs=args.epochs, checkpoint_every=args.checkpoint_every,
+              monitor=args.monitor)
+    print(json.dumps({
+        "pipeline": args.pipeline,
+        "best_val_loss": res.best_val_loss,
+        "epochs_run": res.epochs_run,
+    }))
+    return 0
 
 
 def _build_dataset(name: str, cfg, args, mode: str):
@@ -140,6 +191,31 @@ def _add_corpus_flags(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mgr-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train one pipeline")
+    pt.add_argument("pipeline", choices=PIPELINES)
+    pt.add_argument("--data-dir", help="per-file audio CSV dir")
+    pt.add_argument("--labels", help="Id,Sequence label CSV")
+    pt.add_argument("--skeletal-csv", help="monolithic skeletal CSV")
+    pt.add_argument("--workdir", default="runs")
+    pt.add_argument("--epochs", type=int, default=None)
+    pt.add_argument("--batch-size", type=int, default=None)
+    pt.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint")
+    pt.add_argument("--true-lengths", action="store_true",
+                    help="mask CTC to true sequence lengths instead of the "
+                         "reference's padded-length convention")
+    pt.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"])
+    pt.add_argument("--accum-steps", type=int, default=None,
+                    help="gradient-accumulation microbatches per step")
+    pt.add_argument("--lr", type=float, default=None,
+                    help="override the preset learning rate")
+    pt.add_argument("--checkpoint-every", type=int, default=1,
+                    help="write checkpoints every N epochs (the best state "
+                         "is kept in memory and still flushed)")
+    pt.add_argument("--monitor", choices=("val", "train"), default="val",
+                    help="loss that drives the best checkpoint and early stopping")
+    pt.set_defaults(fn=cmd_train)
 
     pd = sub.add_parser("decode", help="decode a trained pipeline to MLF")
     pd.add_argument("pipeline", choices=PIPELINES)

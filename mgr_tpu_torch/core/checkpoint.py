@@ -5,21 +5,34 @@ Counterpart of ``mgr_tpu/core/checkpoint.py``. Layout inside a workdir:
     <stamp>_config.json       pipeline config (``PipelineConfig.to_json``)
     <stamp>_<slot>.params.pt  ``torch.save`` of the model's state dict
                               (keys = JAX pytree paths joined with dots)
+    <stamp>_<slot>.opt.pt     the rest of a train state: step and the
+                              optimizer's state (Adam moments, counts)
+    <stamp>_fitmeta.json      facts fit(resume=True) needs: batches per
+                              epoch, best monitored loss, plateau state
 
-Writes are atomic (tmp + rename). Reading the JAX package's msgpack
-checkpoints is not ported yet (ROADMAP.md 'Modules to port', item 9);
-until then, the weight bridge (``mgr_tpu_torch.bridge``) moves weights
-across from numpy.
+A train-state slot is the pair ``params.pt`` + ``opt.pt``; decode and
+evaluate read ``params.pt`` alone. Writes are atomic (tmp + rename).
+Reading the JAX package's msgpack checkpoints is not ported yet
+(ROADMAP.md 'Modules to port', item 9); until then, the weight bridge
+(``mgr_tpu_torch.bridge``) moves weights across from numpy.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import torch
 from torch import nn
 
 from mgr_tpu_torch.core.config import PipelineConfig
+
+
+def _atomic_save(obj, path: str) -> str:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
 
 
 def params_path(workdir: str, stamp: str, slot: str = "best") -> str:
@@ -43,12 +56,8 @@ def load_config(workdir: str, stamp: str) -> PipelineConfig:
 def save_params(workdir: str, stamp: str, model: nn.Module, *,
                 slot: str = "best") -> str:
     os.makedirs(workdir, exist_ok=True)
-    path = params_path(workdir, stamp, slot)
-    tmp = path + ".tmp"
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    return path
+    return _atomic_save(state, params_path(workdir, stamp, slot))
 
 
 def load_params(workdir: str, stamp: str, model: nn.Module, *,
@@ -58,3 +67,76 @@ def load_params(workdir: str, stamp: str, model: nn.Module, *,
                        map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _opt_path(workdir: str, stamp: str, slot: str) -> str:
+    return os.path.join(workdir, f"{stamp}_{slot}.opt.pt")
+
+
+def _to_cpu(x):
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def save_train_state(workdir: str, stamp: str, state, *, slot: str = "latest") -> str:
+    """Write a train state (``train.step.TrainState``) to a slot: its
+    parameters as ``params.pt`` (what decode reads), its step and
+    optimizer state as ``opt.pt``."""
+    os.makedirs(workdir, exist_ok=True)
+    params = {k: v.detach().cpu() for k, v in state.params.items()}
+    _atomic_save({"step": int(state.step), "opt_state": _to_cpu(state.opt_state.state_dict())},
+                 _opt_path(workdir, stamp, slot))
+    return _atomic_save(params, params_path(workdir, stamp, slot))
+
+
+def load_train_state(workdir: str, stamp: str, state, *, slot: str = "latest"):
+    """Restore a slot into ``state`` (same config), in place: parameters
+    copied into the model's tensors, step and optimizer state replaced
+    (on the parameters' device). Returns ``state``."""
+    from mgr_tpu_torch.train.optimizer import AdamState
+
+    params = torch.load(params_path(workdir, stamp, slot), map_location="cpu",
+                        weights_only=True)
+    rest = torch.load(_opt_path(workdir, stamp, slot), map_location="cpu",
+                      weights_only=True)
+    if params.keys() != state.params.keys():
+        raise ValueError(f"checkpoint {stamp}/{slot}: parameters differ from the model's")
+    dev = next(iter(state.params.values())).device
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(params[k])
+
+    def to_dev(x):
+        if isinstance(x, dict):
+            return {k: to_dev(v) for k, v in x.items()}
+        return x.to(dev)
+
+    state.step = int(rest["step"])
+    state.opt_state = AdamState(**to_dev(rest["opt_state"]))
+    return state
+
+
+def has_checkpoint(workdir: str, stamp: str, slot: str = "latest") -> bool:
+    return (os.path.exists(params_path(workdir, stamp, slot))
+            and os.path.exists(_opt_path(workdir, stamp, slot)))
+
+
+def save_fit_meta(workdir: str, stamp: str, meta: dict) -> None:
+    """Sidecar facts about the run that wrote the checkpoints: batches per
+    epoch (fit(resume=True) derives its start epoch as step // batches),
+    the best monitored loss, the plateau controller's state."""
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, f"{stamp}_fitmeta.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, path)
+
+
+def load_fit_meta(workdir: str, stamp: str) -> dict:
+    try:
+        with open(os.path.join(workdir, f"{stamp}_fitmeta.json")) as f:
+            return json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return {}

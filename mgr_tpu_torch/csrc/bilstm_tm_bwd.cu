@@ -1,0 +1,357 @@
+// Time-major bidirectional LSTM backward recurrence for Hopper (sm_90a).
+//
+// Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:_tm_bwd_kernel
+// (launched by _tm_bwd_call from the custom VJP _tm_core_bwd of
+// pallas_bilstm_tm). It is the adjoint of bilstm_tm_fwd.cu. Same function:
+//
+//   direction 0 walks t = T-1 -> 0 (its pre-state is at t-1), direction 1
+//   walks t = 0 -> T-1 (its scan ran backwards: its pre-state is at t+1);
+//   the pre-state is zero past either end.
+//     z     = xp_d[t] + bf16(h_prev) . U_d                 (recomputed, f32)
+//     i,f,o = hard_sigmoid(z);  g = tanh z;  tc = tanh(c_t)
+//     dh    = dhs[t] + dh_carry;  do = dh tc;  dc = dc_carry + dh o (1 - tc^2)
+//     dz    = [dc g hs'(z_i), dc c_prev hs'(z_f), dc i (1 - g^2), do hs'(z_o)]
+//             with hs'(x) = 0.2 on the OPEN interval (-2.5, 2.5), else 0
+//     dh_carry = bf16(dz) . U_d^T  (f32 sums);  dc_carry = dc f
+//   h_prev, c_prev and c_t are the STORED bf16 streams of the forward, as
+//   the TPU kernel reads them. dz is stored in bf16 (gate-blocked, original
+//   time positions); dxp = dz, and dU = sum_t h_prev^T dz is one GEMM
+//   outside the kernel, as in the JAX package.
+//
+// Layouts: xp0, xp1 (T, B, 4H) bf16; U (2, H, 4H) bf16; hs*, cs*, dhs*
+// (T, B, H) bf16; dz0, dz1 (T, B, 4H) bf16.
+//
+// What bounds it on this card: as in the forward, the walk is serial in t
+// and every unit of a step needs the dz of all units of the step before
+// (dh_carry sums over all 4H columns). Per step and direction it is two
+// (B,H)x(H,4H)-sized products, the z recompute and the dh_carry product,
+// then a device-wide dependency.
+//
+// Design: ONE cooperative launch runs all T steps, with one grid barrier
+// per step. Each block owns JS = 8 hidden units of one direction and keeps
+// two f32 slices of U_d in shared memory: the COLUMNS U_d[:, :, slice] for
+// the z recompute (as K1) and the ROWS U_d[slice, :, :] for dh_carry (64 KB
+// each at H=500). Each (batch row, unit) belongs to one thread, which keeps
+// that dc carry in registers for the whole walk; the dh carry of a step is
+// made and used by the same thread within the next step. The only exchange
+// is dz: every block writes its units' columns of dz_t into the kernel's own
+// bf16 dz output, then the grid barrier, then each block reads the full dz_t
+// rows back (one gate, H columns, at a time, staged through shared memory)
+// to form dh_carry for its units. A step stages h_{t-1} the same way for the
+// z recompute. Rows are processed in tiles of BT = 64 (RPT = 2 rows per
+// thread) and a launch covers at most MAX_TILES tiles (256 rows); the host
+// entry runs a larger batch as consecutive launches over slices of rows.
+// At H=500 the grid is 2 x 63 = 126 blocks, one per SM, and shared memory
+// 192 KB. What limits this first version: the grid barrier each step,
+// every block re-reading all of dz_t and h_{t-1} from L2, and FP32 FMAs
+// where tensor cores could run both products.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int JS = 8;                    // hidden units per block
+constexpr int THREADS = 256;
+constexpr int RPT = 2;                   // batch rows per thread
+constexpr int ROW_GROUPS = THREADS / JS; // 32
+constexpr int BT = ROW_GROUPS * RPT;     // batch rows per staged tile
+constexpr int MAX_TILES = 4;             // tiles per launch (dc carry in registers)
+constexpr int MAX_B = MAX_TILES * BT;    // batch rows per launch
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~size_t(15); }
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Keras hard_sigmoid, rounded as in bilstm_tm_fwd.cu.
+__device__ __forceinline__ float hard_sigmoid(float x) {
+  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.0f), 1.0f);
+}
+
+// Its derivative as the TPU kernel takes it: 0.2 on the open interval.
+__device__ __forceinline__ float hard_sigmoid_grad(float x) {
+  return (x > -2.5f && x < 2.5f) ? 0.2f : 0.0f;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
+                     const __nv_bfloat16* __restrict__ xp1,
+                     const __nv_bfloat16* __restrict__ U,
+                     const __nv_bfloat16* __restrict__ hs0,
+                     const __nv_bfloat16* __restrict__ hs1,
+                     const __nv_bfloat16* __restrict__ cs0,
+                     const __nv_bfloat16* __restrict__ cs1,
+                     const __nv_bfloat16* __restrict__ dhs0,
+                     const __nv_bfloat16* __restrict__ dhs1,
+                     __nv_bfloat16* dz0, __nv_bfloat16* dz1,
+                     int T, int B, int ldb, int H, int slices) {
+  // B <= MAX_B rows of a batch whose time steps are ldb rows apart.
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = blockIdx.x / slices;
+  const int j0 = (blockIdx.x % slices) * JS;
+  const int tid = threadIdx.x;
+  const int j = tid % JS;
+  const int rg = tid / JS;
+  const int unit = j0 + j;
+  const bool unit_ok = unit < H;
+  const size_t H4 = 4 * (size_t)H;
+  const int HW = H / 2;  // bf16 pairs per H-long row segment (H is even)
+
+  // Shared memory: uc_s [H][JS] gate quads f32 | ur_s [4][HW][JS] float2 |
+  // stage_s [min(B, BT) rounded up to RPT][HW] bf16 pairs.
+  float* uc_s = reinterpret_cast<float*>(smem);
+  float2* ur_s = reinterpret_cast<float2*>(smem + round16((size_t)H * JS * 4 * 4));
+  uint32_t* stage_s = reinterpret_cast<uint32_t*>(
+      smem + round16((size_t)H * JS * 4 * 4) + round16((size_t)4 * H * JS * 4));
+
+  const __nv_bfloat16* Ud = U + (size_t)d * H * H4;
+  for (int idx = tid; idx < H * JS * 4; idx += THREADS) {
+    const int k = idx / (JS * 4);
+    const int jj = (idx / 4) % JS;
+    const int g = idx % 4;
+    const int u = j0 + jj;
+    uc_s[idx] = u < H ? __bfloat162float(Ud[(size_t)k * H4 + (size_t)g * H + u]) : 0.0f;
+  }
+  for (int idx = tid; idx < 4 * HW * JS; idx += THREADS) {
+    const int jj = idx % JS;
+    const int col = 2 * (idx / JS);  // g * H + 2 kk
+    const int u = j0 + jj;
+    float2 v = make_float2(0.0f, 0.0f);
+    if (u < H) {
+      v.x = __bfloat162float(Ud[(size_t)u * H4 + col]);
+      v.y = __bfloat162float(Ud[(size_t)u * H4 + col + 1]);
+    }
+    ur_s[idx] = v;
+  }
+  __syncthreads();
+
+  float dc_reg[MAX_TILES][RPT];  // dc carry of rows tile * BT + rg * RPT + i, unit j
+#pragma unroll
+  for (int tile = 0; tile < MAX_TILES; ++tile)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) dc_reg[tile][i] = 0.0f;
+
+  const __nv_bfloat16* xp = d == 0 ? xp0 : xp1;
+  const __nv_bfloat16* hs = d == 0 ? hs0 : hs1;
+  const __nv_bfloat16* cs = d == 0 ? cs0 : cs1;
+  const __nv_bfloat16* dhs = d == 0 ? dhs0 : dhs1;
+  __nv_bfloat16* dz = d == 0 ? dz0 : dz1;
+  const float4* u4 = reinterpret_cast<const float4*>(uc_s);  // [H][JS] gate quads
+  cg::grid_group grid = cg::this_grid();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d == 0 ? T - 1 - s : s;
+    const int t_pre = d == 0 ? t - 1 : t + 1;   // where this step's pre-state lives
+    const int t_last = d == 0 ? t + 1 : t - 1;  // the step walked before this one
+    const bool has_pre = t_pre >= 0 && t_pre < T;
+#pragma unroll
+    for (int tile = 0; tile < MAX_TILES; ++tile) {
+      const int b0 = tile * BT;
+      if (b0 >= B) break;  // uniform over the block
+      const int rows = min(BT, B - b0);
+      const bool rows_ok = rg * RPT < rows;  // the staged tile is rounded up to RPT
+
+      // dh carry: dz_{t_last} . U_d^T for this block's units, one gate at a time.
+      float dh_acc[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) dh_acc[i] = 0.0f;
+      if (s > 0) {
+        const uint32_t* dz32 = reinterpret_cast<const uint32_t*>(dz);
+        for (int g = 0; g < 4; ++g) {
+          __syncthreads();  // the previous readers are done with stage_s
+          for (int w = tid; w < rows * HW; w += THREADS) {
+            const int r = w / HW, kk = w % HW;
+            stage_s[w] = __ldcg(dz32 + (((size_t)t_last * ldb + b0 + r) * H4 + (size_t)g * H) / 2 + kk);
+          }
+          __syncthreads();
+          if (rows_ok) {
+            const uint32_t* dz_row = stage_s + (size_t)rg * RPT * HW;
+            const float2* urg = ur_s + (size_t)g * HW * JS;
+            for (int kk = 0; kk < HW; ++kk) {
+              const float2 u = urg[kk * JS + j];
+#pragma unroll
+              for (int i = 0; i < RPT; ++i) {
+                const uint32_t v = dz_row[i * HW + kk];
+                dh_acc[i] = fmaf(bf16_lo(v), u.x, dh_acc[i]);
+                dh_acc[i] = fmaf(bf16_hi(v), u.y, dh_acc[i]);
+              }
+            }
+          }
+        }
+      }
+
+      // z recompute: xp_d[t] + bf16(h_pre) . U_d[:, :, unit], as K1 does.
+      float acc[RPT][4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
+      if (has_pre) {
+        __syncthreads();
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            hs + ((size_t)t_pre * ldb + b0) * H);
+        for (int w = tid; w < rows * HW; w += THREADS) stage_s[w] = src[w];
+        __syncthreads();
+        if (rows_ok) {
+          const uint32_t* h_row = stage_s + (size_t)rg * RPT * HW;
+          for (int kk = 0; kk < HW; ++kk) {
+            const float4 ua = u4[(2 * kk) * JS + j];
+            const float4 ub = u4[(2 * kk + 1) * JS + j];
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              const uint32_t hv = h_row[i * HW + kk];
+              const float h0 = bf16_lo(hv), h1 = bf16_hi(hv);
+              acc[i][0] = fmaf(h0, ua.x, acc[i][0]);
+              acc[i][1] = fmaf(h0, ua.y, acc[i][1]);
+              acc[i][2] = fmaf(h0, ua.z, acc[i][2]);
+              acc[i][3] = fmaf(h0, ua.w, acc[i][3]);
+              acc[i][0] = fmaf(h1, ub.x, acc[i][0]);
+              acc[i][1] = fmaf(h1, ub.y, acc[i][1]);
+              acc[i][2] = fmaf(h1, ub.z, acc[i][2]);
+              acc[i][3] = fmaf(h1, ub.w, acc[i][3]);
+            }
+          }
+        }
+      }
+
+      if (unit_ok) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int r = rg * RPT + i;
+          if (r >= rows) break;
+          const int b = b0 + r;
+          const size_t row4 = ((size_t)t * ldb + b) * H4 + unit;
+          const float zi = __bfloat162float(xp[row4]) + acc[i][0];
+          const float zf = __bfloat162float(xp[row4 + (size_t)H]) + acc[i][1];
+          const float zg = __bfloat162float(xp[row4 + 2 * (size_t)H]) + acc[i][2];
+          const float zo = __bfloat162float(xp[row4 + 3 * (size_t)H]) + acc[i][3];
+          const float ig = hard_sigmoid(zi);
+          const float fg = hard_sigmoid(zf);
+          const float gg = tanhf(zg);
+          const float og = hard_sigmoid(zo);
+          const size_t at = ((size_t)t * ldb + b) * H + unit;
+          const float tc = tanhf(__bfloat162float(cs[at]));
+          const float c_pre =
+              has_pre ? __bfloat162float(cs[((size_t)t_pre * ldb + b) * H + unit]) : 0.0f;
+          const float dh = __bfloat162float(dhs[at]) + dh_acc[i];
+          const float d_o = dh * tc;
+          const float dc = dc_reg[tile][i] + dh * og * (1.0f - tc * tc);
+          dz[row4] = __float2bfloat16_rn((dc * gg) * hard_sigmoid_grad(zi));
+          dz[row4 + (size_t)H] = __float2bfloat16_rn((dc * c_pre) * hard_sigmoid_grad(zf));
+          dz[row4 + 2 * (size_t)H] = __float2bfloat16_rn((dc * ig) * (1.0f - gg * gg));
+          dz[row4 + 3 * (size_t)H] = __float2bfloat16_rn(d_o * hard_sigmoid_grad(zo));
+          dc_reg[tile][i] = dc * fg;
+        }
+      }
+    }
+    if (s + 1 < T) {
+      __threadfence();
+      grid.sync();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" const char* bilstm_tm_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory the kernel needs at this (B, H).
+extern "C" size_t bilstm_tm_bwd_smem_bytes(int B, int H) {
+  const size_t tile_rows = ((size_t)(B < BT ? B : BT) + RPT - 1) / RPT * RPT;
+  return round16((size_t)H * JS * 4 * 4) + round16((size_t)4 * H * JS * 4) +
+         round16(tile_rows * H * 2);
+}
+
+// Blocks per SM at this shared memory size; the kernel's shared memory
+// limit is raised once per device to the opt-in maximum and never lowered
+// (the same rule as bilstm_tm_fwd.cu, where lowering it broke a later,
+// wider launch with error 720).
+static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
+  static std::mutex mu;
+  static std::map<int, int> optin;  // device -> raised limit in bytes
+  static std::map<std::pair<int, size_t>, int> known;
+  std::lock_guard<std::mutex> lock(mu);
+  cudaError_t err;
+  if (optin.find(device) == optin.end()) {
+    int limit = 0;
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(bilstm_tm_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (err != cudaSuccess) return err;
+    optin[device] = limit;
+  }
+  if (smem > (size_t)optin[device]) return cudaErrorInvalidValue;  // H too wide
+  const auto key = std::make_pair(device, smem);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *per_sm = it->second;
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, bilstm_tm_bwd_kernel,
+                                                      THREADS, smem);
+  if (err == cudaSuccess) known[key] = *per_sm;
+  return err;
+}
+
+// Runs the whole backward walk on `stream`, as one cooperative launch per
+// MAX_B batch rows. Returns the first cudaError_t: an oversized grid is
+// refused, never run.
+extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
+                             const void* hs0, const void* hs1,
+                             const void* cs0, const void* cs1,
+                             const void* dhs0, const void* dhs1,
+                             void* dz0, void* dz1,
+                             int T, int B, int H, int device, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || (H & 1)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int slices = (H + JS - 1) / JS;
+  const size_t smem = bilstm_tm_bwd_smem_bytes(B, H);
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = blocks_per_sm(device, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (2 * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+
+  typedef __nv_bfloat16 bf;
+  const size_t H4 = 4 * (size_t)H;
+  for (int b0 = 0; b0 < B; b0 += MAX_B) {
+    // Row b0 of every time step: the batch slice [b0, b0 + nb).
+    const bf* a_xp0 = static_cast<const bf*>(xp0) + b0 * H4;
+    const bf* a_xp1 = static_cast<const bf*>(xp1) + b0 * H4;
+    const bf* a_U = static_cast<const bf*>(U);
+    const bf* a_hs0 = static_cast<const bf*>(hs0) + (size_t)b0 * H;
+    const bf* a_hs1 = static_cast<const bf*>(hs1) + (size_t)b0 * H;
+    const bf* a_cs0 = static_cast<const bf*>(cs0) + (size_t)b0 * H;
+    const bf* a_cs1 = static_cast<const bf*>(cs1) + (size_t)b0 * H;
+    const bf* a_dhs0 = static_cast<const bf*>(dhs0) + (size_t)b0 * H;
+    const bf* a_dhs1 = static_cast<const bf*>(dhs1) + (size_t)b0 * H;
+    bf* a_dz0 = static_cast<bf*>(dz0) + b0 * H4;
+    bf* a_dz1 = static_cast<bf*>(dz1) + b0 * H4;
+    int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ldb = B, a_H = H;
+    int a_slices = slices;
+    void* args[] = {&a_xp0, &a_xp1, &a_U, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
+                    &a_dhs0, &a_dhs1, &a_dz0, &a_dz1,
+                    &a_T, &a_B, &a_ldb, &a_H, &a_slices};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bilstm_tm_bwd_kernel),
+                                      dim3(2 * slices), dim3(THREADS), args, smem,
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}

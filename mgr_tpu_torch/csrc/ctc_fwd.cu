@@ -16,7 +16,11 @@
 // Inputs: log_probs (T, B, K) f32 time-major; labels (B, N) int32, padded
 // with -1 (read as 0, as the JAX package does; a label >= K scores 0, as
 // its one-hot packing does); input_lengths,
-// label_lengths (B,) int32. Output: loss (B,) f32.
+// label_lengths (B,) int32. Output: loss (B,) f32 and, when the training
+// path asks for them (non-null pointers), the post-step alphas of every
+// frame, time-major like the input: alpha_phi (T, B, N+1) and alpha_emit
+// (T, B, N) f32, frozen for t >= input_length as the TPU kernel writes
+// a_next / p_next. The CTC backward kernel (ctc_bwd.cu) reads them.
 //
 // What bounds it on this card: T dependent steps of a few transcendental
 // functions per column, and the latency of each step's read of the
@@ -32,9 +36,9 @@
 // the time-major log-probs (the row of K floats stays in L1), one step
 // ahead so the load's latency hides behind the current step. The only
 // cross-thread dependency, emit[n-1], goes through a double-buffered
-// shared array with one __syncthreads per step. The per-step alphas that
-// the backward kernel will need are not stored (the eval path needs only
-// the loss).
+// shared array with one __syncthreads per step. The alpha store adds two
+// coalesced f32 stores per column per step (73 MB at B=32, T'=1898,
+// N=150); the eval path passes null pointers and stores nothing.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +56,8 @@ __global__ void ctc_fwd_kernel(const float* __restrict__ log_probs,
                                const int* __restrict__ input_lengths,
                                const int* __restrict__ label_lengths,
                                float* __restrict__ loss,
+                               float* __restrict__ alpha_phi,
+                               float* __restrict__ alpha_emit,
                                int T, int B, int K, int N, int blank) {
   extern __shared__ float emit_s[];  // [2][N + 1]
   const int b = blockIdx.x;
@@ -93,8 +99,18 @@ __global__ void ctc_fwd_kernel(const float* __restrict__ log_probs,
       const float new_emit = emit_col ? lse(lse(emit, phi), shift + skip) + cur_e : NEG;
       phi = lse(phi, shift) + cur_b;
       emit = new_emit;
+      if (alpha_phi != nullptr) {
+        alpha_phi[((size_t)t * B + b) * W + n] = phi;
+        if (emit_col) alpha_emit[((size_t)t * B + b) * N + n] = emit;
+      }
     }
     buf ^= 1;
+  }
+  if (alpha_phi != nullptr && column) {  // frozen carries past the length
+    for (int t = len; t < T; ++t) {
+      alpha_phi[((size_t)t * B + b) * W + n] = phi;
+      if (emit_col) alpha_emit[((size_t)t * B + b) * N + n] = emit;
+    }
   }
 
   __syncthreads();  // the last step's readers are done with emit_s
@@ -118,12 +134,15 @@ extern "C" const char* ctc_fwd_error_string(int err) {
 }
 
 // Launches B blocks of ceil32(N + 1) threads on `stream`; returns the
-// cudaError_t of the launch.
+// cudaError_t of the launch. alpha_phi / alpha_emit are both null (loss
+// only) or both set (store the alphas).
 extern "C" int ctc_fwd(const void* log_probs, const void* labels,
                        const void* input_lengths, const void* label_lengths,
-                       void* loss, int T, int B, int K, int N, int blank,
+                       void* loss, void* alpha_phi, void* alpha_emit,
+                       int T, int B, int K, int N, int blank,
                        int device, void* stream) {
-  if (T < 0 || B <= 0 || K <= 0 || N < 0 || N + 1 > 1024 || blank < 0 || blank >= K)
+  if (T < 0 || B <= 0 || K <= 0 || N < 0 || N + 1 > 1024 || blank < 0 || blank >= K ||
+      (alpha_phi == nullptr) != (alpha_emit == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -132,6 +151,7 @@ extern "C" int ctc_fwd(const void* log_probs, const void* labels,
   ctc_fwd_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(log_probs), static_cast<const int*>(labels),
       static_cast<const int*>(input_lengths), static_cast<const int*>(label_lengths),
-      static_cast<float*>(loss), T, B, K, N, blank);
+      static_cast<float*>(loss), static_cast<float*>(alpha_phi),
+      static_cast<float*>(alpha_emit), T, B, K, N, blank);
   return cudaGetLastError();
 }

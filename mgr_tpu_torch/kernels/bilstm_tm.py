@@ -1,11 +1,13 @@
-"""Wrapper of kernel K1, the time-major BiLSTM forward recurrence
-(``csrc/bilstm_tm_fwd.cu``; replaces
-``mgr_tpu/ops/pallas_kernels.py:_tm_fwd_kernel``).
+"""Wrappers of kernels K1 and K2, the time-major BiLSTM recurrence and its
+adjoint (``csrc/bilstm_tm_fwd.cu`` replaces
+``mgr_tpu/ops/pallas_kernels.py:_tm_fwd_kernel``; ``csrc/bilstm_tm_bwd.cu``
+replaces ``_tm_bwd_kernel``), and :class:`BiLSTMTm`, the autograd
+Function that pairs them as ``_tm_core`` pairs the Pallas kernels.
 
-A CPU tensor goes to ``ops.lstm.bilstm_scan_tm_plain``; a CUDA tensor
-launches the kernel or raises. Like ``pallas_bilstm_tm`` the kernel takes
-bf16 operands whatever the compute dtype, stores the h stream in bf16
-and returns it as f32.
+A CPU tensor goes to the plain versions in ``ops.lstm``; a CUDA tensor
+launches the kernel or raises. Like ``pallas_bilstm_tm`` the kernels take
+bf16 operands whatever the compute dtype and keep the h and c streams in
+bf16.
 """
 
 from __future__ import annotations
@@ -21,16 +23,90 @@ from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops import lstm as _lstm
 
 NAME = "bilstm_tm_fwd"
+BWD_NAME = "bilstm_tm_bwd"
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(NAME)
-    fn = lib.bilstm_tm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _lib(name: str, n_ptrs: int) -> ctypes.CDLL:
+    lib = build.load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.bilstm_tm_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.bilstm_tm_fwd_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _device_and_stream(t: torch.Tensor):
+    dev = t.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _even(*streams: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """bf16 contiguous operands. The kernels read rows as bf16 pairs: pad
+    an odd H with one dead unit (zero projection, weights and streams keep
+    it at 0)."""
+    out = []
+    for x in streams:
+        x = x.to(torch.bfloat16)
+        if x.shape[-1] & 1:
+            x = F.pad(x, (0, 1))
+        out.append(x.contiguous())
+    return tuple(out)
+
+
+def _even_u(U: torch.Tensor) -> torch.Tensor:
+    """U (2, H, 4, H) as :func:`_even`, padded on both H axes."""
+    U = U.to(torch.bfloat16)
+    if U.shape[-1] & 1:
+        U = F.pad(U, (0, 1, 0, 0, 0, 1))
+    return U.contiguous()
+
+
+def _check_shapes(name: str, xp0, xp1, U) -> Tuple[int, int, int]:
+    T, B, four, H = xp0.shape
+    if four != 4 or xp1.shape != xp0.shape or U.shape != (2, H, 4, H):
+        raise ValueError(
+            f"{name}: want xp (T,B,4,H) x2 and U (2,H,4,H), got "
+            f"{tuple(xp0.shape)}, {tuple(xp1.shape)}, {tuple(U.shape)}"
+        )
+    return T, B, H
+
+
+def bilstm_tm_streams(
+    xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
+    *, store_c: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """K1: the stored streams hs0, hs1 (and cs0, cs1 with ``store_c``),
+    (T, B, H) each, direction 1 scanned T-1 -> 0 and stored at original
+    positions. bf16 from the kernel; in the compute dtype (xp's) from the
+    plain version."""
+    T, B, H = _check_shapes("bilstm_tm", xp0, xp1, U)
+    if not dispatch.on_card(xp0, xp1, U):
+        return _lstm.bilstm_scan_tm_plain(
+            xp0, xp1, U, store_c=store_c, out_dtype=xp0.dtype)
+    xp0k, xp1k = _even(xp0, xp1)
+    Uk = _even_u(U)
+    Hk = xp0k.shape[-1]
+    dev = xp0.device
+    bf = torch.bfloat16
+    hs0 = torch.empty((T, B, Hk), dtype=bf, device=dev)
+    hs1 = torch.empty_like(hs0)
+    cs0 = torch.empty_like(hs0) if store_c else None
+    cs1 = torch.empty_like(hs0) if store_c else None
+    lib = _lib(NAME, 7)
+    err = lib.bilstm_tm_fwd(
+        xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
+        hs0.data_ptr(), hs1.data_ptr(),
+        cs0.data_ptr() if store_c else None,
+        cs1.data_ptr() if store_c else None,
+        T, B, Hk, *_device_and_stream(xp0),
+    )
+    build.check(lib, NAME, err)
+    dispatch.count_launch(NAME)
+    out = (hs0, hs1) + ((cs0, cs1) if store_c else ())
+    return tuple(s[..., :H] for s in out)
 
 
 def bilstm_tm(
@@ -41,41 +117,65 @@ def bilstm_tm(
     U (2, H, 4, H). Returns hs0, hs1 (T, B, H) f32 (and cs0, cs1 with
     ``store_c``), direction 1 scanned T-1 -> 0 and stored at original
     positions."""
-    T, B, four, H = xp0.shape
-    if four != 4 or xp1.shape != xp0.shape or U.shape != (2, H, 4, H):
-        raise ValueError(
-            f"bilstm_tm: want xp (T,B,4,H) x2 and U (2,H,4,H), got "
-            f"{tuple(xp0.shape)}, {tuple(xp1.shape)}, {tuple(U.shape)}"
-        )
-    if not dispatch.on_card(xp0, xp1, U):
-        return _lstm.bilstm_scan_tm_plain(xp0, xp1, U, store_c=store_c)
+    return tuple(s.float() for s in bilstm_tm_streams(xp0, xp1, U, store_c=store_c))
 
-    # The kernel reads h rows as bf16 pairs: pad an odd H with one dead
-    # unit (zero projection and zero weights keep its h at 0).
-    Hk = H + (H & 1)
-    bf = torch.bfloat16
-    xp0k, xp1k, Uk = xp0.to(bf), xp1.to(bf), U.to(bf)
-    if Hk != H:
-        xp0k, xp1k = (F.pad(x, (0, 1)) for x in (xp0k, xp1k))
-        Uk = F.pad(Uk, (0, 1, 0, 0, 0, 1))
-    xp0k, xp1k, Uk = (x.contiguous() for x in (xp0k, xp1k, Uk))
-    dev = xp0.device
-    hs0 = torch.empty((T, B, Hk), dtype=bf, device=dev)
-    hs1 = torch.empty_like(hs0)
-    cs0 = torch.empty_like(hs0) if store_c else None
-    cs1 = torch.empty_like(hs0) if store_c else None
-    lib = _lib()
-    err = lib.bilstm_tm_fwd(
+
+def bilstm_tm_bwd(
+    xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
+    hs0: torch.Tensor, hs1: torch.Tensor, cs0: torch.Tensor, cs1: torch.Tensor,
+    dhs0: torch.Tensor, dhs1: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: dz0, dz1 (T, B, 4, H), the gate adjoints of both directions,
+    from the forward's operands, its stored streams (T, B, H) and the
+    streams' cotangents (T, B, H). bf16 from the kernel; in the compute
+    dtype from the plain version."""
+    T, B, H = _check_shapes("bilstm_tm_bwd", xp0, xp1, U)
+    for s in (hs0, hs1, cs0, cs1, dhs0, dhs1):
+        if s.shape != (T, B, H):
+            raise ValueError(f"bilstm_tm_bwd: want streams {(T, B, H)}, got {tuple(s.shape)}")
+    if not dispatch.on_card(xp0, xp1, U, hs0, hs1, cs0, cs1, dhs0, dhs1):
+        return _lstm.bilstm_scan_tm_bwd_plain(
+            xp0, xp1, U, hs0, hs1, cs0, cs1, dhs0, dhs1)[:2]
+    xp0k, xp1k = _even(xp0, xp1)
+    Uk = _even_u(U)
+    streams = _even(hs0, hs1, cs0, cs1, dhs0, dhs1)
+    Hk = xp0k.shape[-1]
+    dz0 = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp0.device)
+    dz1 = torch.empty_like(dz0)
+    lib = _lib(BWD_NAME, 11)
+    err = lib.bilstm_tm_bwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
-        hs0.data_ptr(), hs1.data_ptr(),
-        cs0.data_ptr() if store_c else None,
-        cs1.data_ptr() if store_c else None,
-        T, B, Hk, dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(s.data_ptr() for s in streams),
+        dz0.data_ptr(), dz1.data_ptr(),
+        T, B, Hk, *_device_and_stream(xp0),
     )
-    build.check(lib, NAME, err)
-    dispatch.count_launch(NAME)
-    out = (hs0[..., :H].float(), hs1[..., :H].float())
-    if store_c:
-        out += (cs0[..., :H].float(), cs1[..., :H].float())
-    return out
+    build.check(lib, BWD_NAME, err)
+    dispatch.count_launch(BWD_NAME)
+    return dz0[..., :H], dz1[..., :H]
+
+
+class BiLSTMTm(torch.autograd.Function):
+    """``(xp0, xp1, U) -> (hs0, hs1)`` f32, differentiable in all three:
+    K1 forward with the c streams stored, K2 backward, and the
+    recurrent-weight gradient as one GEMM outside the kernel
+    (``_tm_core`` / ``_tm_core_bwd``, ``pallas_kernels.py:1002-1031``).
+
+    The forward saves the streams as stored (bf16 on the card), not f32
+    copies. The backward rounds the cotangents to the stream dtype before
+    K2 (``:1015``), returns dxp = dz in xp's dtype (``:1028``) and dU
+    rounded through the stream dtype, as JAX rounds it to the bf16 U the
+    kernel was given (``:1027``)."""
+
+    @staticmethod
+    def forward(ctx, xp0, xp1, U):
+        hs0, hs1, cs0, cs1 = bilstm_tm_streams(xp0, xp1, U, store_c=True)
+        ctx.save_for_backward(xp0, xp1, U, hs0, hs1, cs0, cs1)
+        return hs0.float(), hs1.float()
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        xp0, xp1, U, hs0, hs1, cs0, cs1 = ctx.saved_tensors
+        sd = hs0.dtype
+        dz0, dz1 = bilstm_tm_bwd(xp0, xp1, U, hs0, hs1, cs0, cs1, g0.to(sd), g1.to(sd))
+        dU = _lstm.recurrent_weight_grad(hs0, hs1, dz0, dz1)
+        return dz0.to(xp0.dtype), dz1.to(xp1.dtype), dU.to(sd).to(U.dtype)

@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -73,6 +74,14 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_compile(name)))
         return _libs[name]
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build ``names`` with one nvcc process each, all started together,
+    then load them."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_compile, names))
+    return {name: load(name) for name in names}
 
 
 def build_log(name: str) -> str:

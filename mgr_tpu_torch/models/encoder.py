@@ -3,29 +3,34 @@ sum of the last two layers (``mgr_tpu/models/encoder.py``)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import EncoderConfig
 from mgr_tpu_torch.models.layers import gaussian_noise
 from mgr_tpu_torch.ops import lstm
 
 
 class BiLSTM(nn.Module):
-    """One bidirectional layer: gate-blocked ``W (2, F, 4, H)``,
+    """One bidirectional layer: trainable gate-blocked ``W (2, F, 4, H)``,
     ``U (2, H, 4, H)``, ``b (2, 4, H)`` (``ops/lstm.py:54-81``)."""
 
     def __init__(self, params: lstm.Params):
         super().__init__()
-        self.W = nn.Parameter(params["W"], requires_grad=False)
-        self.U = nn.Parameter(params["U"], requires_grad=False)
-        self.b = nn.Parameter(params["b"], requires_grad=False)
+        self.W = nn.Parameter(params["W"])
+        self.U = nn.Parameter(params["U"])
+        self.b = nn.Parameter(params["b"])
 
-    def forward(self, x_tm: torch.Tensor, *, train: bool = False,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    def forward(self, x_tm: torch.Tensor, *, rng: Optional[prng.Key] = None,
+                dropout: float = 0.0, per_gate: bool = False,
+                train: bool = False, compute_dtype=torch.bfloat16) -> torch.Tensor:
         return lstm.bilstm_layer_tm(
-            {"W": self.W, "U": self.U, "b": self.b}, x_tm,
-            train=train, compute_dtype=compute_dtype,
+            {"W": self.W, "U": self.U, "b": self.b}, x_tm, rng=rng,
+            dropout=dropout, per_gate=per_gate, train=train,
+            compute_dtype=compute_dtype,
         )
 
 
@@ -45,14 +50,25 @@ class Encoder(nn.Module):
             d = 2 * cfg.hidden
 
     def apply_tm(self, x_tm: torch.Tensor, *, train: bool = False,
+                 rng: Optional[prng.Key] = None,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
         """(T, B, F) -> (T, B, 2H) residual stream in the compute dtype
-        (``apply_encoder_tm``, ``mgr_tpu/models/encoder.py:36-72``)."""
-        h = gaussian_noise(x_tm, self.cfg.input_noise, train)
+        (``apply_encoder_tm``, ``mgr_tpu/models/encoder.py:36-72``): noise
+        from ``fold_name(rng, "noise")``, layer i's dropout from
+        ``fold_name(rng, f"drop_{i}")``."""
+        cfg = self.cfg
+
+        def sub(name):
+            return None if rng is None else prng.fold_name(rng, name)
+
+        h = gaussian_noise(x_tm, cfg.input_noise, sub("noise"), train)
         outs = []
-        for i in range(self.cfg.depth):
+        for i in range(cfg.depth):
+            rate = cfg.dropout[i] if i < len(cfg.dropout) else cfg.dropout[-1]
             h = getattr(self, f"blstm_{i}")(
-                h, train=train, compute_dtype=compute_dtype
+                h, rng=sub(f"drop_{i}"), dropout=rate,
+                per_gate=cfg.per_gate_dropout, train=train,
+                compute_dtype=compute_dtype,
             )
             outs.append(h)
         if self.cfg.residual and self.cfg.depth >= 2:

@@ -1,18 +1,20 @@
 """Shared layer primitives: dense, Gaussian noise, dropout.
 
-Counterpart of ``mgr_tpu/models/layers.py`` for the eval path. Kernels
-are RandomUniform(-0.05, 0.05), biases zero. The CNN frontend (RGB) is
-not ported yet.
+Counterpart of ``mgr_tpu/models/layers.py``. Kernels are
+RandomUniform(-0.05, 0.05), biases zero. Noise and dropout draw from
+``core.prng`` keys in train mode and are the identity otherwise. The
+CNN frontend (RGB) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from mgr_tpu_torch.ops.lstm import TRAIN_NOT_PORTED, matmul_f32
+from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.ops.lstm import matmul_f32
 
 Params = Dict[str, torch.Tensor]
 
@@ -29,28 +31,40 @@ def dense(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torc
     return matmul_f32(x.to(compute_dtype), params["W"].to(compute_dtype)) + params["b"]
 
 
-def gaussian_noise(x: torch.Tensor, stddev: float, train: bool) -> torch.Tensor:
-    """Keras GaussianNoise: the identity in eval mode."""
-    if train and stddev:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
-    return x
+def gaussian_noise(
+    x: torch.Tensor, stddev: float, rng: Optional[prng.Key], train: bool
+) -> torch.Tensor:
+    """Keras GaussianNoise: ``x + stddev * N(0, 1)`` in x's dtype, train
+    mode only."""
+    if not train or stddev == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("gaussian_noise requires an rng in train mode")
+    return x + stddev * prng.normal(rng, tuple(x.shape), x.dtype, x.device)
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
-    """Dropout: the identity in eval mode."""
-    if train and rate:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
-    return x
+def dropout(
+    x: torch.Tensor, rate: float, rng: Optional[prng.Key], train: bool
+) -> torch.Tensor:
+    """Inverted dropout ``x * mask / keep``, computed in x's dtype as JAX
+    does (the scalar keep converted to that dtype)."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout requires an rng in train mode")
+    keep = 1.0 - rate
+    mask = prng.bernoulli(rng, keep, tuple(x.shape), x.device).to(x.dtype)
+    return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
 
 
 class Dense(nn.Module):
-    """Parameters ``W (in, out)`` and ``b (out,)``, keyed as in the JAX
-    pytree (``head.W`` <-> ``params["head"]["W"]``)."""
+    """Trainable parameters ``W (in, out)`` and ``b (out,)``, keyed as in
+    the JAX pytree (``head.W`` <-> ``params["head"]["W"]``)."""
 
     def __init__(self, params: Params):
         super().__init__()
-        self.W = nn.Parameter(params["W"], requires_grad=False)
-        self.b = nn.Parameter(params["b"], requires_grad=False)
+        self.W = nn.Parameter(params["W"])
+        self.b = nn.Parameter(params["b"])
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
         return dense({"W": self.W, "b": self.b}, x, compute_dtype)

@@ -4,17 +4,20 @@ Ported so far: the uni-modal family, speech and skeletal
 (``_build_unimodal``): encoder, then the dense head. ``apply_tm`` maps
 (B, T, F) inputs to (T, B, C) logits, keeping every large tensor
 time-major as the kernels want; ``forward`` is its transpose, the (B, T,
-C) logits of the JAX ``ModelDef.apply``. Parameters are registered so
-that ``state_dict()`` keys are the JAX pytree paths joined with dots.
+C) logits of the JAX ``ModelDef.apply``; with ``train=True`` and a
+``core.prng`` key they draw noise and dropout on the JAX package's fold
+paths. Parameters are trainable and registered so that ``state_dict()``
+keys are the JAX pytree paths joined with dots.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import PipelineConfig
 from mgr_tpu_torch.models import layers
 from mgr_tpu_torch.models.encoder import Encoder
@@ -44,17 +47,30 @@ class UnimodalModel(nn.Module):
             head["b"][cfg.nb_classes - 1] = cfg.head_blank_bias
         self.head = layers.Dense(head)
 
-    def apply_tm(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        """(B, T, F) inputs -> (T, B, C) f32 logits."""
+    def apply_tm(self, x: torch.Tensor, *, train: bool = False,
+                 rng: Optional[prng.Key] = None) -> torch.Tensor:
+        """(B, T, F) inputs -> (T, B, C) f32 logits. In train mode the
+        encoder draws from ``rng`` and the head's dropout from
+        ``fold_name(rng, "head_drop")`` (``mgr_tpu/models/zoo.py:65-98``)."""
         h = self.encoder.apply_tm(
-            x.transpose(0, 1), train=train, compute_dtype=self.compute_dtype
+            x.transpose(0, 1), train=train, rng=rng,
+            compute_dtype=self.compute_dtype,
         )
-        h = layers.dropout(h, self.config.encoder.output_dropout, train)
+        h = layers.dropout(
+            h, self.config.encoder.output_dropout,
+            None if rng is None else prng.fold_name(rng, "head_drop"), train,
+        )
         return self.head(h, self.compute_dtype)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                rng: Optional[prng.Key] = None) -> torch.Tensor:
         """(B, T, F) inputs -> (B, T, C) f32 logits (``ModelDef.apply``)."""
-        return self.apply_tm(x, train=train).transpose(0, 1)
+        return self.apply_tm(x, train=train, rng=rng).transpose(0, 1)
+
+    def trainable(self) -> Dict[str, bool]:
+        """Which parameters the optimizer updates, by ``state_dict`` key
+        (``_all_trainable``: every leaf of the uni-modal family)."""
+        return {name: True for name, _ in self.named_parameters()}
 
 
 def _build_unimodal(cfg: PipelineConfig, gen: torch.Generator) -> UnimodalModel:

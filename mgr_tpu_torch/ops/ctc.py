@@ -1,4 +1,4 @@
-"""CTC loss: log-space forward recursion (eval path).
+"""CTC loss: log-space forward recursion and its exact adjoint.
 
 Counterpart of ``mgr_tpu/ops/ctc.py``, with its conventions:
 
@@ -13,14 +13,16 @@ Counterpart of ``mgr_tpu/ops/ctc.py``, with its conventions:
     labels are equal, and freezes the carries for ``t >= input_length``.
 
 The recursion is kernel K3 (``csrc/ctc_fwd.cu``) on a CUDA device and
-:func:`ctc_alpha_loss_plain` on the CPU, chosen by
-``mgr_tpu_torch.kernels.ctc``. Log-softmax stays plain PyTorch.
+:func:`ctc_alpha_loss_plain` on the CPU; its adjoint is kernel K4
+(``csrc/ctc_bwd.cu``) and :func:`ctc_alpha_bwd_plain`, chosen by
+``mgr_tpu_torch.kernels.ctc``, whose ``CTCAlphaLoss`` differentiates the
+loss whenever autograd records. Log-softmax stays plain PyTorch.
 ``torch.nn.functional.ctc_loss`` appears only in the tests, as an oracle.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -29,42 +31,59 @@ from mgr_tpu_torch.kernels import ctc as _kernel
 LOG_EPS = -1e5  # effectively -inf, as in the JAX package
 
 
+def _lattice(log_probs_tm: torch.Tensor, labels: torch.Tensor, blank: int):
+    """Emission scores of every label at every frame (T, B, N) (a label
+    >= K scores 0, as the JAX one-hot packing does), the blank column
+    (T, B), the labels read as classes (B, N) with their in-range mask,
+    and the skip penalty (B, N): LOG_EPS at column 0 and where a label
+    repeats the one before it."""
+    T, B, K = log_probs_tm.shape
+    N = labels.shape[1]
+    lp = log_probs_tm.to(torch.float32)
+    lab = labels.to(torch.int64).clamp_min(0)
+    in_range = lab < K
+    idx = torch.where(in_range, lab, 0)
+    lp_emit = torch.gather(lp, 2, idx[None].expand(T, B, N)) * in_range[None]
+    lp_phi = lp[:, :, blank]
+    same = lab[:, 1:] == lab[:, :-1]
+    skip = torch.cat([
+        torch.ones_like(lab[:, :1], dtype=torch.bool), same], dim=1)
+    skip = torch.where(skip, LOG_EPS, 0.0).to(torch.float32)[:, :N]
+    return lp_emit, lp_phi, idx, in_range, skip
+
+
 def ctc_alpha_loss_plain(
     log_probs_tm: torch.Tensor,
     labels: torch.Tensor,
     input_lengths: torch.Tensor,
     label_lengths: torch.Tensor,
     blank: int,
-) -> torch.Tensor:
+    *,
+    store_alphas: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Plain phi/emit recursion over time: the reference for kernel K3.
 
     log_probs_tm (T, B, K); labels (B, N) -1 padded; lengths (B,).
-    Returns the per-sequence negative log-likelihood (B,) f32.
-    (``mgr_tpu/ops/ctc.py:74-148``.)"""
+    Returns the per-sequence negative log-likelihood (B,) f32
+    (``mgr_tpu/ops/ctc.py:74-148``), and with ``store_alphas`` also the
+    post-step alphas alpha_phi (T, B, N+1) and alpha_emit (T, B, N) f32,
+    frozen for t >= input_length (``pallas_kernels.py:439-443``)."""
     T, B, K = log_probs_tm.shape
     N = labels.shape[1]
     dev = log_probs_tm.device
-    lp = log_probs_tm.to(torch.float32)
-    lab = labels.to(torch.int64).clamp_min(0)
+    lp_emit, lp_phi, _, _, skip = _lattice(log_probs_tm, labels, blank)
     in_len = input_lengths.to(torch.int64).reshape(B)
-    lab_len = label_lengths.to(torch.int64).reshape(B)
-
-    # Emission scores of every label at every frame (a label >= K scores
-    # 0, as the JAX one-hot packing does), and the blank column.
-    in_range = lab < K
-    idx = torch.where(in_range, lab, 0)[None].expand(T, B, N)
-    lp_emit = torch.gather(lp, 2, idx) * in_range[None]  # (T, B, N)
-    lp_phi = lp[:, :, blank]  # (T, B)
-
-    same = lab[:, 1:] == lab[:, :-1]
-    skip = torch.where(same, LOG_EPS, 0.0).to(torch.float32)  # (B, N-1)
+    lab_len = label_lengths.to(torch.int64).reshape(B).clamp(0, N)
     neg_col = torch.full((B, 1), LOG_EPS, dtype=torch.float32, device=dev)
 
     phi = torch.full((B, N + 1), LOG_EPS, dtype=torch.float32, device=dev)
     phi[:, 0] = 0.0
     emit = torch.full((B, N), LOG_EPS, dtype=torch.float32, device=dev)
+    if store_alphas:
+        alpha_phi = torch.empty((T, B, N + 1), dtype=torch.float32, device=dev)
+        alpha_emit = torch.empty((T, B, N), dtype=torch.float32, device=dev)
     for t in range(T):
-        prev_shift = torch.cat([neg_col, emit[:, :-1] + skip], dim=1)
+        prev_shift = torch.cat([neg_col, emit[:, :-1]], dim=1) + skip
         new_emit = torch.logaddexp(
             torch.logaddexp(emit, phi[:, :N]), prev_shift
         ) + lp_emit[t]
@@ -73,13 +92,81 @@ def ctc_alpha_loss_plain(
         valid = (t < in_len)[:, None]
         phi = torch.where(valid, new_phi, phi)
         emit = torch.where(valid, new_emit, emit)
+        if store_alphas:
+            alpha_phi[t], alpha_emit[t] = phi, emit
 
     rows = torch.arange(B, device=dev)
     final_phi = phi[rows, lab_len]
     final_emit = torch.where(
         lab_len > 0, emit[rows, (lab_len - 1).clamp_min(0)], LOG_EPS
     )
-    return -torch.logaddexp(final_phi, final_emit)
+    loss = -torch.logaddexp(final_phi, final_emit)
+    return (loss, alpha_phi, alpha_emit) if store_alphas else loss
+
+
+def ctc_alpha_bwd_plain(
+    log_probs_tm: torch.Tensor,
+    labels: torch.Tensor,
+    input_lengths: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank: int,
+    alpha_phi: torch.Tensor,
+    alpha_emit: torch.Tensor,
+    g_phi: torch.Tensor,
+    g_emit: torch.Tensor,
+) -> torch.Tensor:
+    """Plain adjoint of the recursion: the reference for kernel K4
+    (``_ctc_bwd_kernel``, ``pallas_kernels.py:491-572``, seeded as
+    ``_ctc_alpha_loss_bwd`` :658-684 seeds it).
+
+    From the post-step alphas of :func:`ctc_alpha_loss_plain` and the
+    seeds g_phi (B,) at phi[L] and g_emit (B,) at emit[L-1] (ignored where
+    L = 0), walks time in reverse: the weights ``exp(prev - y_pre)``, the
+    left-shift adjoint of the forward's right shift, ``d lp_blank =
+    sum_n dphi``, and zero on frames with t >= input_length. The emission
+    adjoints are scattered onto their classes (adding where labels
+    repeat). Returns d log_probs (T, B, K) f32."""
+    T, B, K = log_probs_tm.shape
+    N = labels.shape[1]
+    dev = log_probs_tm.device
+    lp_emit, lp_phi, idx, in_range, skip = _lattice(log_probs_tm, labels, blank)
+    in_len = input_lengths.to(torch.int64).reshape(B)
+    lab_len = label_lengths.to(torch.int64).reshape(B).clamp(0, N)
+    rows = torch.arange(B, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    dp = torch.zeros((B, N + 1), **f32)
+    dp[rows, lab_len] = g_phi.to(torch.float32)
+    da = torch.zeros((B, N + 1), **f32)  # column N: no emission, stays 0
+    da[rows, (lab_len - 1).clamp_min(0)] = torch.where(
+        lab_len > 0, g_emit.to(torch.float32), 0.0)
+    da = da[:, :N].contiguous()
+    neg_col = torch.full((B, 1), LOG_EPS, **f32)
+    zero_col = torch.zeros((B, 1), **f32)
+    init_e = torch.full((B, N), LOG_EPS, **f32)
+    init_p = torch.full((B, N + 1), LOG_EPS, **f32)
+    init_p[:, 0] = 0.0
+
+    dlp = torch.zeros((T, B, K), **f32)
+    for t in reversed(range(T)):
+        e_prev = alpha_emit[t - 1] if t > 0 else init_e
+        p_prev = alpha_phi[t - 1] if t > 0 else init_p
+        shift = torch.cat([neg_col, e_prev], dim=1)  # (B, N+1): emit[n-1]
+        y_e = alpha_emit[t] - lp_emit[t]
+        y_p = alpha_phi[t] - lp_phi[t][:, None]
+        dsa = da * torch.exp(shift[:, :N] + skip - y_e)
+        des = dp * torch.exp(shift - y_p)
+        da_prev = da * torch.exp(e_prev - y_e) + torch.cat([dsa[:, 1:], zero_col], dim=1)
+        da_prev = da_prev + des[:, 1:]
+        dp_prev = torch.cat([da * torch.exp(p_prev[:, :N] - y_e), zero_col], dim=1)
+        dp_prev = dp_prev + dp * torch.exp(p_prev - y_p)
+
+        valid = (t < in_len)[:, None]
+        dlp[t].scatter_add_(1, idx, torch.where(valid & in_range, da, 0.0))
+        dlp[t, :, blank] += torch.where(valid[:, 0], dp.sum(dim=1), 0.0)
+        da = torch.where(valid, da_prev, da)
+        dp = torch.where(valid, dp_prev, dp)
+    return dlp
 
 
 def ctc_loss(
@@ -98,6 +185,10 @@ def ctc_loss(
     lp_tm = log_probs if time_major else log_probs.transpose(0, 1)
     if blank is None:
         blank = lp_tm.shape[-1] - 1
+    if torch.is_grad_enabled() and lp_tm.requires_grad:
+        return _kernel.CTCAlphaLoss.apply(
+            lp_tm, labels, input_lengths, label_lengths, blank
+        )
     return _kernel.ctc_alpha_loss(
         lp_tm, labels, input_lengths, label_lengths, blank
     )

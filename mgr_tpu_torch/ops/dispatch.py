@@ -9,7 +9,7 @@ plain version: the kernel launches or the wrapper raises.
 Each kernel wrapper adds one to its counter where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels (``chip_smoke.py`` resets the counters, drives the
-serving path and reads them back).
+serving and training paths and reads them back).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("bilstm_tm_fwd", "ctc_fwd")
+KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,4 +1,4 @@
-"""Bidirectional LSTM with Keras-2 semantics, time-major (eval path).
+"""Bidirectional LSTM with Keras-2 semantics, time-major.
 
 Counterpart of ``mgr_tpu/ops/lstm.py``. Same parameters, same layouts,
 same numerics:
@@ -18,10 +18,12 @@ same numerics:
   * carries are f32; the emitted h stream is rounded to the compute
     dtype.
 
-The recurrence itself is kernel K1 (``csrc/bilstm_tm_fwd.cu``) on a CUDA
-device and :func:`bilstm_scan_tm_plain` on the CPU, chosen by
-``mgr_tpu_torch.kernels.bilstm_tm``. Training (dropout masks, the
-backward kernel) is not ported yet.
+The recurrence is kernel K1 (``csrc/bilstm_tm_fwd.cu``) on a CUDA device
+and :func:`bilstm_scan_tm_plain` on the CPU; its adjoint is kernel K2
+(``csrc/bilstm_tm_bwd.cu``) and :func:`bilstm_scan_tm_bwd_plain`, chosen
+by ``mgr_tpu_torch.kernels.bilstm_tm``. In train mode the layer's input
+dropout draws one (B, F) mask per direction (four with ``per_gate``),
+constant over time, from ``core.prng`` (``mgr_tpu/ops/lstm.py:444-472``).
 """
 
 from __future__ import annotations
@@ -30,14 +32,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.kernels import bilstm_tm as _kernel
 
 Params = Dict[str, torch.Tensor]
-
-TRAIN_NOT_PORTED = (
-    "training is not ported yet: the BiLSTM backward kernel (K2) and the "
-    "train step are ROADMAP.md 'Modules to port', item 7"
-)
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -81,11 +79,7 @@ def init_bilstm_params(
     return {k: torch.stack([fwd[k], bwd[k]]) for k in fwd}
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with f32 sums and an f32 result, whatever the operands'
-    dtype (JAX's ``preferred_element_type=float32``). A library GEMM:
-    cuBLAS with an f32 output on the card, an f32 product of the
-    (already rounded) operands on the CPU."""
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
@@ -95,31 +89,85 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` with an f32 result, and the backward JAX gives a dot with
+    ``preferred_element_type=float32``: the f32 cotangent times the other
+    operand (as f32), rounded to each operand's dtype. An explicit
+    backward, because ``torch.mm(..., out_dtype=)`` has no autograd rule
+    that can be relied on."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w.float().t()).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).float().t() @ g2).to(w.dtype)
+        return dx, dw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with f32 sums and an f32 result, whatever the operands'
+    dtype (JAX's ``preferred_element_type=float32``); w is 2-D. A library
+    GEMM: cuBLAS with an f32 output on the card, an f32 product of the
+    (already rounded) operands on the CPU; differentiable in both."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulF32.apply(x, w)
+    return _mm_f32(x, w)
+
+
 def input_projection(
-    x_tm: torch.Tensor, W: torch.Tensor, b: torch.Tensor, compute_dtype
+    x_tm: torch.Tensor, W: torch.Tensor, b: torch.Tensor, compute_dtype,
+    gate_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One direction's projection: (T, B, F) x (F, 4, H) + (4, H) ->
-    (T, B, 4, H) in the compute dtype, bias added in f32 first."""
+    (T, B, 4, H) in the compute dtype, bias added in f32 first.
+
+    ``gate_scale`` (4, B, F), in the compute dtype, is per-gate input
+    dropout: gate g sees ``x * gate_scale[g]`` (rounded in the compute
+    dtype), as the JAX einsum ``gtbf,fgh->tbgh`` does."""
     F, _, H = W.shape
-    xp = matmul_f32(
-        x_tm.to(compute_dtype), W.to(compute_dtype).reshape(F, 4 * H)
-    )
+    xc, Wc = x_tm.to(compute_dtype), W.to(compute_dtype)
+    if gate_scale is None:
+        xp = matmul_f32(xc, Wc.reshape(F, 4 * H))
+    else:
+        xp = torch.cat(
+            [matmul_f32(xc * gate_scale[g], Wc[:, g, :]) for g in range(4)], dim=-1
+        )
     return (xp + b.reshape(4 * H)).to(compute_dtype).reshape(
         *x_tm.shape[:-1], 4, H
     )
 
 
+def dropout_scale(
+    rng: prng.Key, keep: float, shape: Tuple[int, ...], dtype: torch.dtype,
+    device: torch.device,
+) -> torch.Tensor:
+    """``bernoulli(rng, keep, shape).astype(dtype) / keep`` in ``dtype``,
+    as JAX divides by the scalar converted to the array's dtype (in bf16
+    with keep 0.6: 1.6640625, not 1/0.6)."""
+    mask = prng.bernoulli(rng, keep, shape, device)
+    return mask.to(dtype) / torch.tensor(keep, dtype=dtype, device=device)
+
+
 def bilstm_scan_tm_plain(
     xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
-    *, store_c: bool = False,
+    *, store_c: bool = False, out_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain recurrence: the reference for kernel K1.
 
     xp0, xp1: (T, B, 4, H) projections in original time order, in the
     compute dtype; U: (2, H, 4, H). Direction 1 walks t = T-1 -> 0.
-    Returns hs0, hs1 (T, B, H) f32, each value rounded through the
-    compute dtype (the stored h stream), and with ``store_c`` also the
-    c streams, rounded the same way."""
+    Returns hs0, hs1 (T, B, H) in ``out_dtype``, each value rounded
+    through the compute dtype (the stored h stream), and with ``store_c``
+    also the c streams, rounded the same way."""
     T, B, _, H = xp0.shape
     cd = xp0.dtype
     Uc = U.to(cd).reshape(2, H, 4 * H)
@@ -140,25 +188,131 @@ def bilstm_scan_tm_plain(
             hs[d][t] = h.to(cd)
             if store_c:
                 cs[d][t] = c.to(cd)
-    out = (hs[0].float(), hs[1].float())
-    if store_c:
-        out += (cs[0].float(), cs[1].float())
-    return out
+    out = (hs[0], hs[1]) + ((cs[0], cs[1]) if store_c else ())
+    return tuple(x.to(out_dtype) for x in out)
+
+
+def hard_sigmoid_grad(z: torch.Tensor) -> torch.Tensor:
+    """The hard sigmoid's slope as the Pallas adjoint takes it: 0.2 on the
+    OPEN interval (-2.5, 2.5), 0 at and beyond the ends
+    (``pallas_kernels.py:876-877``). Autograd of ``torch.clamp`` passes
+    the gradient at the closed ends, a different function."""
+    return torch.where((z > -2.5) & (z < 2.5), 0.2, 0.0).to(z.dtype)
+
+
+def bilstm_scan_tm_bwd_plain(
+    xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
+    hs0: torch.Tensor, hs1: torch.Tensor, cs0: torch.Tensor, cs1: torch.Tensor,
+    dhs0: torch.Tensor, dhs1: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain adjoint of the recurrence: the reference for kernel K2
+    (``_tm_bwd_kernel``, ``pallas_kernels.py:876-911``, and
+    ``_tm_core_bwd`` :1013-1028), written out rather than taken by
+    autograd of the plain forward.
+
+    xp0, xp1 (T, B, 4, H) and U (2, H, 4, H) as the forward took them;
+    hs*, cs* (T, B, H) the STORED streams (rounded to the compute dtype:
+    ``tanh(c_t)``, ``c_prev`` and ``h_prev`` are read from them, not from
+    f32 carries); dhs* (T, B, H) the streams' cotangents. Direction 0
+    walks t = T-1 -> 0 with its pre-state at t-1; direction 1 walks
+    0 -> T-1 with its pre-state at t+1; zero past either end. dh and dc
+    carry in f32; dz is rounded to the compute dtype before
+    ``dh_prev = dz . U_d^T``. Returns dz0, dz1 (T, B, 4, H) in the
+    compute dtype (dxp = dz) and dU (2, H, 4, H) f32."""
+    T, B, _, H = xp0.shape
+    cd = xp0.dtype
+    Uc = U.to(cd).reshape(2, H, 4 * H)
+    dzs = []
+    for d, (xp, hs, cs, dhs) in enumerate(((xp0, hs0, cs0, dhs0), (xp1, hs1, cs1, dhs1))):
+        dz = torch.empty((T, B, 4 * H), dtype=cd, device=xp.device)
+        dh_c = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+        dc_c = torch.zeros_like(dh_c)
+        zero = torch.zeros((B, H), dtype=cd, device=xp.device)
+        for s in range(T):
+            t = T - 1 - s if d == 0 else s
+            t_pre = t - 1 if d == 0 else t + 1
+            has_pre = 0 <= t_pre < T
+            h_pre = hs[t_pre].to(cd) if has_pre else zero
+            c_pre = cs[t_pre].float() if has_pre else zero.float()
+            z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h_pre, Uc[d])
+            z_i, z_f, z_g, z_o = (z[:, g * H:(g + 1) * H] for g in range(4))
+            i, f, o = hard_sigmoid(z_i), hard_sigmoid(z_f), hard_sigmoid(z_o)
+            g_ = torch.tanh(z_g)
+            tanh_c = torch.tanh(cs[t].float())
+            dh = dhs[t].float() + dh_c
+            do = dh * tanh_c
+            dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
+            dz_t = torch.cat([
+                (dc * g_) * hard_sigmoid_grad(z_i),
+                (dc * c_pre) * hard_sigmoid_grad(z_f),
+                (dc * i) * (1.0 - g_ * g_),
+                do * hard_sigmoid_grad(z_o),
+            ], dim=1).to(cd)
+            dz[t] = dz_t
+            dh_c = matmul_f32(dz_t, Uc[d].t())
+            dc_c = dc * f
+        dzs.append(dz.reshape(T, B, 4, H))
+    return dzs[0], dzs[1], recurrent_weight_grad(hs0, hs1, dzs[0], dzs[1])
+
+
+def recurrent_weight_grad(
+    hs0: torch.Tensor, hs1: torch.Tensor, dz0: torch.Tensor, dz1: torch.Tensor,
+) -> torch.Tensor:
+    """``dU_d = sum_t h_prev_d[t]^T dz_d[t]`` (2, H, 4, H) f32, one GEMM per
+    direction outside the kernel (``_tm_core_bwd`` :1019-1027): direction
+    0's pre-state stream is hs0 shifted back (zero at t=0), direction 1's
+    is hs1 shifted forward (zero at T-1). Operands in the dz dtype, f32
+    sums."""
+    T, B, H = hs0.shape
+    zero = torch.zeros_like(hs0[:1])
+    hp0 = torch.cat([zero, hs0[:-1]], dim=0)
+    hp1 = torch.cat([hs1[1:], zero], dim=0)
+    out = []
+    for hp, dz in ((hp0, dz0), (hp1, dz1)):
+        dz2 = dz.reshape(T * B, 4 * H)
+        out.append(_mm_f32(hp.to(dz2.dtype).reshape(T * B, H).t(), dz2))
+    return torch.stack(out).reshape(2, H, 4, H)
 
 
 def bilstm_layer_tm(
     params: Params,
     x_tm: torch.Tensor,
     *,
+    rng: Optional[prng.Key] = None,
+    dropout: float = 0.0,
+    per_gate: bool = False,
     train: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Time-major bidirectional LSTM, eval mode: (T, B, F) -> (T, B, 2H)
-    in the compute dtype (forward half, then backward half)."""
-    if train:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
+    """Time-major bidirectional LSTM: (T, B, F) -> (T, B, 2H) in the
+    compute dtype (forward half, then backward half).
+
+    In train mode with ``dropout`` > 0, direction d scales its input by
+    ``dropout_scale(fold_in(rng, d), 1 - dropout, ...)``, one (B, F) mask
+    (or (4, B, F) with ``per_gate``) applied before the projection. The
+    recurrence is differentiable (:class:`BiLSTMTm`) whenever autograd
+    records."""
+    if train and dropout > 0.0 and rng is None:
+        raise ValueError("dropout requires an rng key in train mode")
+    T, B, F = x_tm.shape
     W, U, b = params["W"], params["U"], params["b"]
-    xp0 = input_projection(x_tm, W[0], b[0], compute_dtype)
-    xp1 = input_projection(x_tm, W[1], b[1], compute_dtype)
-    hs0, hs1 = _kernel.bilstm_tm(xp0, xp1, U)
+    xc = x_tm.to(compute_dtype)
+
+    def project(d: int) -> torch.Tensor:
+        if not (train and dropout > 0.0):
+            return input_projection(xc, W[d], b[d], compute_dtype)
+        shape = (4, B, F) if per_gate else (B, F)
+        scale = dropout_scale(prng.fold_in(rng, d), 1.0 - dropout, shape,
+                              compute_dtype, x_tm.device)
+        if per_gate:
+            return input_projection(xc, W[d], b[d], compute_dtype, gate_scale=scale)
+        return input_projection(xc * scale, W[d], b[d], compute_dtype)
+
+    xp0, xp1 = project(0), project(1)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xp0, xp1, U)
+    ):
+        hs0, hs1 = _kernel.BiLSTMTm.apply(xp0, xp1, U)
+    else:
+        hs0, hs1 = _kernel.bilstm_tm(xp0, xp1, U)
     return torch.cat([hs0, hs1], dim=-1).to(compute_dtype)

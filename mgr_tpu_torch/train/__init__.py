@@ -1,1 +1,1 @@
-"""Eval / predict / decode steps (the serving path)."""
+"""Train / eval / predict / decode steps, the optimizer and the fit loop."""

@@ -1,10 +1,13 @@
-"""Eval, predict and decode steps: the serving half of
-``mgr_tpu/train/step.py`` (``:323-404``).
+"""Train, eval, predict and decode steps (``mgr_tpu/train/step.py``), on
+one device.
 
 JAX's steps take ``(params, ...)``; here the parameters live in the
-module, so a step takes the batch alone. Inputs may be numpy arrays or
-tensors; they are moved to the model's device. Every step runs under
-``torch.inference_mode()``. The train step is not ported yet.
+module. The eval, predict and decode steps take the batch alone and run
+under ``torch.inference_mode()``. The train step takes a
+:class:`TrainState` whose ``params`` are the model's own parameters,
+updated in place (one copy of the weights on the card, where JAX makes a
+new tree each step). Inputs may be numpy arrays or tensors; they are
+moved to the model's device.
 
 Batch contract (as in the JAX package): ``inputs`` (B, T, F),
 ``labels`` (B, N) int -1 padded, ``input_length`` (B,) valid frames
@@ -13,14 +16,20 @@ AFTER the CTC trim, ``label_length`` (B,).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.ops.ctc import ctc_loss_from_logits
 from mgr_tpu_torch.ops.decoding import best_path_decode
+from mgr_tpu_torch.train import optimizer as opt_lib
+
+
+BATCH_KEYS = ("inputs", "labels", "input_length", "label_length")
 
 
 def model_device(model: nn.Module) -> torch.device:
@@ -33,24 +42,121 @@ def to_device(x: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
+                     train: bool, rng: Optional[prng.Key]) -> torch.Tensor:
+    """Mean CTC loss on the time-major path: (T, B, C) logits go straight
+    to the CTC kernel (``mgr_tpu/train/step.py:58-80``)."""
+    logits = model.apply_tm(batch["inputs"], train=train, rng=rng)
+    losses = ctc_loss_from_logits(
+        logits, batch["labels"], batch["input_length"], batch["label_length"],
+        trim_frames=model.config.ctc.trim_frames, time_major=True,
+    )
+    return losses.mean()
+
+
 def make_eval_step(model: nn.Module) -> Callable[[Dict[str, Any]], torch.Tensor]:
-    """Returns step(batch) -> mean CTC loss (no dropout or noise), on the
-    time-major path: (T, B, C) logits go straight to the CTC kernel."""
-    cfg = model.config
+    """Returns step(batch) -> mean CTC loss (no dropout or noise), a 0-d
+    tensor on the model's device."""
     dev = model_device(model)
 
     @torch.inference_mode()
     def step(batch: Dict[str, Any]) -> torch.Tensor:
-        logits = model.apply_tm(to_device(batch["inputs"], dev))
-        losses = ctc_loss_from_logits(
-            logits,
-            to_device(batch["labels"], dev),
-            to_device(batch["input_length"], dev),
-            to_device(batch["label_length"], dev),
-            trim_frames=cfg.ctc.trim_frames,
-            time_major=True,
-        )
-        return losses.mean()
+        batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+        return _loss_from_batch(model, batch, train=False, rng=None)
+
+    return step
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the model's parameters by ``state_dict`` name (the
+    module's own tensors: a step updates them in place) and the optimizer
+    state."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt_state: opt_lib.AdamState
+
+    def snapshot(self) -> "TrainState":
+        """A detached copy (the best state kept between checkpoint writes)."""
+        return TrainState(
+            self.step, {k: v.detach().clone() for k, v in self.params.items()},
+            self.opt_state.clone())
+
+
+def create_train_state(model: nn.Module) -> TrainState:
+    """Step 0, the model's current parameters and fresh Adam state."""
+    params = dict(model.named_parameters())
+    return TrainState(0, params, opt_lib.keras_adam(model.config.optimizer).init(params))
+
+
+def _loss_and_grads(model: nn.Module, params: Dict[str, torch.Tensor],
+                    batch: Dict[str, torch.Tensor], rng: Optional[prng.Key]):
+    """Loss and gradients, with ``accum_steps`` microbatches (each with
+    its own stream ``fold_in(rng, i)``) whose losses and gradients are
+    summed, then scaled by 1/accum (``mgr_tpu/train/step.py:83-125``)."""
+    accum = model.config.optimizer.accum_steps
+    for p in params.values():
+        p.grad = None
+    if accum <= 1:
+        micro = [(batch, rng)]
+    else:
+        n = batch["inputs"].shape[0]
+        if n % accum:
+            raise ValueError(f"batch dim {n} not divisible by accum_steps={accum}")
+        m = n // accum
+        micro = [({k: v[i * m:(i + 1) * m] for k, v in batch.items()},
+                  None if rng is None else prng.fold_in(rng, i))
+                 for i in range(accum)]
+    loss_sum = None
+    with torch.enable_grad():
+        for mb, r in micro:
+            loss = _loss_from_batch(model, mb, train=True, rng=r)
+            loss.backward()  # sums into .grad across microbatches
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in params.items()}
+    if accum <= 1:
+        return loss_sum, grads
+    inv = 1.0 / accum
+    return loss_sum * inv, {k: g * inv for k, g in grads.items()}
+
+
+def _apply_updates(model: nn.Module, state: TrainState, tx: opt_lib.KerasAdam,
+                   loss: torch.Tensor, grads: Dict[str, torch.Tensor],
+                   lr_scale: float):
+    """Freeze mask, Adam, lr scale, maxnorm, and the global norm of the
+    masked gradients (``mgr_tpu/train/step.py:128-141``)."""
+    grads = opt_lib.freeze_mask_grads(grads, model.trainable())
+    updates, opt_state = tx.update(grads, state.opt_state)
+    with torch.no_grad():
+        new = {k: p + updates[k] * lr_scale for k, p in state.params.items()}
+        new = opt_lib.apply_maxnorm(new, model.config.optimizer.maxnorm)
+        for k, p in state.params.items():
+            p.copy_(new[k])
+        grad_norm = opt_lib.global_norm(grads)
+    state.step += 1
+    state.opt_state = opt_state
+    for p in state.params.values():
+        p.grad = None
+    return state, {"loss": loss, "grad_norm": grad_norm}
+
+
+def make_train_step(model: nn.Module) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns step(state, batch, rng, lr_scale=1.0) -> (state, metrics):
+    one optimizer step on one device. ``rng`` (a ``core.prng.Key``) feeds
+    the noise and dropout draws; ``lr_scale`` multiplies the updates (the
+    plateau controller's scale). metrics: 0-d tensors ``loss`` (mean CTC
+    loss of the batch) and ``grad_norm``, left on the device."""
+    tx = opt_lib.keras_adam(model.config.optimizer)
+    dev = model_device(model)
+
+    def step(state: TrainState, batch: Dict[str, Any], rng: Optional[prng.Key],
+             lr_scale: float = 1.0):
+        batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+        loss, grads = _loss_and_grads(model, state.params, batch, rng)
+        return _apply_updates(model, state, tx, loss, grads, lr_scale)
 
     return step
 

@@ -127,3 +127,90 @@ def test_cpu_tensor_takes_the_plain_version():
     want = tctc.ctc_alpha_loss_plain(lp_tm, *args, lp.shape[-1] - 1)
     assert torch.equal(got, want)
     assert dispatch.launch_counts()["ctc_fwd"] == before
+
+
+# ---- the adjoint (kernel K4's plain version) and the autograd Function ----
+# Gradients are compared at 1e-4 absolute: d log_probs entries are
+# posterior occupancies in [-1, 1] from f32 exp / logaddexp chains.
+
+
+def _grad_case(seed):
+    logits, lp, labels, in_len, lab_len = _case(seed, B=5, T=20, K=7, N=5)
+    labels[2] = [3, 3, 3, 1, 1]  # a run of repeated labels ...
+    lab_len[2] = 5               # ... at the full label length N
+    in_len[3] = 11               # frames past the length: zero gradient
+    return logits, lp, labels, in_len, lab_len
+
+
+def _port_grad(lp, labels, in_len, lab_len, weights):
+    x = torch.from_numpy(lp).requires_grad_()
+    loss = tctc.ctc_loss(x, *(torch.from_numpy(a) for a in (labels, in_len, lab_len)),
+                         time_major=True)
+    (loss * torch.from_numpy(weights)).sum().backward()
+    return loss.detach().numpy(), x.grad.numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_grad_matches_pallas_interpret(seed):
+    _, lp, labels, in_len, lab_len = _grad_case(seed)
+    w = np.random.default_rng(seed).uniform(0.5, 2.0, size=lp.shape[0]).astype(np.float32)
+    lp_tm = np.ascontiguousarray(lp.transpose(1, 0, 2))
+
+    def jloss(x):
+        per = pk.pallas_ctc_loss(x, jnp.asarray(labels), jnp.asarray(in_len),
+                                 jnp.asarray(lab_len), interpret=True, time_major=True)
+        return jnp.sum(per * w), per
+
+    (_, want_loss), want = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(lp_tm))
+    got_loss, got = _port_grad(lp_tm, labels, in_len, lab_len, w)
+    np.testing.assert_allclose(got_loss, np.asarray(want_loss), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=0)
+    for b, n in enumerate(in_len):
+        assert not got[n:, b].any()  # frames t >= len: exactly zero
+
+
+def test_grad_matches_torch_ctc_loss():
+    """Second oracle: F.ctc_loss's gradient, taken through log_softmax
+    (its backward assumes normalised inputs, so the two agree on the
+    logits' gradient, not on the log-probs')."""
+    logits, _, labels, in_len, lab_len = _grad_case(4)
+    l_tm = torch.from_numpy(np.ascontiguousarray(logits.transpose(1, 0, 2)))
+    a = l_tm.clone().requires_grad_()
+    b = l_tm.double().clone().requires_grad_()
+    tctc.ctc_loss(torch.log_softmax(a, -1), *(torch.from_numpy(x) for x in
+                  (labels, in_len, lab_len)), time_major=True).sum().backward()
+    F.ctc_loss(torch.log_softmax(b, -1), torch.from_numpy(np.maximum(labels, 0)).long(),
+               torch.from_numpy(in_len).long(), torch.from_numpy(lab_len).long(),
+               blank=logits.shape[-1] - 1, reduction="sum").backward()
+    np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=TOL, rtol=0)
+
+
+def test_alpha_store_is_frozen_past_the_length():
+    _, lp, labels, in_len, lab_len = _grad_case(5)
+    lp_tm = torch.from_numpy(np.ascontiguousarray(lp.transpose(1, 0, 2)))
+    args = [torch.from_numpy(a) for a in (labels, in_len, lab_len)]
+    loss, a_phi, a_emit = k3.ctc_alpha_loss(lp_tm, *args, lp.shape[-1] - 1, store_alphas=True)
+    T, B, N = a_emit.shape
+    assert a_phi.shape == (T, B, N + 1)
+    assert torch.equal(loss, k3.ctc_alpha_loss(lp_tm, *args, lp.shape[-1] - 1))
+    for b, n in enumerate(in_len):
+        assert torch.equal(a_phi[n - 1:, b], a_phi[n - 1, b].expand(T - n + 1, -1))
+        assert torch.equal(a_emit[n - 1:, b], a_emit[n - 1, b].expand(T - n + 1, -1))
+    rows = torch.arange(B)
+    L = args[2].long()
+    ends = torch.logaddexp(a_phi[-1][rows, L],
+                           torch.where(L > 0, a_emit[-1][rows, (L - 1).clamp_min(0)], -1e5))
+    assert torch.equal(loss, -ends)
+
+
+def test_no_grad_takes_the_loss_only_launch(monkeypatch):
+    """Under no_grad (the eval path) the loss runs without the alpha store."""
+    _, lp, labels, in_len, lab_len = _grad_case(6)
+    seen = []
+    real = k3.ctc_alpha_loss
+    monkeypatch.setattr(k3, "ctc_alpha_loss", lambda *a, **k: seen.append(k) or real(*a, **k))
+    x = torch.from_numpy(lp).requires_grad_()
+    with torch.no_grad():
+        tctc.ctc_loss(x, *(torch.from_numpy(a) for a in (labels, in_len, lab_len)))
+    tctc.ctc_loss(x, *(torch.from_numpy(a) for a in (labels, in_len, lab_len)))
+    assert seen == [{}, {"store_alphas": True}]

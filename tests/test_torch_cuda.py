@@ -8,7 +8,11 @@ on a GPU host it runs with
 
 Tolerances: K1 h and c streams 3e-2 absolute (bf16 streams, f32 sums in
 another order); K3 loss 1e-4 relative to max(1, |loss|) (f32 logaddexp
-chains); whole-model logits on the card vs the CPU 3e-2 (bf16 model).
+chains) and its stored alphas 1e-4 relative to max(1, |alpha|); K2 dz
+2e-2 relative to the largest |dz| (bf16 dz, recomputed z and f32 sums in
+another order, carried over T steps) and dU 2e-2 relative Frobenius; K4
+d log_probs 1e-4 absolute (f32 exp chains, probabilities in [-1, 1]);
+whole-model logits on the card vs the CPU 3e-2 (bf16 model).
 """
 
 import numpy as np
@@ -30,6 +34,8 @@ pytestmark = pytest.mark.cuda
 
 TOL_K1 = 3e-2
 TOL_K3_REL = 1e-4
+TOL_K2_REL = 2e-2
+TOL_K4 = 1e-4
 TOL_LOGITS = 3e-2
 
 
@@ -119,3 +125,90 @@ def test_model_on_the_card_matches_the_cpu(cuda):
         want = cpu_model(x)
         got = card_model(x.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= TOL_LOGITS
+
+
+def _ctc_case(rng, B, T, K, N):
+    lab_len = rng.integers(0, N + 1, size=B).astype(np.int32)
+    labels = np.full((B, N), -1, np.int32)
+    for b, n in enumerate(lab_len):
+        labels[b, :n] = rng.integers(0, K - 1, size=n)
+    labels[1, :] = (np.arange(N) // 2) % (K - 1)  # runs of repeated labels
+    lab_len[1] = N
+    lab_len[0] = 0
+    in_len = rng.integers(2 * N + 1, T + 1, size=B).astype(np.int32)
+    return labels, in_len, lab_len
+
+
+@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 520, 16)])
+def test_k2_matches_plain_version(cuda, T, B, H):
+    rng = np.random.default_rng(H + 1)
+    bf = torch.bfloat16
+    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"].to(cuda, bf)
+    streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    dhs = torch.from_numpy(rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    before = dispatch.launch_counts()["bilstm_tm_bwd"]
+    got = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    assert dispatch.launch_counts()["bilstm_tm_bwd"] == before + 1
+    want = tlstm.bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    for g, w in zip(got, want):
+        assert g.shape == (T, B, 4, H) and g.dtype == bf
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= TOL_K2_REL * scale
+    dU = tlstm.recurrent_weight_grad(streams[0], streams[1], *got)
+    rel = float((dU - want[2]).norm() / want[2].norm())
+    assert rel <= TOL_K2_REL
+
+
+@pytest.mark.parametrize("B,T,K,N", [(4, 24, 6, 4), (7, 400, 44, 150)])
+def test_k3_alphas_and_k4_match_plain_versions(cuda, B, T, K, N):
+    rng = np.random.default_rng(N + 1)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T, B, K)).astype(np.float32)), -1).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in _ctc_case(rng, B, T, K, N)]
+    got = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    want = tctc.ctc_alpha_loss_plain(lp, *args, K - 1, store_alphas=True)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_K3_REL
+    g_phi = -torch.exp(want[1][-1][torch.arange(B), args[2].long()] + want[0])
+    g_emit = torch.rand(B, device=cuda)
+    before = dispatch.launch_counts()["ctc_bwd"]
+    d_got = k3.ctc_alpha_bwd(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+    assert dispatch.launch_counts()["ctc_bwd"] == before + 1
+    d_want = tctc.ctc_alpha_bwd_plain(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+    assert float((d_got - d_want).abs().max()) <= TOL_K4
+    past = torch.arange(T, device=cuda)[:, None] >= args[1][None, :]  # t >= len
+    assert bool((d_got[past] == 0).all())
+
+
+def test_train_autograd_functions_on_the_card(cuda):
+    """The layer and the loss differentiate through K2 and K4 on the card
+    and agree with the same step through the plain versions on the CPU."""
+    cfg = get_preset("speech").replace(maxlen=32, batch_size=3, max_label_len=4,
+                                       encoder=EncoderConfig(hidden=16))
+    rng = np.random.default_rng(2)
+    batch = {
+        "inputs": rng.standard_normal((3, 32, cfg.num_feats)).astype(np.float32),
+        "labels": np.array([[1, 2, -1, -1], [3, 3, 3, -1], [-1, -1, -1, -1]], np.int32),
+        "input_length": np.array([30, 20, 25], np.int32),
+        "label_length": np.array([2, 3, 0], np.int32),
+    }
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(cfg, seed=1, device=dev)
+        logits = model.apply_tm(torch.from_numpy(batch["inputs"]).to(dev))
+        loss = tctc.ctc_loss_from_logits(
+            logits, *(torch.from_numpy(batch[k]).to(dev) for k in
+                      ("labels", "input_length", "label_length")),
+            trim_frames=2, time_major=True).mean()
+        before = dispatch.launch_counts()
+        loss.backward()
+        after = dispatch.launch_counts()
+        if dev.type == "cuda":
+            assert after["bilstm_tm_bwd"] == before["bilstm_tm_bwd"] + 2
+            assert after["ctc_bwd"] == before["ctc_bwd"] + 1
+        grads[dev.type] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    for k, want in grads["cpu"].items():
+        rel = float((grads["cuda"][k] - want).norm() / want.norm().clamp_min(1e-12))
+        assert rel <= 5e-2, (k, rel)

@@ -1,7 +1,9 @@
-"""The port stands without JAX: every module imports with ``jax``,
-``flax``, ``optax`` and the JAX package ``mgr_tpu`` blocked, pulls in no
-pandas, and no source of the package (nor ``chip_smoke.py``) names JAX,
-``mgr_tpu`` or a library stand-in for the hand-written kernels."""
+"""The port stands without JAX: every module (the training path's
+included) imports with ``jax``, ``flax``, ``optax`` and the JAX package
+``mgr_tpu`` blocked, pulls in no pandas, and no source of the package
+(nor ``chip_smoke.py``) names JAX, ``mgr_tpu``, a library stand-in for
+the hand-written kernels, or torch's own Adam in place of the Keras-parity
+one."""
 
 import os
 import re
@@ -36,6 +38,9 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'pandas' not in sys.modules, 'pandas imported eagerly'\n"
         "from mgr_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['score', 'a', 'b'])\n"
+        "build_parser().parse_args(['train', 'speech', '--epochs', '1'])\n"
+        "from mgr_tpu_torch.train import loop, optimizer, step\n"
+        "from mgr_tpu_torch.core import metrics, prng\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -49,7 +54,7 @@ def test_every_module_imports_with_jax_blocked():
 @pytest.mark.parametrize(
     "pattern",
     [r"^\s*(import|from)\s+(jax|flax|optax|mgr_tpu)\b", r"torch\.compile",
-     r"nn\.LSTM", r"(F|functional)\.ctc_loss\("],
+     r"nn\.LSTM", r"(F|functional)\.ctc_loss\(", r"optim\.Adam"],
 )
 def test_package_sources_avoid(pattern):
     hits = [
@@ -73,6 +78,16 @@ def test_each_kernel_source_states_what_it_replaces():
         assert "Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:" in text, cu
         assert "What bounds it on this card" in text and "Design" in text, cu
         assert re.search(r'extern "C" int \w+\(', text), cu
+
+
+def test_every_kernel_has_a_source_and_a_counter():
+    from mgr_tpu_torch.ops import dispatch
+
+    sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert sources == sorted(dispatch.KERNELS)
+    assert sorted(dispatch.launch_counts()) == sorted(dispatch.KERNELS)
+    smoke = SMOKE.read_text()
+    assert all(f'"{name}"' in smoke for name in dispatch.KERNELS)
 
 
 def test_build_is_lazy_and_targets_sm90a():

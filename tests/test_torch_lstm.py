@@ -7,6 +7,13 @@ Tolerances:
     order).
   * bf16 recurrence vs ``pallas_bilstm_tm(interpret=True)``: 3e-2, as in
     tests/test_pallas.py (bf16 h stream; one bf16 ulp of h is ~4e-3).
+  * bf16 adjoint (K2's plain version, and the autograd Function) vs
+    ``jax.vjp`` of ``pallas_bilstm_tm(interpret=True)``: dxp within 1e-2
+    of the largest |dxp|, dU within 1e-3 relative Frobenius. Both round
+    the same values to bf16 at the same places and differ only in the
+    order of f32 sums (2e-7 measured at these sizes). The bounds leave
+    room for a sum that lands on the other side of a bf16 rounding (one
+    ulp, 2^-8 relative, of one entry); a wrong formula is off by O(1).
 """
 
 import jax
@@ -18,6 +25,7 @@ import torch.nn.functional as F
 
 from mgr_tpu.ops import lstm as jlstm
 from mgr_tpu.ops import pallas_kernels as pk
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops import lstm as tlstm
@@ -27,6 +35,8 @@ torch.set_num_threads(1)
 T, B, F_IN, H = 24, 3, 5, 8
 TOL_F32 = 1e-5
 TOL_BF16 = 3e-2
+TOL_DXP_REL = 1e-2
+TOL_DU_REL = 1e-3
 
 
 def _jax_params(seed=0, in_dim=F_IN, hidden=H):
@@ -179,6 +189,72 @@ def test_mixed_devices_are_refused():
 
 
 def test_train_mode_is_not_ported_yet():
+    """Train mode runs now (the name is kept from when it raised): the
+    dropout masks come from the key, one per direction, constant over
+    time, and a train-mode layer without a key is refused."""
     p = _torch(_jax_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlstm.bilstm_layer_tm(p, torch.zeros((T, B, F_IN)), train=True)
+    x = torch.from_numpy(_x(2))
+    with pytest.raises(ValueError, match="rng"):
+        tlstm.bilstm_layer_tm(p, x, train=True, dropout=0.5)
+    key = prng.fold_name(prng.root_key(0), "drop_0")
+    a = tlstm.bilstm_layer_tm(p, x, train=True, dropout=0.5, rng=key)
+    b = tlstm.bilstm_layer_tm(p, x, train=True, dropout=0.5, rng=key)
+    c = tlstm.bilstm_layer_tm(p, x, train=True, dropout=0.5, rng=prng.fold_in(key, 1))
+    eval_out = tlstm.bilstm_layer_tm(p, x)
+    assert a.shape == (T, B, 2 * H) and torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, eval_out)
+    assert torch.equal(tlstm.bilstm_layer_tm(p, x, train=True, dropout=0.0), eval_out)
+
+
+def _bwd_case(seed, hidden):
+    rng = np.random.default_rng(seed)
+    xp0, xp1 = (rng.standard_normal((T, B, 4, hidden)).astype(np.float32) for _ in range(2))
+    U = _jax_params(seed + 1, hidden=hidden)["U"]
+    g0, g1 = (rng.standard_normal((T, B, hidden)).astype(np.float32) for _ in range(2))
+    return xp0, xp1, U, g0, g1
+
+
+def _pallas_vjp(xp0, xp1, U, g0, g1):
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(lambda a, b, u: pk.pallas_bilstm_tm(a, b, u, interpret=True),
+                     jnp.asarray(xp0, bf), jnp.asarray(xp1, bf), jnp.asarray(U))
+    return [np.asarray(v.astype(jnp.float32)) for v in vjp((jnp.asarray(g0), jnp.asarray(g1)))]
+
+
+def _close(got, want, rel):
+    scale = max(float(np.abs(want).max()), 1e-12)
+    assert float(np.abs(got - want).max()) <= rel * scale
+
+
+@pytest.mark.parametrize("hidden", [8, 7])
+def test_bwd_plain_matches_pallas_vjp(hidden):
+    xp0, xp1, U, g0, g1 = _bwd_case(11, hidden)
+    want = _pallas_vjp(xp0, xp1, U, g0, g1)
+    bf = torch.bfloat16
+    xs = [torch.from_numpy(a).to(bf) for a in (xp0, xp1)]
+    Ub = torch.from_numpy(U).to(bf)
+    streams = tlstm.bilstm_scan_tm_plain(*xs, Ub, store_c=True, out_dtype=bf)
+    dz0, dz1, dU = tlstm.bilstm_scan_tm_bwd_plain(
+        *xs, Ub, *streams, torch.from_numpy(g0).to(bf), torch.from_numpy(g1).to(bf))
+    assert dz0.dtype == bf and dz0.shape == (T, B, 4, hidden)
+    _close(dz0.float().numpy(), want[0], TOL_DXP_REL)
+    _close(dz1.float().numpy(), want[1], TOL_DXP_REL)
+    dU = dU.to(bf).float().numpy()
+    assert np.linalg.norm(dU - want[2]) <= TOL_DU_REL * np.linalg.norm(want[2])
+
+
+def test_autograd_function_matches_pallas_vjp():
+    xp0, xp1, U, g0, g1 = _bwd_case(12, H)
+    want = _pallas_vjp(xp0, xp1, U, g0, g1)
+    xs = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in (xp0, xp1)]
+    Ut = torch.from_numpy(U).requires_grad_()
+    hs0, hs1 = k1.BiLSTMTm.apply(*xs, Ut)
+    assert hs0.dtype == torch.float32
+    (hs0 * torch.from_numpy(g0) + hs1 * torch.from_numpy(g1)).sum().backward()
+    assert xs[0].grad.dtype == torch.bfloat16 and Ut.grad.dtype == torch.float32
+    _close(xs[0].grad.float().numpy(), want[0], TOL_DXP_REL)
+    _close(xs[1].grad.float().numpy(), want[1], TOL_DXP_REL)
+    got_u = Ut.grad.numpy()
+    assert np.linalg.norm(got_u - want[2]) <= TOL_DU_REL * np.linalg.norm(want[2])
+    # dU is rounded through bf16, as JAX rounds it to the kernel's bf16 U.
+    assert np.array_equal(got_u, Ut.grad.to(torch.bfloat16).float().numpy())
