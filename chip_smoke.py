@@ -1,27 +1,35 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the speech shapes, then
 serves and trains the speech BLSTM+CTC pipeline end to end through the
-kernels.
+kernels, on one process and over meshes of ranks that share the card.
 
     python3 chip_smoke.py [--profile]
 
 Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
-adjoint), K3 (CTC forward, with and without the alpha store) and K4 (its
-adjoint) against their plain versions, the serving slice (decode -> MLF
--> evaluate -> eval loss -> B=1 infer), the training slice (``fit`` at
-full speech width, a train step through the kernels against the same
-step through the plain versions, a learning check), with ``--profile`` a
-per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
-step at B=32, a JSON line of the kernels, and last
-``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed phase
-raises, so the exit code is not 0 and the last line is never printed.
-There is no CPU fallback: without a CUDA device the script fails.
+adjoint), K3 (CTC forward, with and without the alpha store), K4 (its
+adjoint) and K5a/K5b (the single-direction recurrence and its adjoint)
+against their plain versions (K5 also against K1's and K2's streams), the
+serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer), the
+training slice (``fit`` at full speech width, a train step through the
+kernels against the same step through the plain versions, a learning
+check), the mesh slice (a mesh train and eval step at full speech width
+on 2x1, 1x2 and 2x2 meshes of gloo ranks that time-share the one card,
+against the single-process step, and ``fit`` over the 2x2 mesh), with
+``--profile`` a per-layer breakdown of a decode step at B=1, 32 and 128
+and of a train step at B=32, a JSON line of the kernels (each with its
+bound and, for K3/K4, the time of ``torch.nn.functional.ctc_loss``), and
+last ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed
+phase or rank raises, so the exit code is not 0 and the last line is
+never printed. There is no CPU fallback: without a CUDA device the
+script fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -38,7 +46,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SEED = 0
-KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
+KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd", "lstm_tm_bwd")
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
 B_K2 = 32                                   # the preset's train batch
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
@@ -59,6 +67,19 @@ TOL_GRAD_REL = 5e-2    # train-step gradients, kernel path vs plain path, relati
 N_FILES, B_SLICE = 128, 32  # 4 batches at the preset's batch size
 N_TRAIN, N_VAL, EPOCHS = 64, 32, 3  # the training slice: 2 train + 1 val batch per epoch
 LEARN_STEPS = 10
+B_K5 = (32, 128)       # K5 at the preset's batch (a 1x2 mesh rank) and at B=128
+MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
+N_MESH_TRAIN, N_MESH_VAL = 64, 32  # fit over the 2x2 mesh: 2 train + 1 val batch
+MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# the least time of a kernel is the larger of its bytes over the memory rate
+# and its operations over the peak of their type.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12    # the recurrences multiply bf16 values (f32 sums)
+F32_FLOPS = 67e12      # the CTC recursions: f32 outside the tensor cores
+CTC_FWD_OPS = 13       # f32 ops per lattice state and step: max of 3 (2), 3 subtractions,
+                       # 3 exp, 2 adds, log, add, + emission
+CTC_BWD_OPS = 17       # the same beta recursion, + the occupancy (add, sub, exp) and its sum
 
 
 def phase(name: str, **fields) -> None:
@@ -73,6 +94,54 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or operations
+    over the peak rate of their type, whichever is larger."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / peak
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def lstm_bound(T, B, H, *, dirs, backward, store_c):
+    """K1/K5a (forward: one (B,H)x(H,4H) product per step and direction)
+    and K2/K5b (backward: two), bf16 operands."""
+    products = 2 if backward else 1
+    ops = dirs * T * products * 2 * B * H * 4 * H
+    xp, stream, u = T * B * 4 * H * 2, T * B * H * 2, H * 4 * H * 2
+    if backward:  # xp, U, hs, cs, dhs in; dz out
+        nbytes = dirs * (xp + u + 3 * stream + xp)
+    else:  # xp, U in; hs (and cs) out
+        nbytes = dirs * (xp + u + (2 if store_c else 1) * stream)
+    return bound(nbytes, ops, BF16_FLOPS)
+
+
+def ctc_bound(lp, in_len, lab_len, N, *, backward):
+    """K3 (loss only) / K4, from this run's lengths: the recursion visits
+    2L+1 lattice states for each of a sequence's valid frames."""
+    T, B, K = lp.shape
+    visits = float((in_len.double() * (2 * lab_len.double() + 1)).sum())
+    lp_bytes, lens = T * B * K * 4, B * N * 4 + 2 * B * 4
+    if backward:  # lp, both alpha stores, labels, lengths, two seeds in; d lp out
+        nbytes = lp_bytes + T * B * (2 * N + 1) * 4 + lens + 2 * B * 4 + lp_bytes
+        return bound(nbytes, CTC_BWD_OPS * visits, F32_FLOPS)
+    return bound(lp_bytes + lens + B * 4, CTC_FWD_OPS * visits, F32_FLOPS)
+
+
+def library_ctc_ms(lp, labels, in_len, lab_len, blank, *, backward: bool) -> float:
+    """Time of torch.nn.functional.ctc_loss, the one PyTorch call that
+    computes a CTC loss (forward), or of its backward, on the same inputs:
+    a yardstick only, the port never calls it (its lattice has no skip
+    penalty, so its values differ slightly from the reference's)."""
+    targets, il, tl = labels.clamp_min(0).long(), in_len.long(), lab_len.long()
+    if not backward:
+        return cuda_time_ms(lambda: torch.nn.functional.ctc_loss(
+            lp, targets, il, tl, blank=blank, reduction="none"), reps=20)
+    x = lp.detach().requires_grad_()
+    loss = torch.nn.functional.ctc_loss(x, targets, il, tl, blank=blank, reduction="sum")
+    return cuda_time_ms(lambda: torch.autograd.grad(loss, x, retain_graph=True), reps=20)
 
 
 def device_phase() -> str:
@@ -94,13 +163,16 @@ def device_phase() -> str:
 def build_phase() -> None:
     from mgr_tpu_torch.kernels import build
 
+    from mgr_tpu_torch.ops import dispatch
+
+    sources = sorted({dispatch.SOURCES[name] for name in KERNELS})
     t0 = time.perf_counter()
-    build.load_all(KERNELS)  # one nvcc per source, all started together
+    build.load_all(sources)  # one nvcc per source, all started together
     secs = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in KERNELS
+        for name in sources
     }
     phase("build", seconds=secs, ptxas=ptxas)
 
@@ -138,9 +210,10 @@ def k1_phase(dev) -> dict:
         raise AssertionError(f"K1 disagrees with its plain version: max |dh| {err} > {TOL_K1_H}")
     ms = cuda_time_ms(lambda: bilstm_tm(xps[0], xps[1], U), reps=5)
     plain_ms = cuda_time_ms(lambda: bilstm_scan_tm_plain(xps[0], xps[1], U), reps=1)
+    lim = lstm_bound(T_K1, B_K1, H_K1, dirs=2, backward=False, store_c=False)
     phase("k1_bilstm_tm_fwd", B=B_K1, T=T_K1, H=H_K1, max_abs_err_h=err,
-          tol=TOL_K1_H, ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          tol=TOL_K1_H, ms=ms, plain_ms=plain_ms, **lim)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def k3_phase(dev) -> dict:
@@ -173,10 +246,13 @@ def k3_phase(dev) -> dict:
         raise AssertionError(f"K3 disagrees with its plain version: rel {rel} > {TOL_K3_REL}")
     ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank), reps=20)
     plain_ms = cuda_time_ms(lambda: ctc_alpha_loss_plain(lp, *args, blank), reps=1)
+    lib_ms = library_ctc_ms(lp, *args, blank, backward=False)
+    lim = ctc_bound(lp, args[1], args[2], N_K3, backward=False)
     phase("k3_ctc_fwd", B=B_K3, T=T_K3, K=K_K3, N=N_K3,
           max_abs_err_loss=float(diff.max()), max_rel_err_loss=rel, tol_rel=TOL_K3_REL,
-          ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms}
+          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
+    return {"max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms, **lim,
+            "library_ms": lib_ms}
 
 
 def k2_phase(dev) -> dict:
@@ -221,10 +297,11 @@ def k2_phase(dev) -> dict:
     ms = cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=5)
     plain_ms = cuda_time_ms(
         lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=1)
+    lim = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=True, store_c=False)
     phase("k2_bilstm_tm_bwd", B=B_K2, T=T_K1, H=H_K1, max_abs_err_dz=abs_err,
           max_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
-          ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+          ms=ms, plain_ms=plain_ms, **lim)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def _ctc_batch(rng, B, T, K, N):
@@ -285,10 +362,13 @@ def k4_phase(dev) -> dict:
     ms = cuda_time_ms(lambda: ctc_alpha_bwd(*bwd_args), reps=20)
     plain_ms = cuda_time_ms(lambda: ctc_alpha_bwd_plain(*bwd_args), reps=1)
     store_ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True), reps=20)
+    lib_ms = library_ctc_ms(lp, *args, blank, backward=True)
+    lim = ctc_bound(lp, args[1], args[2], N_K3, backward=True)
     phase("k4_ctc_bwd", B=B_K4, T=T_K3, K=K_K3, N=N_K3, alpha_max_rel_err=alpha_err,
           tol_alpha_rel=TOL_K3_REL, max_abs_err_dlp=d_err, tol=TOL_K4,
-          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM, ms=ms, plain_ms=plain_ms, k3_with_alpha_store_ms=store_ms)
-    return {"max_abs_err": d_err, "ms": ms, "plain_ms": plain_ms}
+          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM, ms=ms, plain_ms=plain_ms,
+          k3_with_alpha_store_ms=store_ms, library_ms=lib_ms, **lim)
+    return {"max_abs_err": d_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": lib_ms}
 
 
 @contextlib.contextmanager
@@ -445,6 +525,7 @@ def train_phase(dev) -> dict:
     data = Batcher(feats, labels, lab_len, in_len, ids,
                    train_ids=ids[:N_TRAIN], val_ids=ids[N_TRAIN:])
     model = build_model(cfg, seed=SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak of this phase alone
 
     with tempfile.TemporaryDirectory() as workdir:
         dispatch.reset_launch_counts()
@@ -453,8 +534,9 @@ def train_phase(dev) -> dict:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = dispatch.launch_counts()
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"the training path skipped a kernel: {launches}")
+        one_process = {k: v for k, v in launches.items() if not k.startswith("lstm_tm")}
+        if min(one_process.values()) <= 0 or launches["lstm_tm_fwd"] or launches["lstm_tm_bwd"]:
+            raise AssertionError(f"the training path took the wrong kernels: {launches}")
         if res.epochs_run != EPOCHS or not all(
                 np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in res.history):
             raise AssertionError(f"fit ran {res.epochs_run} epochs: {res.history}")
@@ -524,6 +606,261 @@ def train_phase(dev) -> dict:
           learning_check={"eval_loss_before": before, "eval_loss_after": after,
                           "steps": LEARN_STEPS})
     return launches
+
+
+def _timed(fn):
+    """fn()'s result and its time in ms (CUDA events around one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def k5_phase(dev) -> dict:
+    """K5a and K5b, the single-direction recurrence and its adjoint, for
+    both scan orders at T=1900, H=500, B=32 and 128 and at edge shapes
+    (B=1, two launches at B=300, an odd H): against their plain versions
+    with K1's and K2's tolerances, and bit-equal to the matching direction
+    of K1's streams and K2's dz on the same inputs."""
+    from mgr_tpu_torch.kernels.bilstm_tm import (
+        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
+    from mgr_tpu_torch.ops.lstm import (
+        init_bilstm_params, lstm_scan_tm_bwd_plain, lstm_scan_tm_plain, lstm_weight_grad)
+
+    rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
+    unequal, times, cases = [], {}, []
+
+    def case(T, B, H, timed=False):
+        xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
+        xp[:, :, :, 1, :] += 1.0
+        xp = torch.from_numpy(xp).to(dev, bf)
+        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
+        dhs = torch.from_numpy(
+            1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
+        two = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+        dz_two = bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
+        for rev in (False, True):
+            d = int(rev)
+            hs, cs = lstm_tm_streams(xp[d], U[d], reverse=rev, store_c=True)
+            dz = lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=rev)
+            dU = lstm_weight_grad(hs, dz, reverse=rev)
+            want, fwd_plain_ms = _timed(
+                lambda: lstm_scan_tm_plain(xp[d], U[d], reverse=rev, store_c=True))
+            (dz_w, dU_w), bwd_plain_ms = _timed(
+                lambda: lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=rev))
+            for g in (hs, cs, dz):
+                if not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"K5 gave non-finite values at {(T, B, H, rev)}")
+            err_h = max(float((hs.float() - want[0]).abs().max()),
+                        float((cs.float() - want[1]).abs().max()))
+            ddz = (dz.float() - dz_w.float()).abs()
+            scale = float(dz_w.float().abs().max())
+            dz_max, dz_fro = float(ddz.max()) / scale, float(ddz.norm() / dz_w.float().norm())
+            err_dU = float((dU - dU_w).norm() / dU_w.norm())
+            worst["h"] = max(worst["h"], err_h)
+            worst["dz"] = max(worst["dz"], dz_fro)
+            worst["dU"] = max(worst["dU"], err_dU)
+            cases.append({"T": T, "B": B, "H": H, "reverse": rev, "max_abs_err_h_c": err_h,
+                          "dz_max_rel": dz_max, "dz_fro_rel": dz_fro, "dU_fro_rel": err_dU,
+                          "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
+                          "dz_entries": ddz.numel()})
+            if not (torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
+                    and torch.equal(dz, dz_two[d])):
+                unequal.append((T, B, H, rev))
+            if timed:
+                times[(B, rev)] = {
+                    "fwd_ms": cuda_time_ms(lambda: lstm_tm_streams(
+                        xp[d], U[d], reverse=rev, store_c=True), reps=5),
+                    "fwd_plain_ms": fwd_plain_ms,
+                    "bwd_ms": cuda_time_ms(lambda: lstm_tm_bwd(
+                        xp[d], U[d], hs, cs, dhs[d], reverse=rev), reps=5),
+                    "bwd_plain_ms": bwd_plain_ms,
+                }
+
+    for B in B_K5:
+        case(T_K1, B, H_K1, timed=True)
+    for T, B, H in ((64, 1, 500), (64, 300, 64), (64, 3, 7)):
+        case(T, B, H)
+    if unequal:
+        raise AssertionError(f"K5 is not bit-equal to K1/K2's direction at {unequal}")
+    # dz is held in relative Frobenius norm: a recomputed z within an ulp of
+    # +-2.5 gets the hard sigmoid's slope 0.2 on one side and 0 on the other,
+    # which moves that one dz entry by its own size (dz_entries_over_tol
+    # counts such entries). Bit-equality with K2 above is the strict check.
+    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
+        raise AssertionError(f"K5 disagrees with its plain versions: {worst} (tol h "
+                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
+    B = B_K5[0]
+    fwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=False, store_c=True)
+    bwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=True, store_c=False)
+    phase("k5_lstm_tm", T=T_K1, H=H_K1, max_abs_err_h_c=worst["h"], tol_h=TOL_K1_H,
+          fro_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
+          bit_equal_to_k1_k2=True, cases=cases,
+          times={f"B={b} reverse={r}": t for (b, r), t in times.items()},
+          bound_fwd=fwd_lim, bound_bwd=bwd_lim)
+    t = times[(B, False)]
+    return {
+        "lstm_tm_fwd": {"max_abs_err": worst["h"], "ms": t["fwd_ms"],
+                        "plain_ms": t["fwd_plain_ms"], **fwd_lim, "library_ms": None},
+        "lstm_tm_bwd": {"max_abs_err": worst["dz"], "ms": t["bwd_ms"],
+                        "plain_ms": t["bwd_plain_ms"], **bwd_lim, "library_ms": None},
+    }
+
+
+def _digest(model) -> str:
+    return hashlib.sha256(b"".join(
+        p.detach().float().cpu().numpy().tobytes() for p in model.parameters())).hexdigest()
+
+
+def _mesh_rank(rank, world, shape, cfg_json, batch, corpus, workdir):
+    """One rank of a (data, model) mesh on the one card: the mesh step's
+    loss and gradients and the mesh eval loss with the launch counts of
+    that run, the wall time of three mesh train steps, and with a corpus
+    one epoch of fit over the mesh."""
+    from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
+    from mgr_tpu_torch.data.batcher import Batcher
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.parallel.mesh import make_mesh
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.loop import fit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PipelineConfig.from_json(cfg_json)
+    mesh = make_mesh(MeshConfig(*shape), device="cuda:0")
+    model = build_model(cfg, seed=SEED, device=mesh.device)
+    dispatch.reset_launch_counts()
+    loss, grads = step_lib.mesh_loss_and_grads(
+        model, mesh, dict(model.named_parameters()), batch, None)
+    ev = step_lib.make_eval_step(model, mesh=mesh)(batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "eval": float(ev), "launches": dispatch.launch_counts()}
+    if rank == 0:
+        out["grads"] = {k: g.float().cpu().numpy() for k, g in grads.items()}
+    del grads
+    state = step_lib.create_train_state(model)
+    train_step = step_lib.make_train_step(model, mesh=mesh)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, None)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+    out["step_wall_s"] = walls
+    if corpus is not None:
+        feats, labels, lab_len, in_len, ids, n_train = corpus
+        data = Batcher(feats, labels, lab_len, in_len, ids,
+                       train_ids=ids[:n_train], val_ids=ids[n_train:])
+        fresh = build_model(cfg, seed=SEED, device=mesh.device)
+        res = fit(fresh, data, workdir=workdir, epochs=1, mesh=mesh)
+        out["fit"] = {"digest": _digest(fresh), "epochs_run": res.epochs_run,
+                      "history": [{k: h[k] for k in ("train_loss", "val_loss")}
+                                  for h in res.history]}
+    return out
+
+
+def mesh_phase(dev) -> dict:
+    """The mesh slice at full speech width (B=32, T=1900, H=500, noise and
+    dropout off, bf16): on 2x1 (DP), 1x2 (direction-sharded TP) and 2x2
+    meshes of gloo ranks that time-share the one card, one mesh train step
+    (loss and every raw gradient) and one mesh eval step held against the
+    single-process kernel step on the same batch; each rank's launch
+    counts (K5a/K5b and no K1/K2 under model=2, K1/K2 under 2x1); one
+    epoch of fit over the 2x2 mesh (the primary writes the best slot,
+    every rank ends on the same parameters, the slot reloads in this
+    process and decodes). The wall times are of ranks time-sharing one
+    card, not a multi-card speed."""
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.data.batcher import Batcher
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.parallel.spawn import run_ranks
+    from mgr_tpu_torch.train import step as step_lib
+
+    cfg = get_preset("speech")
+    cfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, input_noise=0.0, dropout=(0.0, 0.0), output_dropout=0.0))
+    B = cfg.batch_size
+    feats, labels, lab_len, in_len = _speech_corpus(cfg, B, SEED + 10)
+    batch = {"inputs": feats, "labels": labels, "input_length": in_len, "label_length": lab_len}
+    model = build_model(cfg, seed=SEED, device=dev)
+    tb = {k: step_lib.to_device(batch[k], dev) for k in step_lib.BATCH_KEYS}
+    loss_1, grads_1 = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, None)
+    loss_1 = float(loss_1)
+    grads_1 = {k: g.float().cpu() for k, g in grads_1.items()}
+    eval_1 = float(step_lib.make_eval_step(model)(batch))
+    del model, tb
+    torch.cuda.empty_cache()
+    n = N_MESH_TRAIN + N_MESH_VAL
+    corpus = (*_speech_corpus(cfg, n, SEED + 11), list(range(1, n + 1)), N_MESH_TRAIN)
+
+    meshes = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for shape in MESHES:
+            t0 = time.perf_counter()
+            out = run_ranks(_mesh_rank, shape[0] * shape[1],
+                            (shape, cfg.to_json(), batch,
+                             corpus if shape == (2, 2) else None, workdir),
+                            timeout_s=MESH_TIMEOUT_S)
+            run_s = time.perf_counter() - t0
+            grads = out[0]["grads"]
+            grad_rel = {k: float(np.linalg.norm(grads[k] - g.numpy())
+                                 / max(float(g.norm()), 1e-30)) for k, g in grads_1.items()}
+            loss_rel = max(abs(r["loss"] - loss_1) / abs(loss_1) for r in out)
+            eval_rel = max(abs(r["eval"] - eval_1) / abs(eval_1) for r in out)
+            if loss_rel > TOL_LOSS_REL or eval_rel > TOL_LOSS_REL or \
+                    max(grad_rel.values()) > TOL_GRAD_REL:
+                raise AssertionError(
+                    f"mesh {shape} disagrees with the single-process step: loss rel "
+                    f"{loss_rel}, eval rel {eval_rel} (tol {TOL_LOSS_REL}), grads {grad_rel} "
+                    f"(tol {TOL_GRAD_REL})")
+            tp = shape[1] == 2
+            for r in out:
+                c = r["launches"]
+                one = c["lstm_tm_fwd"] > 0 and c["lstm_tm_bwd"] > 0
+                two = c["bilstm_tm_fwd"] > 0 or c["bilstm_tm_bwd"] > 0
+                both_ctc = c["ctc_fwd"] > 0 and c["ctc_bwd"] > 0
+                ok = (one and not two) if tp else (not c["lstm_tm_fwd"] and
+                                                     not c["lstm_tm_bwd"] and
+                                                     c["bilstm_tm_fwd"] > 0 and
+                                                     c["bilstm_tm_bwd"] > 0)
+                if not (ok and both_ctc):
+                    raise AssertionError(f"mesh {shape}: a rank took the wrong kernels: {c}")
+            name = "x".join(map(str, shape))
+            meshes[name] = {
+                "loss_rel_err": loss_rel, "eval_rel_err": eval_rel,
+                "grad_max_rel_err": max(grad_rel.values()),
+                "launches_rank0": out[0]["launches"],
+                "step_wall_ms_ranks_time_sharing_one_card": [
+                    1e3 * float(np.median(r["step_wall_s"])) for r in out],
+                "run_s": run_s,
+            }
+            if shape == (2, 2):
+                fits = [r["fit"] for r in out]
+                if len({f["digest"] for f in fits}) != 1 or fits[0]["epochs_run"] != 1:
+                    raise AssertionError(f"the 2x2 fit's ranks disagree: {fits}")
+                fresh = build_model(cfg, seed=SEED + 99, device=dev)
+                ckpt_lib.load_params(workdir, "speech", fresh, slot="best")
+                data = Batcher(*corpus[:5], train_ids=corpus[4][:N_MESH_TRAIN],
+                               val_ids=corpus[4][N_MESH_TRAIN:])
+                decoded = Decoder.for_model(fresh, "speech").decode_batches(
+                    [next(iter(data.epoch(B, train=False)))])
+                if len(decoded) != B or _digest(fresh) != fits[0]["digest"]:
+                    raise AssertionError("the 2x2 fit's best slot does not reload and decode")
+                meshes[name]["fit"] = {"history": fits[0]["history"], "slot_reloads": True,
+                                       "ranks_agree": True}
+    phase("mesh", pipeline="speech", B=B, T=cfg.maxlen, H=cfg.encoder.hidden, backend="gloo",
+          ranks_share_one_card=True, loss_1=loss_1, eval_1=eval_1, tol_loss_rel=TOL_LOSS_REL,
+          tol_grad_rel=TOL_GRAD_REL, meshes=meshes)
+    return meshes["2x2"]["launches_rank0"]
 
 
 def _device_us(prof) -> float:
@@ -772,19 +1109,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build_phase()
     measured = {"bilstm_tm_fwd": k1_phase(dev), "bilstm_tm_bwd": k2_phase(dev),
-                "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev)}
+                "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev), **k5_phase(dev)}
     serving = slice_phase(dev)
     training = train_phase(dev)
+    mesh = mesh_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
-    replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491}
-    # launches: the training path's counts (this slice's main path); the
-    # serving path's counts of K1 and K3 beside them.
+    from mgr_tpu_torch.ops import dispatch
+
+    replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,
+                "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151}
+    # launches: K1-K4 from the training path (the one-process main path),
+    # with the serving path's counts of K1 and K3 beside them; K5a/K5b from
+    # rank 0 of the 2x2 mesh's train and eval step (the mesh path).
     kernels = [
-        {"name": name, "route": "cuda", "source": f"mgr_tpu_torch/csrc/{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"mgr_tpu_torch/csrc/{dispatch.SOURCES[name]}.cu",
          "replaces": f"mgr_tpu/ops/pallas_kernels.py:{replaces[name]}",
-         "launches": training[name],
+         "launches": mesh[name] if name.startswith("lstm_tm") else training[name],
          **({"launches_serving": serving[name]} if name in serving else {}),
          **measured[name]}
         for name in KERNELS

@@ -9,12 +9,22 @@
 
 A workdir holds ``<pipeline>_config.json`` and
 ``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``);
-``train`` writes them. The model runs on the first CUDA device when there
-is one (through the kernels), else on the CPU (through their plain
-versions). Only the speech and skeletal families are ported, on one
-device: the JAX CLI's ``--mesh``, ``--async-checkpoints``,
-``--trace-dir``, ``--debug-nans`` and ``--cache-dir`` wait with
-ROADMAP.md items 8 and 12.
+``train`` writes them. The model runs on ``--device``: ``cuda`` (the
+default: the first card, through the kernels) or ``cpu`` (through their
+plain versions), and a command asked for ``cuda`` on a host without a
+card fails; it never carries on on the CPU.
+
+``train --mesh DATAxMODEL`` trains over a mesh of ranks (pure data
+parallelism, or data parallelism x direction-sharded tensor parallelism
+with MODEL = 2), one process per rank, started by torchrun:
+
+    torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train speech --mesh 2x2 ...
+
+Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
+on the CPU over gloo; rank 0 writes the workdir and prints the result.
+Only the speech and skeletal families are ported. The JAX CLI's
+``decode``/``evaluate --mesh``, ``--async-checkpoints``, ``--trace-dir``,
+``--debug-nans`` and ``--cache-dir`` wait with ROADMAP.md items 8 and 12.
 """
 
 from __future__ import annotations
@@ -27,10 +37,16 @@ from typing import Optional
 PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
 
 
-def _device():
+def _device(args):
+    """The device ``--device`` names; a CUDA device must exist."""
     import torch
 
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA device on this host (pass "
+            f"--device cpu to run the plain versions on the CPU)")
+    return torch.device("cuda", 0) if dev == torch.device("cuda") else dev
 
 
 def _load_model(args):
@@ -38,7 +54,7 @@ def _load_model(args):
     from mgr_tpu_torch.models.zoo import build_model
 
     cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
-    model = build_model(cfg, device=_device())
+    model = build_model(cfg, device=_device(args))
     return cfg, ckpt_lib.load_params(args.workdir, args.pipeline, model, slot=args.slot)
 
 
@@ -68,7 +84,34 @@ def _config_for(args, name: str):
         over["optimizer"] = dataclasses.replace(cfg.optimizer, **opt_over)
     if args.compute_dtype:
         over["compute_dtype"] = args.compute_dtype
+    if args.mesh:
+        parts = [int(x) for x in args.mesh.lower().split("x")]
+        over["mesh"] = cfglib.MeshConfig(
+            data=parts[0], model=parts[1] if len(parts) > 1 else 1,
+            time=parts[2] if len(parts) > 2 else 1)
     return cfg.replace(**over) if over else cfg
+
+
+def _mesh_for(cfg, args, dev):
+    """The mesh of ``--mesh`` over torchrun's process group, or None for a
+    single process. Exits when the process count is not the mesh's."""
+    import os
+
+    from mgr_tpu_torch.parallel import mesh as mesh_lib
+    from mgr_tpu_torch.parallel import multihost, sharding
+
+    n = cfg.mesh.num_devices
+    if n <= 1:
+        return None
+    sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != n:
+        raise SystemExit(
+            f"--mesh {args.mesh} runs {n} processes, one per rank: launch it as "
+            f"`torchrun --nproc-per-node {n} -m mgr_tpu_torch.cli.main train ...` "
+            f"(WORLD_SIZE is {world})")
+    multihost.initialize("nccl" if dev.type == "cuda" else "gloo")
+    return mesh_lib.make_mesh(cfg.mesh, device=None if dev.type == "cuda" else dev)
 
 
 def cmd_train(args) -> int:
@@ -76,16 +119,23 @@ def cmd_train(args) -> int:
     from mgr_tpu_torch.train.loop import fit
 
     cfg = _config_for(args, args.pipeline)
+    dev = _device(args)
+    mesh = _mesh_for(cfg, args, dev)
     data = _build_dataset(args.pipeline, cfg, args, mode="train")
-    model = build_model(cfg, device=_device())
+    model = build_model(cfg, device=dev if mesh is None else mesh.device)
     res = fit(model, data, workdir=args.workdir, resume=args.resume,
               epochs=args.epochs, checkpoint_every=args.checkpoint_every,
-              monitor=args.monitor)
-    print(json.dumps({
-        "pipeline": args.pipeline,
-        "best_val_loss": res.best_val_loss,
-        "epochs_run": res.epochs_run,
-    }))
+              monitor=args.monitor, mesh=mesh)
+    if mesh is None or mesh.is_primary:
+        print(json.dumps({
+            "pipeline": args.pipeline,
+            "best_val_loss": res.best_val_loss,
+            "epochs_run": res.epochs_run,
+        }))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
@@ -179,6 +229,12 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: cuda (default; fails without a "
+                        "card) or cpu")
+
+
 def _add_corpus_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-dir")
     p.add_argument("--labels")
@@ -215,6 +271,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "is kept in memory and still flushed)")
     pt.add_argument("--monitor", choices=("val", "train"), default="val",
                     help="loss that drives the best checkpoint and early stopping")
+    pt.add_argument("--mesh", default=None,
+                    help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
+                         "one process per rank under torchrun")
+    _add_device_flag(pt)
     pt.set_defaults(fn=cmd_train)
 
     pd = sub.add_parser("decode", help="decode a trained pipeline to MLF")
@@ -226,6 +286,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_corpus_flags(pd)
     pd.add_argument("--beam", type=int, default=0,
                     help="prefix beam search width (0/1 = best path)")
+    _add_device_flag(pd)
     pd.set_defaults(fn=cmd_decode)
 
     pe = sub.add_parser("evaluate", help="decode a split and score it in-framework")
@@ -236,6 +297,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="which side of the split to score (dataset=train)")
     pe.add_argument("--slot", default="best", choices=["best", "latest"])
     _add_corpus_flags(pe)
+    _add_device_flag(pe)
     pe.set_defaults(fn=cmd_evaluate)
 
     pi = sub.add_parser("infer", help="decode one utterance file")
@@ -244,6 +306,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--workdir", default="runs")
     pi.add_argument("--slot", default="best", choices=["best", "latest"])
     pi.add_argument("--true-lengths", action="store_true")
+    _add_device_flag(pi)
     pi.set_defaults(fn=cmd_infer)
 
     ps = sub.add_parser("score", help="HTK-style scoring of two MLFs")

@@ -16,8 +16,10 @@ from typing import Any, Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, workdir: Optional[str] = None, stamp: str = "run", stream=None):
+    def __init__(self, workdir: Optional[str] = None, stamp: str = "run", stream=None,
+                 num_chips: int = 1):
         self.stream = stream if stream is not None else sys.stderr
+        self.num_chips = max(int(num_chips), 1)
         self._f = None
         if workdir is not None:
             os.makedirs(workdir, exist_ok=True)
@@ -54,7 +56,7 @@ class MetricsLogger:
             "val_loss": None if val_loss is None else float(val_loss),
             "wall_s": wall,
             "seqs_per_sec": seqs_per_sec,
-            "seqs_per_sec_per_chip": seqs_per_sec,  # one device
+            "seqs_per_sec_per_chip": seqs_per_sec / self.num_chips,
             **extra,
         }
         self.log(rec)

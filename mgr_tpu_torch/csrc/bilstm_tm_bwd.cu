@@ -2,7 +2,12 @@
 //
 // Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:_tm_bwd_kernel
 // (launched by _tm_bwd_call from the custom VJP _tm_core_bwd of
-// pallas_bilstm_tm). It is the adjoint of bilstm_tm_fwd.cu. Same function:
+// pallas_bilstm_tm). It is the adjoint of bilstm_tm_fwd.cu. The entry
+// lstm_tm_bwd runs ONE direction of it and replaces _tm1_bwd_kernel
+// (launched by _tm1_bwd_call from the custom VJP _tm1_core_bwd of
+// pallas_lstm_tm, the direction-sharded tensor-parallel path): the blocks
+// of one direction only, whose walk order is that direction's (reverse = 1
+// walks t = 0 -> T-1). Same function:
 //
 //   direction 0 walks t = T-1 -> 0 (its pre-state is at t-1), direction 1
 //   walks t = 0 -> T-1 (its scan ran backwards: its pre-state is at t+1);
@@ -42,7 +47,9 @@
 // thread) and a launch covers at most MAX_TILES tiles (256 rows); the host
 // entry runs a larger batch as consecutive launches over slices of rows.
 // At H=500 the grid is 2 x 63 = 126 blocks, one per SM, and shared memory
-// 192 KB. What limits this first version: the grid barrier each step,
+// 192 KB; a single-direction launch is the 63 blocks of its direction, with
+// the per-unit arithmetic of the two-direction launch, so its dz is
+// bit-equal to that direction of bilstm_tm_bwd. What limits this first version: the grid barrier each step,
 // every block re-reading all of dz_t and h_{t-1} from L2, and FP32 FMAs
 // where tensor cores could run both products.
 
@@ -85,7 +92,8 @@ __device__ __forceinline__ float hard_sigmoid_grad(float x) {
 __global__ void __launch_bounds__(THREADS, 1)
 bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
                      const __nv_bfloat16* __restrict__ xp1,
-                     const __nv_bfloat16* __restrict__ U,
+                     const __nv_bfloat16* __restrict__ U0,
+                     const __nv_bfloat16* __restrict__ U1,
                      const __nv_bfloat16* __restrict__ hs0,
                      const __nv_bfloat16* __restrict__ hs1,
                      const __nv_bfloat16* __restrict__ cs0,
@@ -93,10 +101,11 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
                      const __nv_bfloat16* __restrict__ dhs0,
                      const __nv_bfloat16* __restrict__ dhs1,
                      __nv_bfloat16* dz0, __nv_bfloat16* dz1,
-                     int T, int B, int ldb, int H, int slices) {
-  // B <= MAX_B rows of a batch whose time steps are ldb rows apart.
+                     int T, int B, int ldb, int H, int slices, int d0) {
+  // B <= MAX_B rows of a batch whose time steps are ldb rows apart. The
+  // grid covers directions d0 .. d0 + gridDim.x / slices - 1.
   extern __shared__ __align__(16) unsigned char smem[];
-  const int d = blockIdx.x / slices;
+  const int d = d0 + blockIdx.x / slices;
   const int j0 = (blockIdx.x % slices) * JS;
   const int tid = threadIdx.x;
   const int j = tid % JS;
@@ -113,7 +122,7 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
   uint32_t* stage_s = reinterpret_cast<uint32_t*>(
       smem + round16((size_t)H * JS * 4 * 4) + round16((size_t)4 * H * JS * 4));
 
-  const __nv_bfloat16* Ud = U + (size_t)d * H * H4;
+  const __nv_bfloat16* Ud = d == 0 ? U0 : U1;
   for (int idx = tid; idx < H * JS * 4; idx += THREADS) {
     const int k = idx / (JS * 4);
     const int jj = (idx / 4) % JS;
@@ -305,15 +314,15 @@ static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
   return err;
 }
 
-// Runs the whole backward walk on `stream`, as one cooperative launch per
-// MAX_B batch rows. Returns the first cudaError_t: an oversized grid is
-// refused, never run.
-extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
-                             const void* hs0, const void* hs1,
-                             const void* cs0, const void* cs1,
-                             const void* dhs0, const void* dhs1,
-                             void* dz0, void* dz1,
-                             int T, int B, int H, int device, void* stream) {
+// Runs the backward walk of directions d0 .. d0 + ndirs - 1 on `stream`, as
+// one cooperative launch per MAX_B batch rows. Returns the first
+// cudaError_t: an oversized grid is refused, never run.
+static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, const void* U1,
+                          const void* hs0, const void* hs1,
+                          const void* cs0, const void* cs1,
+                          const void* dhs0, const void* dhs1,
+                          void* dz0, void* dz1,
+                          int T, int B, int H, int d0, int ndirs, int device, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || (H & 1)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -324,7 +333,7 @@ extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
   if (err != cudaSuccess) return err;
   err = blocks_per_sm(device, smem, &per_sm);
   if (err != cudaSuccess) return err;
-  if (2 * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  if (ndirs * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
 
   typedef __nv_bfloat16 bf;
   const size_t H4 = 4 * (size_t)H;
@@ -332,7 +341,8 @@ extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
     // Row b0 of every time step: the batch slice [b0, b0 + nb).
     const bf* a_xp0 = static_cast<const bf*>(xp0) + b0 * H4;
     const bf* a_xp1 = static_cast<const bf*>(xp1) + b0 * H4;
-    const bf* a_U = static_cast<const bf*>(U);
+    const bf* a_U0 = static_cast<const bf*>(U0);
+    const bf* a_U1 = static_cast<const bf*>(U1);
     const bf* a_hs0 = static_cast<const bf*>(hs0) + (size_t)b0 * H;
     const bf* a_hs1 = static_cast<const bf*>(hs1) + (size_t)b0 * H;
     const bf* a_cs0 = static_cast<const bf*>(cs0) + (size_t)b0 * H;
@@ -342,16 +352,39 @@ extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
     bf* a_dz0 = static_cast<bf*>(dz0) + b0 * H4;
     bf* a_dz1 = static_cast<bf*>(dz1) + b0 * H4;
     int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ldb = B, a_H = H;
-    int a_slices = slices;
-    void* args[] = {&a_xp0, &a_xp1, &a_U, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
+    int a_slices = slices, a_d0 = d0;
+    void* args[] = {&a_xp0, &a_xp1, &a_U0, &a_U1, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
                     &a_dhs0, &a_dhs1, &a_dz0, &a_dz1,
-                    &a_T, &a_B, &a_ldb, &a_H, &a_slices};
+                    &a_T, &a_B, &a_ldb, &a_H, &a_slices, &a_d0};
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bilstm_tm_bwd_kernel),
-                                      dim3(2 * slices), dim3(THREADS), args, smem,
+                                      dim3(ndirs * slices), dim3(THREADS), args, smem,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// Both directions: xp0, xp1 (T, B, 4H); U (2, H, 4H); streams (T, B, H);
+// dz0, dz1 (T, B, 4H).
+extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
+                             const void* hs0, const void* hs1,
+                             const void* cs0, const void* cs1,
+                             const void* dhs0, const void* dhs1,
+                             void* dz0, void* dz1,
+                             int T, int B, int H, int device, void* stream) {
+  const void* U1 = static_cast<const __nv_bfloat16*>(U) + (size_t)H * 4 * H;
+  return launch(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, dhs0, dhs1, dz0, dz1,
+                T, B, H, 0, 2, device, stream);
+}
+
+// One direction: xp (T, B, 4H); U (H, 4H); hs, cs, dhs (T, B, H) as the
+// forward of the same `reverse` stored them; dz (T, B, 4H).
+extern "C" int lstm_tm_bwd(const void* xp, const void* U, const void* hs, const void* cs,
+                           const void* dhs, void* dz,
+                           int T, int B, int H, int reverse, int device, void* stream) {
+  if (reverse != 0 && reverse != 1) return cudaErrorInvalidValue;
+  return launch(xp, xp, U, U, hs, hs, cs, cs, dhs, dhs, dz, dz,
+                T, B, H, reverse, 1, device, stream);
 }

@@ -2,7 +2,12 @@
 //
 // Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:_tm_fwd_kernel
 // (launched by _tm_fwd_call, reached through pallas_bilstm_tm from
-// mgr_tpu/ops/lstm.py::bilstm_layer_tm). Same function:
+// mgr_tpu/ops/lstm.py::bilstm_layer_tm). The entry lstm_tm_fwd runs ONE
+// direction of it and replaces _tm1_fwd_kernel (launched by _tm1_fwd_call,
+// reached through pallas_lstm_tm from bilstm_layer_tm_dirsharded, the
+// direction-sharded tensor-parallel path): the same blocks, launched for
+// one direction only (forward order, or reverse order with reverse = 1).
+// Same function:
 //
 //   for d in {0, 1}, step s = 0..T-1, t = s (d = 0) or T-1-s (d = 1):
 //     z     = xp_d[t] + bf16(h_prev) . U_d          (f32 accumulation)
@@ -35,7 +40,10 @@
 // launch covers at most MAX_TILES tiles (256 rows), so neither registers
 // nor shared memory grow with B; the host entry runs a larger batch as
 // consecutive launches over slices of rows. At H=500 the grid is
-// 2 x 63 = 126 blocks, one per SM. What limits this first version: the
+// 2 x 63 = 126 blocks, one per SM; a single-direction launch is the 63
+// blocks of its direction, whose per-unit arithmetic is the two-direction
+// launch's, so its h and c are bit-equal to that direction of
+// bilstm_tm_fwd. What limits this first version: the
 // grid barrier each step, every block re-reading all of h_{t-1} from L2,
 // and FP32 FMAs where tensor cores could run the product. mma/wgmma and
 // a cluster exchange of h through distributed shared memory are later
@@ -76,13 +84,15 @@ __device__ __forceinline__ float hard_sigmoid(float x) {
 __global__ void __launch_bounds__(THREADS, 1)
 bilstm_tm_fwd_kernel(const __nv_bfloat16* __restrict__ xp0,
                      const __nv_bfloat16* __restrict__ xp1,
-                     const __nv_bfloat16* __restrict__ U,
+                     const __nv_bfloat16* __restrict__ U0,
+                     const __nv_bfloat16* __restrict__ U1,
                      __nv_bfloat16* hs0, __nv_bfloat16* hs1,
                      __nv_bfloat16* cs0, __nv_bfloat16* cs1,
-                     int T, int B, int ldb, int H, int slices) {
-  // B <= MAX_B rows of a batch whose time steps are ldb rows apart.
+                     int T, int B, int ldb, int H, int slices, int d0) {
+  // B <= MAX_B rows of a batch whose time steps are ldb rows apart. The
+  // grid covers directions d0 .. d0 + gridDim.x / slices - 1.
   extern __shared__ __align__(16) unsigned char smem[];
-  const int d = blockIdx.x / slices;
+  const int d = d0 + blockIdx.x / slices;
   const int j0 = (blockIdx.x % slices) * JS;
   const int tid = threadIdx.x;
   const int j = tid % JS;
@@ -96,7 +106,7 @@ bilstm_tm_fwd_kernel(const __nv_bfloat16* __restrict__ xp0,
   float* u_s = reinterpret_cast<float*>(smem);
   uint32_t* h_s = reinterpret_cast<uint32_t*>(smem + round16((size_t)H * JS * 4 * 4));
 
-  const __nv_bfloat16* Ud = U + (size_t)d * H * H4;
+  const __nv_bfloat16* Ud = d == 0 ? U0 : U1;
   for (int idx = tid; idx < H * JS * 4; idx += THREADS) {
     const int k = idx / (JS * 4);
     const int jj = (idx / 4) % JS;
@@ -235,13 +245,13 @@ static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
   return err;
 }
 
-// Runs the whole recurrence on `stream`, as one cooperative launch per
-// MAX_B batch rows. cs0/cs1 may be null (the c stream is only needed by
-// the backward kernel). Returns the first cudaError_t: an oversized grid
-// is refused, never run.
-extern "C" int bilstm_tm_fwd(const void* xp0, const void* xp1, const void* U,
-                             void* hs0, void* hs1, void* cs0, void* cs1,
-                             int T, int B, int H, int device, void* stream) {
+// Runs directions d0 .. d0 + ndirs - 1 of the recurrence on `stream`, as
+// one cooperative launch per MAX_B batch rows. cs0/cs1 may be null (the c
+// stream is only needed by the backward kernel). Returns the first
+// cudaError_t: an oversized grid is refused, never run.
+static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, const void* U1,
+                          void* hs0, void* hs1, void* cs0, void* cs1,
+                          int T, int B, int H, int d0, int ndirs, int device, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || (H & 1)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -252,28 +262,47 @@ extern "C" int bilstm_tm_fwd(const void* xp0, const void* xp1, const void* U,
   if (err != cudaSuccess) return err;
   err = blocks_per_sm(device, smem, &per_sm);
   if (err != cudaSuccess) return err;
-  if (2 * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  if (ndirs * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
 
+  typedef __nv_bfloat16 bf;
   const size_t H4 = 4 * (size_t)H;
   for (int b0 = 0; b0 < B; b0 += MAX_B) {
     // Row b0 of every time step: the batch slice [b0, b0 + nb).
-    const __nv_bfloat16* a_xp0 = static_cast<const __nv_bfloat16*>(xp0) + b0 * H4;
-    const __nv_bfloat16* a_xp1 = static_cast<const __nv_bfloat16*>(xp1) + b0 * H4;
-    const __nv_bfloat16* a_U = static_cast<const __nv_bfloat16*>(U);
-    __nv_bfloat16* a_hs0 = static_cast<__nv_bfloat16*>(hs0) + (size_t)b0 * H;
-    __nv_bfloat16* a_hs1 = static_cast<__nv_bfloat16*>(hs1) + (size_t)b0 * H;
-    __nv_bfloat16* a_cs0 = cs0 ? static_cast<__nv_bfloat16*>(cs0) + (size_t)b0 * H : nullptr;
-    __nv_bfloat16* a_cs1 = cs1 ? static_cast<__nv_bfloat16*>(cs1) + (size_t)b0 * H : nullptr;
+    const bf* a_xp0 = static_cast<const bf*>(xp0) + b0 * H4;
+    const bf* a_xp1 = static_cast<const bf*>(xp1) + b0 * H4;
+    const bf* a_U0 = static_cast<const bf*>(U0);
+    const bf* a_U1 = static_cast<const bf*>(U1);
+    bf* a_hs0 = static_cast<bf*>(hs0) + (size_t)b0 * H;
+    bf* a_hs1 = static_cast<bf*>(hs1) + (size_t)b0 * H;
+    bf* a_cs0 = cs0 ? static_cast<bf*>(cs0) + (size_t)b0 * H : nullptr;
+    bf* a_cs1 = cs1 ? static_cast<bf*>(cs1) + (size_t)b0 * H : nullptr;
     int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ldb = B, a_H = H;
-    int a_slices = slices;
-    void* args[] = {&a_xp0, &a_xp1, &a_U, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
-                    &a_T, &a_B, &a_ldb, &a_H, &a_slices};
+    int a_slices = slices, a_d0 = d0;
+    void* args[] = {&a_xp0, &a_xp1, &a_U0, &a_U1, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
+                    &a_T, &a_B, &a_ldb, &a_H, &a_slices, &a_d0};
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bilstm_tm_fwd_kernel),
-                                      dim3(2 * slices), dim3(THREADS), args, smem,
+                                      dim3(ndirs * slices), dim3(THREADS), args, smem,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// Both directions: xp0, xp1 (T, B, 4H); U (2, H, 4H); direction 1 scans
+// T-1 -> 0.
+extern "C" int bilstm_tm_fwd(const void* xp0, const void* xp1, const void* U,
+                             void* hs0, void* hs1, void* cs0, void* cs1,
+                             int T, int B, int H, int device, void* stream) {
+  const void* U1 = static_cast<const __nv_bfloat16*>(U) + (size_t)H * 4 * H;
+  return launch(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, T, B, H, 0, 2, device, stream);
+}
+
+// One direction: xp (T, B, 4H); U (H, 4H); hs, cs (T, B, H), cs may be
+// null; reverse = 1 scans T-1 -> 0. Outputs at original time positions.
+extern "C" int lstm_tm_fwd(const void* xp, const void* U, void* hs, void* cs,
+                           int T, int B, int H, int reverse, int device, void* stream) {
+  if (reverse != 0 && reverse != 1) return cudaErrorInvalidValue;
+  return launch(xp, xp, U, U, hs, hs, cs, cs, T, B, H, reverse, 1, device, stream);
 }

@@ -4,7 +4,9 @@ is for the JAX package (``__graft_entry__.py:16-32``).
 ``entry()`` returns ``(fn, example_args)``: the speech BLSTM model at
 the preset's full width with seeded random weights, and a zero batch of
 B=8 utterances of T=1900 frames. ``fn(*example_args)`` gives (B, T, 44)
-logits. On a CUDA device it runs through the kernels.
+logits. It runs on ``device``: ``cuda`` (the default, through the
+kernels; fails without a card) or ``cpu`` (the plain versions), never on
+the CPU unless asked.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from mgr_tpu_torch.core.config import get_preset
 from mgr_tpu_torch.models.zoo import build_model
 
 
-def entry():
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+def entry(device: str = "cuda"):
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"entry(device={device!r}): no CUDA device on this host; "
+                           f"pass device='cpu' for the plain versions")
     cfg = get_preset("speech")
     model = build_model(cfg, device=device)
     x = torch.zeros((8, cfg.maxlen, cfg.num_feats), dtype=torch.float32, device=device)

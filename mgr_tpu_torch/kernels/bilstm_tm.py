@@ -4,6 +4,13 @@ adjoint (``csrc/bilstm_tm_fwd.cu`` replaces
 replaces ``_tm_bwd_kernel``), and :class:`BiLSTMTm`, the autograd
 Function that pairs them as ``_tm_core`` pairs the Pallas kernels.
 
+K5a and K5b, the single-direction recurrence and its adjoint of the
+direction-sharded tensor-parallel path, are the entries ``lstm_tm_fwd``
+and ``lstm_tm_bwd`` of the same two sources (replacing
+``_tm1_fwd_kernel`` and ``_tm1_bwd_kernel``): :func:`lstm_tm_streams`,
+:func:`lstm_tm_bwd` and the autograd Function :class:`LSTMTm`, the
+counterpart of ``_tm1_core``.
+
 A CPU tensor goes to the plain versions in ``ops.lstm``; a CUDA tensor
 launches the kernel or raises. Like ``pallas_bilstm_tm`` the kernels take
 bf16 operands whatever the compute dtype and keep the h and c streams in
@@ -24,14 +31,19 @@ from mgr_tpu_torch.ops import lstm as _lstm
 
 NAME = "bilstm_tm_fwd"
 BWD_NAME = "bilstm_tm_bwd"
+ONE_NAME = "lstm_tm_fwd"
+ONE_BWD_NAME = "lstm_tm_bwd"
 
 
-def _lib(name: str, n_ptrs: int) -> ctypes.CDLL:
-    lib = build.load(name)
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
+    """The library of ``entry``'s source, with ``entry``'s C signature:
+    ``n_ptrs`` pointers, ``n_ints`` ints, the stream."""
+    source = dispatch.SOURCES[entry]
+    lib = build.load(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    err = getattr(lib, f"{source}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
@@ -179,3 +191,96 @@ class BiLSTMTm(torch.autograd.Function):
         dz0, dz1 = bilstm_tm_bwd(xp0, xp1, U, hs0, hs1, cs0, cs1, g0.to(sd), g1.to(sd))
         dU = _lstm.recurrent_weight_grad(hs0, hs1, dz0, dz1)
         return dz0.to(xp0.dtype), dz1.to(xp1.dtype), dU.to(sd).to(U.dtype)
+
+
+def _check_one(name: str, xp, U1) -> Tuple[int, int, int]:
+    T, B, four, H = xp.shape
+    if four != 4 or U1.shape != (H, 4, H):
+        raise ValueError(
+            f"{name}: want xp (T,B,4,H) and U1 (H,4,H), got "
+            f"{tuple(xp.shape)}, {tuple(U1.shape)}")
+    return T, B, H
+
+
+def lstm_tm_streams(
+    xp: torch.Tensor, U1: torch.Tensor, *, reverse: bool, store_c: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """K5a: one direction's stored stream hs (and cs with ``store_c``),
+    (T, B, H), scanned T-1 -> 0 when ``reverse`` and stored at original
+    positions. xp (T, B, 4, H) in original time order, U1 (H, 4, H). bf16
+    from the kernel; in the compute dtype (xp's) from the plain version."""
+    T, B, H = _check_one("lstm_tm", xp, U1)
+    if not dispatch.on_card(xp, U1):
+        return _lstm.lstm_scan_tm_plain(
+            xp, U1, reverse=reverse, store_c=store_c, out_dtype=xp.dtype)
+    (xpk,) = _even(xp)
+    Uk = _even_u(U1)
+    Hk = xpk.shape[-1]
+    hs = torch.empty((T, B, Hk), dtype=torch.bfloat16, device=xp.device)
+    cs = torch.empty_like(hs) if store_c else None
+    lib = _lib(ONE_NAME, 4, 5)
+    err = lib.lstm_tm_fwd(
+        xpk.data_ptr(), Uk.data_ptr(), hs.data_ptr(),
+        cs.data_ptr() if store_c else None,
+        T, B, Hk, int(reverse), *_device_and_stream(xp),
+    )
+    build.check(lib, NAME, err, ONE_NAME)
+    dispatch.count_launch(ONE_NAME)
+    return tuple(s[..., :H] for s in ((hs, cs) if store_c else (hs,)))
+
+
+def lstm_tm_bwd(
+    xp: torch.Tensor, U1: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: torch.Tensor, *, reverse: bool,
+) -> torch.Tensor:
+    """K5b: dz (T, B, 4, H), one direction's gate adjoints, from the
+    forward's operands, its stored streams (T, B, H) and the h stream's
+    cotangent (T, B, H); ``reverse`` as the forward ran. bf16 from the
+    kernel; in the compute dtype from the plain version."""
+    T, B, H = _check_one("lstm_tm_bwd", xp, U1)
+    for s in (hs, cs, dhs):
+        if s.shape != (T, B, H):
+            raise ValueError(f"lstm_tm_bwd: want streams {(T, B, H)}, got {tuple(s.shape)}")
+    if not dispatch.on_card(xp, U1, hs, cs, dhs):
+        return _lstm.lstm_scan_tm_bwd_plain(xp, U1, hs, cs, dhs, reverse=reverse)[0]
+    (xpk,) = _even(xp)
+    Uk = _even_u(U1)
+    streams = _even(hs, cs, dhs)
+    Hk = xpk.shape[-1]
+    dz = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp.device)
+    lib = _lib(ONE_BWD_NAME, 6, 5)
+    err = lib.lstm_tm_bwd(
+        xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),
+        T, B, Hk, int(reverse), *_device_and_stream(xp),
+    )
+    build.check(lib, BWD_NAME, err, ONE_BWD_NAME)
+    dispatch.count_launch(ONE_BWD_NAME)
+    return dz[..., :H]
+
+
+class LSTMTm(torch.autograd.Function):
+    """``(xp, U1, reverse) -> hs`` f32, differentiable in xp and U1: K5a
+    forward with the c stream stored, K5b backward, and the recurrent-weight
+    gradient as one GEMM outside the kernel (``_tm1_core`` /
+    ``_tm1_core_bwd``, ``pallas_kernels.py:1270-1297``).
+
+    As :class:`BiLSTMTm`: the cotangent is rounded to the stream dtype
+    before K5b (``:1284``), dxp = dz is returned in xp's dtype, and dU,
+    summed in f32 from operands in dz's dtype, is rounded through the
+    stream dtype to U1's dtype (``:1292-1294``). A reverse scan's
+    pre-state is at t+1, zero at T-1 (``:1286-1291``)."""
+
+    @staticmethod
+    def forward(ctx, xp, U1, reverse):
+        hs, cs = lstm_tm_streams(xp, U1, reverse=reverse, store_c=True)
+        ctx.reverse = reverse
+        ctx.save_for_backward(xp, U1, hs, cs)
+        return hs.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, U1, hs, cs = ctx.saved_tensors
+        sd = hs.dtype
+        dz = lstm_tm_bwd(xp, U1, hs, cs, g.to(sd), reverse=ctx.reverse)
+        dU = _lstm.lstm_weight_grad(hs, dz, reverse=ctx.reverse)
+        return dz.to(xp.dtype), dU.to(sd).to(U1.dtype), None

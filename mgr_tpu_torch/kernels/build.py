@@ -18,7 +18,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -90,8 +90,9 @@ def build_log(name: str) -> str:
     return _logs.get(name, "")
 
 
-def check(lib: ctypes.CDLL, name: str, err: int) -> None:
-    """Raise if a kernel's C entry returned a CUDA error."""
+def check(lib: ctypes.CDLL, name: str, err: int, entry: Optional[str] = None) -> None:
+    """Raise if a C entry of ``csrc/<name>.cu`` (``entry``, default
+    ``name``) returned a CUDA error."""
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
+        raise RuntimeError(f"CUDA kernel {entry or name} failed: error {err} ({msg})")

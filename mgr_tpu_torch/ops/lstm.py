@@ -21,7 +21,11 @@ same numerics:
 The recurrence is kernel K1 (``csrc/bilstm_tm_fwd.cu``) on a CUDA device
 and :func:`bilstm_scan_tm_plain` on the CPU; its adjoint is kernel K2
 (``csrc/bilstm_tm_bwd.cu``) and :func:`bilstm_scan_tm_bwd_plain`, chosen
-by ``mgr_tpu_torch.kernels.bilstm_tm``. In train mode the layer's input
+by ``mgr_tpu_torch.kernels.bilstm_tm``. Under a direction-shard context
+(``ops.dispatch.direction_shard``, set by the mesh steps) a layer runs one
+direction, through K5a/K5b (:func:`lstm_scan_tm_plain`,
+:func:`lstm_scan_tm_bwd_plain` on the CPU), and exchanges the h streams
+over the model group (:func:`bilstm_layer_tm_dirsharded`). In train mode the layer's input
 dropout draws one (B, F) mask per direction (four with ``per_gate``),
 constant over time, from ``core.prng`` (``mgr_tpu/ops/lstm.py:444-472``).
 """
@@ -34,6 +38,8 @@ import torch
 
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.kernels import bilstm_tm as _kernel
+from mgr_tpu_torch.ops import dispatch
+from mgr_tpu_torch.parallel import collectives
 
 Params = Dict[str, torch.Tensor]
 
@@ -157,6 +163,43 @@ def dropout_scale(
     return mask.to(dtype) / torch.tensor(keep, dtype=dtype, device=device)
 
 
+def lstm_scan_tm_plain(
+    xp: torch.Tensor, U1: torch.Tensor, *, reverse: bool,
+    store_c: bool = False, out_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain single-direction recurrence: the reference for kernel K5a
+    (``_tm1_fwd_kernel``, ``pallas_kernels.py:1086-1119``).
+
+    xp: (T, B, 4, H) projections in original time order, in the compute
+    dtype; U1: (H, 4, H). ``reverse`` walks t = T-1 -> 0. Any T: the TPU
+    kernel pads T at the end, and a reverse scan walks that padding first
+    (``:1328-1335``); its zero projections keep the zero state, so
+    skipping them is the same function. Returns (hs,) or, with
+    ``store_c``, (hs, cs), (T, B, H) in ``out_dtype`` at original
+    positions, each value rounded through the compute dtype (the stored
+    streams)."""
+    T, B, _, H = xp.shape
+    cd = xp.dtype
+    Uc = U1.to(cd).reshape(H, 4 * H)
+    hs = torch.empty((T, B, H), dtype=cd, device=xp.device)
+    cs = torch.empty_like(hs) if store_c else None
+    h = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+    c = torch.zeros_like(h)
+    for s in range(T):
+        t = T - 1 - s if reverse else s
+        z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h.to(cd), Uc)
+        i = hard_sigmoid(z[:, 0 * H:1 * H])
+        f = hard_sigmoid(z[:, 1 * H:2 * H])
+        g = torch.tanh(z[:, 2 * H:3 * H])
+        o = hard_sigmoid(z[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[t] = h.to(cd)
+        if store_c:
+            cs[t] = c.to(cd)
+    return tuple(x.to(out_dtype) for x in ((hs, cs) if store_c else (hs,)))
+
+
 def bilstm_scan_tm_plain(
     xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
     *, store_c: bool = False, out_dtype: torch.dtype = torch.float32,
@@ -167,29 +210,11 @@ def bilstm_scan_tm_plain(
     compute dtype; U: (2, H, 4, H). Direction 1 walks t = T-1 -> 0.
     Returns hs0, hs1 (T, B, H) in ``out_dtype``, each value rounded
     through the compute dtype (the stored h stream), and with ``store_c``
-    also the c streams, rounded the same way."""
-    T, B, _, H = xp0.shape
-    cd = xp0.dtype
-    Uc = U.to(cd).reshape(2, H, 4 * H)
-    hs = [torch.empty((T, B, H), dtype=cd, device=xp0.device) for _ in range(2)]
-    cs = [torch.empty_like(hs[0]) for _ in range(2)] if store_c else None
-    for d, xp in enumerate((xp0, xp1)):
-        h = torch.zeros((B, H), dtype=torch.float32, device=xp0.device)
-        c = torch.zeros_like(h)
-        for s in range(T):
-            t = s if d == 0 else T - 1 - s
-            z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h.to(cd), Uc[d])
-            i = hard_sigmoid(z[:, 0 * H:1 * H])
-            f = hard_sigmoid(z[:, 1 * H:2 * H])
-            g = torch.tanh(z[:, 2 * H:3 * H])
-            o = hard_sigmoid(z[:, 3 * H:4 * H])
-            c = f * c + i * g
-            h = o * torch.tanh(c)
-            hs[d][t] = h.to(cd)
-            if store_c:
-                cs[d][t] = c.to(cd)
-    out = (hs[0], hs[1]) + ((cs[0], cs[1]) if store_c else ())
-    return tuple(x.to(out_dtype) for x in out)
+    also the c streams, rounded the same way: :func:`lstm_scan_tm_plain`
+    for each direction."""
+    a = lstm_scan_tm_plain(xp0, U[0], reverse=False, store_c=store_c, out_dtype=out_dtype)
+    b = lstm_scan_tm_plain(xp1, U[1], reverse=True, store_c=store_c, out_dtype=out_dtype)
+    return (a[0], b[0]) + ((a[1], b[1]) if store_c else ())
 
 
 def hard_sigmoid_grad(z: torch.Tensor) -> torch.Tensor:
@@ -200,6 +225,57 @@ def hard_sigmoid_grad(z: torch.Tensor) -> torch.Tensor:
     return torch.where((z > -2.5) & (z < 2.5), 0.2, 0.0).to(z.dtype)
 
 
+def lstm_scan_tm_bwd_plain(
+    xp: torch.Tensor, U1: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: torch.Tensor, *, reverse: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain adjoint of the single-direction recurrence: the reference for
+    kernel K5b (``_tm1_bwd_kernel``, ``pallas_kernels.py:1151-1227``),
+    written out rather than taken by autograd of the plain forward.
+
+    xp (T, B, 4, H) and U1 (H, 4, H) as the forward took them; hs, cs
+    (T, B, H) the STORED streams (``tanh(c_t)``, ``c_prev`` and ``h_prev``
+    are read from them, not from f32 carries); dhs (T, B, H) the h
+    stream's cotangent. A forward scan's adjoint walks t = T-1 -> 0 with
+    its pre-state at t-1; a reverse scan's walks 0 -> T-1 with its
+    pre-state at t+1; zero past either end (no padding: see
+    :func:`lstm_scan_tm_plain`). dh and dc carry in f32; dz is rounded to
+    the compute dtype before ``dh_prev = dz . U1^T``. Returns dz (T, B, 4,
+    H) in the compute dtype (dxp = dz) and dU (H, 4, H) f32."""
+    T, B, _, H = xp.shape
+    cd = xp.dtype
+    Uc = U1.to(cd).reshape(H, 4 * H)
+    dz = torch.empty((T, B, 4 * H), dtype=cd, device=xp.device)
+    dh_c = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+    dc_c = torch.zeros_like(dh_c)
+    zero = torch.zeros((B, H), dtype=cd, device=xp.device)
+    for s in range(T):
+        t = s if reverse else T - 1 - s
+        t_pre = t + 1 if reverse else t - 1
+        has_pre = 0 <= t_pre < T
+        h_pre = hs[t_pre].to(cd) if has_pre else zero
+        c_pre = cs[t_pre].float() if has_pre else zero.float()
+        z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h_pre, Uc)
+        z_i, z_f, z_g, z_o = (z[:, g * H:(g + 1) * H] for g in range(4))
+        i, f, o = hard_sigmoid(z_i), hard_sigmoid(z_f), hard_sigmoid(z_o)
+        g_ = torch.tanh(z_g)
+        tanh_c = torch.tanh(cs[t].float())
+        dh = dhs[t].float() + dh_c
+        do = dh * tanh_c
+        dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
+        dz_t = torch.cat([
+            (dc * g_) * hard_sigmoid_grad(z_i),
+            (dc * c_pre) * hard_sigmoid_grad(z_f),
+            (dc * i) * (1.0 - g_ * g_),
+            do * hard_sigmoid_grad(z_o),
+        ], dim=1).to(cd)
+        dz[t] = dz_t
+        dh_c = matmul_f32(dz_t, Uc.t())
+        dc_c = dc * f
+    dz = dz.reshape(T, B, 4, H)
+    return dz, lstm_weight_grad(hs, dz, reverse=reverse)
+
+
 def bilstm_scan_tm_bwd_plain(
     xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
     hs0: torch.Tensor, hs1: torch.Tensor, cs0: torch.Tensor, cs1: torch.Tensor,
@@ -207,71 +283,61 @@ def bilstm_scan_tm_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain adjoint of the recurrence: the reference for kernel K2
     (``_tm_bwd_kernel``, ``pallas_kernels.py:876-911``, and
-    ``_tm_core_bwd`` :1013-1028), written out rather than taken by
-    autograd of the plain forward.
+    ``_tm_core_bwd`` :1013-1028): :func:`lstm_scan_tm_bwd_plain` for
+    direction 0 (forward scan) and direction 1 (reverse scan). Returns dz0,
+    dz1 (T, B, 4, H) in the compute dtype (dxp = dz) and dU (2, H, 4, H)
+    f32."""
+    dz0, dU0 = lstm_scan_tm_bwd_plain(xp0, U[0], hs0, cs0, dhs0, reverse=False)
+    dz1, dU1 = lstm_scan_tm_bwd_plain(xp1, U[1], hs1, cs1, dhs1, reverse=True)
+    return dz0, dz1, torch.stack([dU0, dU1])
 
-    xp0, xp1 (T, B, 4, H) and U (2, H, 4, H) as the forward took them;
-    hs*, cs* (T, B, H) the STORED streams (rounded to the compute dtype:
-    ``tanh(c_t)``, ``c_prev`` and ``h_prev`` are read from them, not from
-    f32 carries); dhs* (T, B, H) the streams' cotangents. Direction 0
-    walks t = T-1 -> 0 with its pre-state at t-1; direction 1 walks
-    0 -> T-1 with its pre-state at t+1; zero past either end. dh and dc
-    carry in f32; dz is rounded to the compute dtype before
-    ``dh_prev = dz . U_d^T``. Returns dz0, dz1 (T, B, 4, H) in the
-    compute dtype (dxp = dz) and dU (2, H, 4, H) f32."""
-    T, B, _, H = xp0.shape
-    cd = xp0.dtype
-    Uc = U.to(cd).reshape(2, H, 4 * H)
-    dzs = []
-    for d, (xp, hs, cs, dhs) in enumerate(((xp0, hs0, cs0, dhs0), (xp1, hs1, cs1, dhs1))):
-        dz = torch.empty((T, B, 4 * H), dtype=cd, device=xp.device)
-        dh_c = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
-        dc_c = torch.zeros_like(dh_c)
-        zero = torch.zeros((B, H), dtype=cd, device=xp.device)
-        for s in range(T):
-            t = T - 1 - s if d == 0 else s
-            t_pre = t - 1 if d == 0 else t + 1
-            has_pre = 0 <= t_pre < T
-            h_pre = hs[t_pre].to(cd) if has_pre else zero
-            c_pre = cs[t_pre].float() if has_pre else zero.float()
-            z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h_pre, Uc[d])
-            z_i, z_f, z_g, z_o = (z[:, g * H:(g + 1) * H] for g in range(4))
-            i, f, o = hard_sigmoid(z_i), hard_sigmoid(z_f), hard_sigmoid(z_o)
-            g_ = torch.tanh(z_g)
-            tanh_c = torch.tanh(cs[t].float())
-            dh = dhs[t].float() + dh_c
-            do = dh * tanh_c
-            dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
-            dz_t = torch.cat([
-                (dc * g_) * hard_sigmoid_grad(z_i),
-                (dc * c_pre) * hard_sigmoid_grad(z_f),
-                (dc * i) * (1.0 - g_ * g_),
-                do * hard_sigmoid_grad(z_o),
-            ], dim=1).to(cd)
-            dz[t] = dz_t
-            dh_c = matmul_f32(dz_t, Uc[d].t())
-            dc_c = dc * f
-        dzs.append(dz.reshape(T, B, 4, H))
-    return dzs[0], dzs[1], recurrent_weight_grad(hs0, hs1, dzs[0], dzs[1])
+
+def lstm_weight_grad(hs: torch.Tensor, dz: torch.Tensor, *, reverse: bool) -> torch.Tensor:
+    """``dU = sum_t h_prev[t]^T dz[t]`` (H, 4, H) f32, one GEMM outside the
+    kernel (``_tm1_core_bwd`` :1286-1294): a forward scan's pre-state
+    stream is hs shifted back (zero at t=0), a reverse scan's is hs
+    shifted forward (zero at T-1). Operands in the dz dtype, f32 sums."""
+    T, B, H = hs.shape
+    zero = torch.zeros_like(hs[:1])
+    hp = torch.cat([hs[1:], zero], dim=0) if reverse else torch.cat([zero, hs[:-1]], dim=0)
+    dz2 = dz.reshape(T * B, 4 * H)
+    return _mm_f32(hp.to(dz2.dtype).reshape(T * B, H).t(), dz2).reshape(H, 4, H)
 
 
 def recurrent_weight_grad(
     hs0: torch.Tensor, hs1: torch.Tensor, dz0: torch.Tensor, dz1: torch.Tensor,
 ) -> torch.Tensor:
-    """``dU_d = sum_t h_prev_d[t]^T dz_d[t]`` (2, H, 4, H) f32, one GEMM per
-    direction outside the kernel (``_tm_core_bwd`` :1019-1027): direction
-    0's pre-state stream is hs0 shifted back (zero at t=0), direction 1's
-    is hs1 shifted forward (zero at T-1). Operands in the dz dtype, f32
-    sums."""
-    T, B, H = hs0.shape
-    zero = torch.zeros_like(hs0[:1])
-    hp0 = torch.cat([zero, hs0[:-1]], dim=0)
-    hp1 = torch.cat([hs1[1:], zero], dim=0)
-    out = []
-    for hp, dz in ((hp0, dz0), (hp1, dz1)):
-        dz2 = dz.reshape(T * B, 4 * H)
-        out.append(_mm_f32(hp.to(dz2.dtype).reshape(T * B, H).t(), dz2))
-    return torch.stack(out).reshape(2, H, 4, H)
+    """``dU`` (2, H, 4, H) f32 of both directions (``_tm_core_bwd``
+    :1019-1027): :func:`lstm_weight_grad` of direction 0 (forward scan)
+    and direction 1 (reverse scan)."""
+    return torch.stack([lstm_weight_grad(hs0, dz0, reverse=False),
+                        lstm_weight_grad(hs1, dz1, reverse=True)])
+
+
+def _project(
+    W: torch.Tensor, b: torch.Tensor, x_tm: torch.Tensor, d: int, *,
+    rng: Optional[prng.Key], dropout: float, per_gate: bool, train: bool,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Direction d's (T, B, 4, H) projection with its weights ``W`` (F, 4,
+    H) and ``b`` (4, H), in the compute dtype. In train mode with
+    ``dropout`` > 0 its input is scaled by
+    ``dropout_scale(fold_in(rng, d), 1 - dropout, ...)``, one (B, F) mask
+    (or (4, B, F) with ``per_gate``)."""
+    _, B, F = x_tm.shape
+    xc = x_tm.to(compute_dtype)
+    if not (train and dropout > 0.0):
+        return input_projection(xc, W, b, compute_dtype)
+    shape = (4, B, F) if per_gate else (B, F)
+    scale = dropout_scale(prng.fold_in(rng, d), 1.0 - dropout, shape,
+                          compute_dtype, x_tm.device)
+    if per_gate:
+        return input_projection(xc, W, b, compute_dtype, gate_scale=scale)
+    return input_projection(xc * scale, W, b, compute_dtype)
+
+
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def bilstm_layer_tm(
@@ -291,28 +357,54 @@ def bilstm_layer_tm(
     ``dropout_scale(fold_in(rng, d), 1 - dropout, ...)``, one (B, F) mask
     (or (4, B, F) with ``per_gate``) applied before the projection. The
     recurrence is differentiable (:class:`BiLSTMTm`) whenever autograd
-    records."""
+    records. Under a direction-shard context the layer is
+    :func:`bilstm_layer_tm_dirsharded` (``mgr_tpu/ops/lstm.py:423-437``)."""
     if train and dropout > 0.0 and rng is None:
         raise ValueError("dropout requires an rng key in train mode")
-    T, B, F = x_tm.shape
+    kw = dict(rng=rng, dropout=dropout, per_gate=per_gate, train=train,
+              compute_dtype=compute_dtype)
+    shard = dispatch.direction_shard_context()
+    if shard is not None:
+        return bilstm_layer_tm_dirsharded(params, x_tm, shard=shard, **kw)
     W, U, b = params["W"], params["U"], params["b"]
-    xc = x_tm.to(compute_dtype)
-
-    def project(d: int) -> torch.Tensor:
-        if not (train and dropout > 0.0):
-            return input_projection(xc, W[d], b[d], compute_dtype)
-        shape = (4, B, F) if per_gate else (B, F)
-        scale = dropout_scale(prng.fold_in(rng, d), 1.0 - dropout, shape,
-                              compute_dtype, x_tm.device)
-        if per_gate:
-            return input_projection(xc, W[d], b[d], compute_dtype, gate_scale=scale)
-        return input_projection(xc * scale, W[d], b[d], compute_dtype)
-
-    xp0, xp1 = project(0), project(1)
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (xp0, xp1, U)
-    ):
+    xp0 = _project(W[0], b[0], x_tm, 0, **kw)
+    xp1 = _project(W[1], b[1], x_tm, 1, **kw)
+    if _records_grad(xp0, xp1, U):
         hs0, hs1 = _kernel.BiLSTMTm.apply(xp0, xp1, U)
     else:
         hs0, hs1 = _kernel.bilstm_tm(xp0, xp1, U)
     return torch.cat([hs0, hs1], dim=-1).to(compute_dtype)
+
+
+def bilstm_layer_tm_dirsharded(
+    params: Params,
+    x_tm: torch.Tensor,
+    *,
+    shard: dispatch.DirectionShard,
+    rng: Optional[prng.Key] = None,
+    dropout: float = 0.0,
+    per_gate: bool = False,
+    train: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Direction-sharded BLSTM for tensor parallelism
+    (``mgr_tpu/ops/lstm.py:272-371``): (T, B, F) -> (T, B, 2H). This rank
+    computes direction ``shard.direction`` only: its projection with
+    ``W[d]``, ``b[d]`` and dropout key ``fold_in(rng, d)``, exactly as
+    :func:`bilstm_layer_tm`, its single-direction recurrence (K5a/K5b,
+    :class:`LSTMTm`, reverse for d = 1), then the two h streams are
+    exchanged over ``shard.group`` in the compute dtype
+    (``collectives.gather_directions``). Parameters stay replicated; the
+    gradient of ``W``, ``U``, ``b`` lands in slot d only."""
+    if train and dropout > 0.0 and rng is None:
+        raise ValueError("dropout requires an rng key in train mode")
+    d = shard.direction
+    xp = _project(params["W"][d], params["b"][d], x_tm, d, rng=rng, dropout=dropout,
+                  per_gate=per_gate, train=train, compute_dtype=compute_dtype)
+    U1 = params["U"][d]
+    if _records_grad(xp, U1):
+        hs = _kernel.LSTMTm.apply(xp, U1, d == 1)
+    else:
+        hs = _kernel.lstm_tm_streams(xp, U1, reverse=d == 1)[0]
+    both = collectives.gather_directions(hs.to(compute_dtype), shard.group, d)
+    return torch.cat([both[0], both[1]], dim=-1)

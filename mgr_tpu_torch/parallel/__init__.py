@@ -1,0 +1,3 @@
+"""Ranks of a ``torch.distributed`` process group as a (data, model) mesh:
+process start-up, the mesh and its groups, the batch split and the
+collectives of the mesh train and eval steps (``mgr_tpu/parallel``)."""

@@ -1,0 +1,79 @@
+"""Collectives over a process group (``mgr_tpu/parallel/collectives.py``).
+
+Written with ``all_reduce`` and ``broadcast`` alone: gloo, the one
+backend under which several ranks can share one card (NCCL refuses two
+ranks on one device), has no CUDA ``all_gather`` or ``reduce_scatter``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.distributed as dist
+
+
+def psum(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Sum of ``x`` over ``group`` (a new tensor)."""
+    y = x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def pmean(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Mean of ``x`` over ``group``: the sum, then divided by the group's
+    size, as ``jax.lax.pmean``."""
+    return psum(x, group) / dist.get_world_size(group)
+
+
+def pmean_tree(tree: Dict[str, torch.Tensor], group: Any) -> Dict[str, torch.Tensor]:
+    """:func:`pmean` of every tensor of a dict (one dtype), as ONE
+    all-reduce of their concatenation, so a step pays one collective's
+    latency."""
+    if len({v.dtype for v in tree.values()}) != 1:
+        raise ValueError("pmean_tree needs tensors of one dtype")
+    if dist.get_world_size(group) == 1:
+        return dict(tree)
+    flat = pmean(torch.cat([v.detach().reshape(-1) for v in tree.values()]), group)
+    out, at = {}, 0
+    for k, v in tree.items():
+        out[k] = flat[at:at + v.numel()].view_as(v)
+        at += v.numel()
+    return out
+
+
+def broadcast_(tensors) -> None:
+    """Overwrite every tensor, in place, with rank 0's (over all ranks)."""
+    for t in tensors:
+        dist.broadcast(t, src=0)
+
+
+class _GatherDirections(torch.autograd.Function):
+    """Forward: the (2, ...) stack of both ranks' h streams, as an
+    all-reduce of a buffer whose other slot is zero (exact: x + 0 = x).
+    Backward: JAX's transpose of ``all_gather``, a ``psum_scatter``: the
+    cotangent summed over the group, then this rank's slot."""
+
+    @staticmethod
+    def forward(ctx, h, group, direction):
+        ctx.group, ctx.direction = group, direction
+        buf = h.new_zeros((2,) + tuple(h.shape))
+        buf[direction] = h
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.direction], None, None
+
+
+def gather_directions(h: torch.Tensor, group: Any, direction: int) -> torch.Tensor:
+    """``(T, B, H)`` stream of this rank's direction -> ``(2, T, B, H)``
+    streams of both directions, in ``h``'s dtype, over the model group of
+    two ranks (``jax.lax.all_gather`` in ``bilstm_layer_tm_dirsharded``);
+    differentiable."""
+    if dist.get_world_size(group) != 2:
+        raise ValueError("the direction exchange needs a model group of 2 ranks")
+    return _GatherDirections.apply(h, group, direction)

@@ -12,11 +12,20 @@ another train-batch geometry. Step s draws its noise and dropout from
 ``fold_in(fold_name(root_key(seed), "dropout"), s)``, so a resumed run
 draws what an unbroken one would.
 
+With a ``mesh`` (``parallel.mesh.Mesh``, ``mgr_tpu/train/loop.py:
+168-195``) every rank runs this loop: it builds the same global batches
+and the mesh steps take its rows; rank 0 alone writes the config, the
+slots, the fitmeta and the metrics, and the other ranks wait at a
+barrier before they read a checkpoint; the epoch's losses are rank 0's,
+broadcast, so that early stopping and the plateau controller decide the
+same on every rank (a rank that stopped alone would hang the others at
+their next collective).
+
 Not ported yet (ROADMAP.md item 8): ``sync_every`` > 1, asynchronous
-checkpoints, ``keep_best_state``, ``stop_below``, the device-resident
-dataset path and meshes. fit builds its plateau controller from the
-config and restores the state on disk into that one only: a caller
-cannot hand in a controller of another stage for it to overwrite.
+checkpoints, ``keep_best_state``, ``stop_below`` and the device-resident
+dataset path. fit builds its plateau controller from the config and
+restores the state on disk into that one only: a caller cannot hand in a
+controller of another stage for it to overwrite.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from mgr_tpu_torch.core import checkpoint as ckpt_lib
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.metrics import MetricsLogger
 from mgr_tpu_torch.data.batcher import Batcher
+from mgr_tpu_torch.parallel import collectives
 from mgr_tpu_torch.train import optimizer as opt_lib
 from mgr_tpu_torch.train.step import (
     TrainState,
@@ -57,6 +67,7 @@ def fit(
     epochs: Optional[int] = None,
     checkpoint_every: int = 1,
     monitor: str = "val",
+    mesh=None,
 ) -> FitResult:
     """Train one pipeline from the model's current weights; the config's
     seed drives the shuffles and the noise and dropout draws.
@@ -64,16 +75,23 @@ def fit(
     ``checkpoint_every`` — write the latest/best slots at most every N
     epochs; the best state is kept in memory meanwhile and the final
     state always flushed. ``monitor`` — which loss drives the best slot
-    and early stopping: "val" (the reference's val_loss) or "train"."""
+    and early stopping: "val" (the reference's val_loss) or "train".
+    ``mesh`` — train over a mesh of ranks (every rank calls fit; the
+    model lives on ``mesh.device``); rank 0's parameters are broadcast to
+    every rank first, so the replicas start equal."""
     cfg = model.config
     stamp = cfg.name
     epochs = epochs if epochs is not None else cfg.epochs
     seed = cfg.seed
+    primary = mesh is None or mesh.is_primary
+    writes = workdir if primary else None
 
     num_train_batches = max(data.num_batches(cfg.batch_size, train=True), 1)
     state = create_train_state(model)
     resumed_best = None
     saved_meta = {}
+    if mesh is not None:
+        mesh.barrier()  # every write of an earlier fit on this workdir is done
     if resume and workdir and ckpt_lib.has_checkpoint(workdir, stamp):
         saved_meta = ckpt_lib.load_fit_meta(workdir, stamp)
         # start_epoch = step // num_batches: a relaunch on a corpus of
@@ -89,7 +107,11 @@ def fit(
             )
         state = ckpt_lib.load_train_state(workdir, stamp, state)
         resumed_best = saved_meta.get("best_val_loss")
-    if workdir:
+    if mesh is not None:
+        mesh.barrier()  # every rank has read before rank 0 writes
+        with torch.no_grad():
+            collectives.broadcast_(state.params.values())
+    if writes:
         ckpt_lib.save_config(workdir, stamp, cfg)
         meta = {"num_train_batches": num_train_batches}
         if resumed_best is not None:
@@ -98,9 +120,9 @@ def fit(
             meta["plateau"] = saved_meta["plateau"]
         ckpt_lib.save_fit_meta(workdir, stamp, meta)
 
-    train_step = make_train_step(model)
-    eval_step = make_eval_step(model)
-    metrics = MetricsLogger(workdir, stamp)
+    train_step = make_train_step(model, mesh=mesh)
+    eval_step = make_eval_step(model, mesh=mesh)
+    metrics = MetricsLogger(writes, stamp, num_chips=1 if mesh is None else mesh.size)
     plateau = opt_lib.plateau_from_config(cfg)
     if plateau is not None and saved_meta.get("plateau"):
         plateau.load_state_dict(saved_meta["plateau"])
@@ -108,7 +130,7 @@ def fit(
     best_val = float("inf") if resumed_best is None else float(resumed_best)
 
     def _save(slot: str, which: Optional[TrainState] = None) -> None:
-        if not workdir:
+        if not writes:
             return
         ckpt_lib.save_train_state(workdir, stamp, which or state, slot=slot)
         meta = {"num_train_batches": num_train_batches}
@@ -145,9 +167,17 @@ def fit(
         val_losses = [eval_step(b) for _, b in data.epoch(cfg.batch_size, train=False)]
         nan = float("nan")
         # One host transfer per epoch: the step metrics stay on the device.
-        train_loss = float(torch.stack(losses).mean()) if losses else nan
-        grad_norm = float(torch.stack(gnorms).mean()) if gnorms else nan
-        val_loss = float(torch.stack(val_losses).mean()) if val_losses else None
+        dev = state.params[next(iter(state.params))].device
+        nan_t = torch.tensor(nan, device=dev)
+        epoch_losses = torch.stack([
+            torch.stack(losses).mean() if losses else nan_t,
+            torch.stack(gnorms).mean() if gnorms else nan_t,
+            torch.stack(val_losses).mean() if val_losses else nan_t,
+        ]).float()
+        if mesh is not None:  # rank 0's reading decides on every rank
+            collectives.broadcast_([epoch_losses])
+        train_loss, grad_norm, val_loss = epoch_losses.tolist()
+        val_loss = val_loss if val_losses else None
         history.append(metrics.end_epoch(
             train_loss, val_loss, lr_scale=lr_scale, grad_norm=grad_norm))
 
@@ -184,6 +214,8 @@ def fit(
     if ran_any and checkpoint_every > 1:
         _save("latest")
     metrics.close()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's last write is on disk when fit returns
     return FitResult(
         state=state, best_val_loss=best_val,
         epochs_run=(epoch - start_epoch + 1) if ran_any else 0,

@@ -1,5 +1,8 @@
 """Train, eval, predict and decode steps (``mgr_tpu/train/step.py``), on
-one device.
+one device, and the train and eval steps over a mesh of ranks
+(``make_train_step(model, mesh=)``, ``make_eval_step(model, mesh=)``):
+pure data parallelism, or data parallelism x direction-sharded tensor
+parallelism (``parallel.mesh``).
 
 JAX's steps take ``(params, ...)``; here the parameters live in the
 module. The eval, predict and decode steps take the batch alone and run
@@ -16,6 +19,7 @@ AFTER the CTC trim, ``label_length`` (B,).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -24,8 +28,11 @@ import torch
 from torch import nn
 
 from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops.ctc import ctc_loss_from_logits
 from mgr_tpu_torch.ops.decoding import best_path_decode
+from mgr_tpu_torch.parallel import collectives
+from mgr_tpu_torch.parallel import sharding as shard_lib
 from mgr_tpu_torch.train import optimizer as opt_lib
 
 
@@ -54,16 +61,42 @@ def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
     return losses.mean()
 
 
-def make_eval_step(model: nn.Module) -> Callable[[Dict[str, Any]], torch.Tensor]:
+def _shard_context(mesh):
+    """The direction-shard context of this rank (model axis of 2), else a
+    context that sets nothing (pure DP)."""
+    _, model_axis = shard_lib.shardmap_axes(mesh.config)
+    if model_axis is None:
+        return contextlib.nullcontext()
+    return dispatch.direction_shard(mesh.model_group, mesh.model_index)
+
+
+def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], torch.Tensor]:
     """Returns step(batch) -> mean CTC loss (no dropout or noise), a 0-d
-    tensor on the model's device."""
+    tensor on the model's device.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) the step takes the GLOBAL
+    batch: this rank evaluates its rows under its direction-shard context,
+    then the loss is averaged over the data group and the model group
+    (``mgr_tpu/train/step.py:323-358``); every rank returns the same
+    value."""
     dev = model_device(model)
 
     @torch.inference_mode()
     def step(batch: Dict[str, Any]) -> torch.Tensor:
-        batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
-        return _loss_from_batch(model, batch, train=False, rng=None)
+        if mesh is None:
+            batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+            return _loss_from_batch(model, batch, train=False, rng=None)
+        local = shard_lib.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
+        local = {k: to_device(v, dev) for k, v in local.items()}
+        with _shard_context(mesh):
+            loss = _loss_from_batch(model, local, train=False, rng=None)
+        loss = collectives.pmean(loss, mesh.data_group)
+        if mesh.model > 1:
+            loss = collectives.pmean(loss, mesh.model_group)
+        return loss
 
+    if mesh is not None:
+        shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
     return step
 
 
@@ -143,19 +176,65 @@ def _apply_updates(model: nn.Module, state: TrainState, tx: opt_lib.KerasAdam,
     return state, {"loss": loss, "grad_norm": grad_norm}
 
 
-def make_train_step(model: nn.Module) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+def _combine_model_grads(grads: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """A uniform mean over the model group is exact for every gradient
+    (``mgr_tpu/train/step.py:144-161``). The backward of the direction
+    exchange sums the cotangent over both ranks, whose (identical)
+    downstream losses each reach direction d's stream: rank d holds 2x the
+    gradient of slot d of the BLSTM weights and 0 in the other slot, and
+    2x the via-its-direction half of every gradient below a BLSTM layer;
+    the head above it arrives 1x on both. The mean maps all three to the
+    single-process gradient."""
+    return collectives.pmean_tree(grads, mesh.model_group)
+
+
+def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
+                        batch: Dict[str, Any], rng: Optional[prng.Key]):
+    """The mesh step's loss and gradients before the optimizer
+    (``local_loss_grad``, ``mgr_tpu/train/step.py:194-213``): this rank's
+    rows of the global ``batch``, the rng folded by the DATA index only
+    (the two ranks of a model group draw the same masks), the loss and
+    gradients under this rank's direction-shard context, then averaged
+    over the data group and, with a model axis, over the model group.
+    Every rank returns the same values."""
+    dev = model_device(model)
+    local = shard_lib.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
+    local = {k: to_device(v, dev) for k, v in local.items()}
+    rng = None if rng is None else prng.fold_in(rng, mesh.data_index)
+    with _shard_context(mesh):
+        loss, grads = _loss_and_grads(model, params, local, rng)
+    both = collectives.pmean_tree({"loss": loss.reshape(1), **grads}, mesh.data_group)
+    if mesh.model > 1:
+        both = _combine_model_grads(both, mesh)
+    loss = both.pop("loss").reshape(())
+    return loss, both
+
+
+def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns step(state, batch, rng, lr_scale=1.0) -> (state, metrics):
-    one optimizer step on one device. ``rng`` (a ``core.prng.Key``) feeds
-    the noise and dropout draws; ``lr_scale`` multiplies the updates (the
-    plateau controller's scale). metrics: 0-d tensors ``loss`` (mean CTC
-    loss of the batch) and ``grad_norm``, left on the device."""
+    one optimizer step. ``rng`` (a ``core.prng.Key``) feeds the noise and
+    dropout draws; ``lr_scale`` multiplies the updates (the plateau
+    controller's scale). metrics: 0-d tensors ``loss`` (mean CTC loss of
+    the batch) and ``grad_norm``, left on the device.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``: pure DP, or DP x a model axis
+    of 2) the step takes the GLOBAL batch and computes its loss and
+    gradients with :func:`mesh_loss_and_grads`
+    (``_make_shardmap_train_step``, ``mgr_tpu/train/step.py:164-230``);
+    the Adam and maxnorm tail then runs on every rank's identical
+    replica. A mesh with a model axis above 2 or a time axis raises."""
     tx = opt_lib.keras_adam(model.config.optimizer)
     dev = model_device(model)
+    if mesh is not None:
+        shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
 
     def step(state: TrainState, batch: Dict[str, Any], rng: Optional[prng.Key],
              lr_scale: float = 1.0):
-        batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
-        loss, grads = _loss_and_grads(model, state.params, batch, rng)
+        if mesh is None:
+            batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+            loss, grads = _loss_and_grads(model, state.params, batch, rng)
+        else:
+            loss, grads = mesh_loss_and_grads(model, mesh, state.params, batch, rng)
         return _apply_updates(model, state, tx, loss, grads, lr_scale)
 
     return step

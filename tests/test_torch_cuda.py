@@ -12,7 +12,14 @@ chains) and its stored alphas 1e-4 relative to max(1, |alpha|); K2 dz
 2e-2 relative to the largest |dz| (bf16 dz, recomputed z and f32 sums in
 another order, carried over T steps) and dU 2e-2 relative Frobenius; K4
 d log_probs 1e-4 absolute (f32 exp chains, probabilities in [-1, 1]);
-whole-model logits on the card vs the CPU 3e-2 (bf16 model).
+whole-model logits on the card vs the CPU 3e-2 (bf16 model). K5a/K5b (the
+single-direction entries of K1's and K2's sources) with K1's and K2's
+tolerances against their plain versions, and bit-equal to the matching
+direction of K1 and K2 (the same blocks run the same arithmetic). The
+gloo exchange and a 2x2 mesh step with ranks sharing the card: the mesh
+loss within 1e-3 relative and gradients within 5e-2 relative Frobenius of
+the single-process step (bf16 model; other batch splits give other GEMM
+shapes and sum orders).
 """
 
 import numpy as np
@@ -26,6 +33,8 @@ from mgr_tpu_torch.models.zoo import build_model
 from mgr_tpu_torch.ops import ctc as tctc
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops import lstm as tlstm
+from mgr_tpu_torch.parallel.spawn import run_ranks
+from mgr_tpu_torch.train import step as step_lib
 from mgr_tpu_torch.train.step import make_eval_step
 
 torch.set_num_threads(1)
@@ -212,3 +221,121 @@ def test_train_autograd_functions_on_the_card(cuda):
     for k, want in grads["cpu"].items():
         rel = float((grads["cuda"][k] - want).norm() / want.norm().clamp_min(1e-12))
         assert rel <= 5e-2, (k, rel)
+
+
+@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k5_matches_plain_version_and_k1_k2(cuda, T, B, H, reverse):
+    rng = np.random.default_rng(H + 2)
+    bf = torch.bfloat16
+    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"].to(cuda, bf)
+    d = int(reverse)
+    before = dispatch.launch_counts()
+    hs, cs = k1.lstm_tm_streams(xp[d], U[d], reverse=reverse, store_c=True)
+    assert dispatch.launch_counts()["lstm_tm_fwd"] == before["lstm_tm_fwd"] + 1
+    want = tlstm.lstm_scan_tm_plain(xp[d], U[d], reverse=reverse, store_c=True)
+    for g, w in zip((hs, cs), want):
+        assert g.shape == (T, B, H) and g.dtype == bf
+        assert float((g.float() - w).abs().max()) <= TOL_K1
+    two = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    assert torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
+
+    dhs = torch.from_numpy(rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    dz = k1.lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=reverse)
+    assert dispatch.launch_counts()["lstm_tm_bwd"] == before["lstm_tm_bwd"] + 1
+    assert dispatch.launch_counts()["bilstm_tm_bwd"] == before["bilstm_tm_bwd"]
+    dz_w, dU_w = tlstm.lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=reverse)
+    assert dz.shape == (T, B, 4, H) and dz.dtype == bf
+    scale = float(dz_w.float().abs().max())
+    assert float((dz.float() - dz_w.float()).abs().max()) <= TOL_K2_REL * scale
+    dU = tlstm.lstm_weight_grad(hs, dz, reverse=reverse)
+    assert float((dU - dU_w).norm() / dU_w.norm()) <= TOL_K2_REL
+    dz_two = k1.bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
+    assert torch.equal(dz, dz_two[d])
+
+
+def test_k5_autograd_function_on_the_card(cuda):
+    """LSTMTm on the card against the same Function on the CPU (plain
+    versions): h, dxp and dU."""
+    rng = np.random.default_rng(9)
+    xp = rng.standard_normal((20, 3, 4, 16)).astype(np.float32)
+    U = 0.3 * rng.standard_normal((16, 4, 16)).astype(np.float32)
+    g = rng.standard_normal((20, 3, 16)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.from_numpy(xp).to(dev, torch.bfloat16).requires_grad_()
+        u = torch.from_numpy(U).to(dev).requires_grad_()
+        h = k1.LSTMTm.apply(x, u, True)
+        (h * torch.from_numpy(g).to(dev)).sum().backward()
+        out[dev.type] = [t.detach().float().cpu() for t in (h, x.grad, u.grad)]
+    for a, b, tol in zip(out["cuda"], out["cpu"], (TOL_K1, 5e-2, 5e-2)):
+        assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+def _gloo_card_rank(rank, world, dtype):
+    """The direction exchange over gloo with both ranks on the one card."""
+    import torch.distributed as dist
+
+    from mgr_tpu_torch.parallel import collectives
+
+    dev = torch.device("cuda", 0)
+    h = torch.full((3, 2, 4), float(rank + 1), dtype=dtype, device=dev).requires_grad_()
+    both = collectives.gather_directions(h, dist.group.WORLD, rank)
+    both.float().sum().backward()
+    return both.detach().float().cpu().numpy(), h.grad.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gloo_exchange_of_card_tensors(cuda, dtype):
+    out = run_ranks(_gloo_card_rank, 2, (dtype,), timeout_s=300)
+    for r, (both, dh) in enumerate(out):
+        assert (both[0] == 1).all() and (both[1] == 2).all()
+        assert (dh == 2).all()  # one from each rank's loss
+
+
+def _mesh_card_rank(rank, world, shape):
+    from mgr_tpu_torch.core.config import MeshConfig
+    from mgr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _small_speech()
+    mesh = make_mesh(MeshConfig(*shape), device="cuda:0")
+    model = build_model(cfg, seed=4, device=mesh.device)
+    dispatch.reset_launch_counts()
+    loss, grads = step_lib.mesh_loss_and_grads(
+        model, mesh, dict(model.named_parameters()), _small_batch(cfg), None)
+    return (float(loss), {k: g.cpu() for k, g in grads.items()},
+            dispatch.launch_counts())
+
+
+def _small_speech():
+    enc = EncoderConfig(hidden=16, input_noise=0.0, dropout=(0.0, 0.0), output_dropout=0.0)
+    return get_preset("speech").replace(maxlen=32, batch_size=4, max_label_len=4, encoder=enc)
+
+
+def _small_batch(cfg):
+    rng = np.random.default_rng(6)
+    return {
+        "inputs": rng.standard_normal((4, 32, cfg.num_feats)).astype(np.float32),
+        "labels": np.array([[1, 2, -1, -1], [3, 3, 3, -1], [-1, -1, -1, -1], [5, 4, -1, -1]],
+                           np.int32),
+        "input_length": np.array([30, 20, 25, 30], np.int32),
+        "label_length": np.array([2, 3, 0, 2], np.int32),
+    }
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1)])
+def test_mesh_step_with_ranks_sharing_the_card(cuda, shape):
+    cfg = _small_speech()
+    model = build_model(cfg, seed=4, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in _small_batch(cfg).items()}
+    loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), batch, None)
+    out = run_ranks(_mesh_card_rank, shape[0] * shape[1], (shape,), timeout_s=300)
+    for m_loss, m_grads, counts in out:
+        assert abs(m_loss - float(loss)) <= 1e-3 * abs(float(loss))
+        for k, g in grads.items():
+            rel = float((m_grads[k] - g.cpu()).norm() / g.norm().clamp_min(1e-12))
+            assert rel <= 5e-2, (k, rel)
+        one = shape[1] == 2
+        assert (counts["lstm_tm_fwd"] > 0) == one and (counts["lstm_tm_bwd"] > 0) == one
+        assert (counts["bilstm_tm_fwd"] > 0) != one and (counts["bilstm_tm_bwd"] > 0) != one

@@ -1,6 +1,6 @@
-"""The port stands without JAX: every module (the training path's
-included) imports with ``jax``, ``flax``, ``optax`` and the JAX package
-``mgr_tpu`` blocked, pulls in no pandas, and no source of the package
+"""The port stands without JAX: every module (the training and mesh
+paths' included) imports with ``jax``, ``flax``, ``optax`` and the JAX
+package ``mgr_tpu`` blocked, pulls in no pandas, and no source of the package
 (nor ``chip_smoke.py``) names JAX, ``mgr_tpu``, a library stand-in for
 the hand-written kernels, or torch's own Adam in place of the Keras-parity
 one."""
@@ -40,6 +40,8 @@ def test_every_module_imports_with_jax_blocked():
         "build_parser().parse_args(['score', 'a', 'b'])\n"
         "build_parser().parse_args(['train', 'speech', '--epochs', '1'])\n"
         "from mgr_tpu_torch.train import loop, optimizer, step\n"
+        "from mgr_tpu_torch.parallel import collectives, mesh, multihost, sharding, spawn\n"
+        "build_parser().parse_args(['train', 'speech', '--mesh', '2x2', '--device', 'cpu'])\n"
         "from mgr_tpu_torch.core import metrics, prng\n"
         "print('ok')\n"
     )
@@ -57,11 +59,17 @@ def test_every_module_imports_with_jax_blocked():
      r"nn\.LSTM", r"(F|functional)\.ctc_loss\(", r"optim\.Adam"],
 )
 def test_package_sources_avoid(pattern):
+    """chip_smoke.py may time ``ctc_loss`` beside K3/K4 as a yardstick,
+    inside ``library_ctc_ms`` only; the package never calls it."""
+    smoke = SMOKE.read_text().splitlines()
+    start = next(i for i, ln in enumerate(smoke, 1) if ln.startswith("def library_ctc_ms("))
+    end = next(i for i, ln in enumerate(smoke, 1) if i > start and ln.startswith("def "))
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in SOURCES + [SMOKE]
         for i, line in enumerate(p.read_text().splitlines(), 1)
         if re.search(pattern, line)
+        and not (p == SMOKE and "ctc_loss" in pattern and start < i < end)
     ]
     assert not hits, hits
 
@@ -81,10 +89,18 @@ def test_each_kernel_source_states_what_it_replaces():
 
 
 def test_every_kernel_has_a_source_and_a_counter():
+    """Each kernel is a C entry of its source under csrc/ (K5a/K5b are the
+    single-direction entries of K1's and K2's sources), every source holds
+    a kernel, and each kernel has a launch counter that chip_smoke.py
+    reads."""
     from mgr_tpu_torch.ops import dispatch
 
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
-    assert sources == sorted(dispatch.KERNELS)
+    assert sorted(dispatch.SOURCES) == sorted(dispatch.KERNELS)
+    assert sources == sorted(set(dispatch.SOURCES.values()))
+    for name, src in dispatch.SOURCES.items():
+        text = (PKG / "csrc" / f"{src}.cu").read_text()
+        assert re.search(rf'extern "C" int {name}\(', text), (name, src)
     assert sorted(dispatch.launch_counts()) == sorted(dispatch.KERNELS)
     smoke = SMOKE.read_text()
     assert all(f'"{name}"' in smoke for name in dispatch.KERNELS)

@@ -208,11 +208,12 @@ def test_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
 
     data = ["--skeletal-csv", corpus["sk_csv"], "--labels", corpus["sk_labels"]]
     outs = {}
-    for tag, main, wd in (("jax", jmain, jdir), ("torch", tmain, tdir)):
+    for tag, main, wd, dev in (("jax", jmain, jdir, []),
+                               ("torch", tmain, tdir, ["--device", "cpu"])):
         mlf = str(tmp_path / f"{tag}.mlf")
-        dec = run(main, ["decode", "skeletal", "--workdir", wd, "--out", mlf, *data])
-        ev = run(main, ["evaluate", "skeletal", "--workdir", wd, *data])
-        inf = run(main, ["infer", "skeletal", corpus["sk_csv"], "--workdir", wd])
+        dec = run(main, ["decode", "skeletal", "--workdir", wd, "--out", mlf, *dev, *data])
+        ev = run(main, ["evaluate", "skeletal", "--workdir", wd, *dev, *data])
+        inf = run(main, ["infer", "skeletal", corpus["sk_csv"], "--workdir", wd, *dev])
         outs[tag] = (dec["decoded"], open(mlf, "rb").read(), ev, inf)
     assert outs["torch"] == outs["jax"]
     assert outs["torch"][0] >= 1
@@ -229,7 +230,7 @@ def test_entry_returns_forward_and_args(monkeypatch):
 
     small = _port(_cfg("speech"))
     monkeypatch.setattr(entry_mod, "get_preset", lambda name: small)
-    fn, args = entry_mod.entry()
+    fn, args = entry_mod.entry(device="cpu")
     assert args[0].shape == (8, T, small.num_feats)
     out = fn(*args)
     assert out.shape == (8, T, small.nb_classes) and torch.isfinite(out).all()

@@ -442,10 +442,11 @@ def test_train_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
         return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
     outs = {}
-    for tag, main in (("jax", jmain), ("torch", tcli.main)):
+    for tag, main, dev in (("jax", jmain, []), ("torch", tcli.main, ["--device", "cpu"])):
         wd = str(tmp_path / tag)
         outs[tag] = run(main, ["train", "skeletal", "--workdir", wd, "--epochs", "3",
-                               "--batch-size", "2", "--compute-dtype", "float32", *corpus])
+                               "--batch-size", "2", "--compute-dtype", "float32",
+                               *dev, *corpus])
     assert outs["torch"]["epochs_run"] == outs["jax"]["epochs_run"] == 3
     assert outs["torch"]["best_val_loss"] == pytest.approx(outs["jax"]["best_val_loss"],
                                                            rel=TOL_F32)
@@ -453,10 +454,10 @@ def test_train_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
     tcfg = json.load(open(tmp_path / "torch" / "skeletal_config.json"))
     assert tcfg == jcfg and tcfg["batch_size"] == 2
     dec = run(tcli.main, ["decode", "skeletal", "--workdir", str(tmp_path / "torch"),
-                          "--out", str(tmp_path / "t.mlf"), *corpus])
+                          "--out", str(tmp_path / "t.mlf"), "--device", "cpu", *corpus])
     assert dec["decoded"] >= 1
-    with pytest.raises(SystemExit):
-        tcli.main(["train", "skeletal", "--accum-steps", "0", *corpus])
+    with pytest.raises(SystemExit, match="accum-steps"):
+        tcli.main(["train", "skeletal", "--accum-steps", "0", "--device", "cpu", *corpus])
 
 
 # ------------------------------------------------------------------ traps
