@@ -7,8 +7,11 @@ kernels, on one process and over meshes of ranks that share the card.
 
 Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
 adjoint), K3 (CTC forward, with and without the alpha store), K4 (its
-adjoint) and K5a/K5b (the single-direction recurrence and its adjoint)
-against their plain versions (K5 also against K1's and K2's streams), the
+adjoint), K5a/K5b (the single-direction recurrence and its adjoint) and
+K6a/K6b (the batch-major scan of D directions and its adjoint) against
+their plain versions (K5 and K6 also against K1's and K2's streams), the
+batch-major layer API (a train-mode ``bilstm_layer`` stack and an
+``lstm_layer`` at the speech encoder's width, forward and backward), the
 serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer), the
 training slice (``fit`` at full speech width, a train step through the
 kernels against the same step through the plain versions, a learning
@@ -46,7 +49,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SEED = 0
-KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd", "lstm_tm_bwd")
+KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd", "lstm_tm_bwd",
+           "lstm_scan_fwd", "lstm_scan_bwd")
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
 B_K2 = 32                                   # the preset's train batch
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
@@ -68,6 +72,7 @@ N_FILES, B_SLICE = 128, 32  # 4 batches at the preset's batch size
 N_TRAIN, N_VAL, EPOCHS = 64, 32, 3  # the training slice: 2 train + 1 val batch per epoch
 LEARN_STEPS = 10
 B_K5 = (32, 128)       # K5 at the preset's batch (a 1x2 mesh rank) and at B=128
+K6_CASES = ((2, 32), (2, 128), (1, 32))  # (directions, B) of K6 at T=1900, H=500
 MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
 N_MESH_TRAIN, N_MESH_VAL = 64, 32  # fit over the 2x2 mesh: 2 train + 1 val batch
 MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
@@ -211,9 +216,15 @@ def k1_phase(dev) -> dict:
     ms = cuda_time_ms(lambda: bilstm_tm(xps[0], xps[1], U), reps=5)
     plain_ms = cuda_time_ms(lambda: bilstm_scan_tm_plain(xps[0], xps[1], U), reps=1)
     lim = lstm_bound(T_K1, B_K1, H_K1, dirs=2, backward=False, store_c=False)
+    # At the train batch too, the shape at which fit's launches are counted.
+    x32 = [x[:, :B_K2].contiguous() for x in xps]
+    ms_b32 = cuda_time_ms(lambda: bilstm_tm(x32[0], x32[1], U), reps=5)
+    lim_b32 = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=False, store_c=False)
     phase("k1_bilstm_tm_fwd", B=B_K1, T=T_K1, H=H_K1, max_abs_err_h=err,
-          tol=TOL_K1_H, ms=ms, plain_ms=plain_ms, **lim)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+          tol=TOL_K1_H, ms=ms, plain_ms=plain_ms, **lim,
+          at_b32={"ms": ms_b32, **lim_b32})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "ms_b32": ms_b32}
 
 
 def k3_phase(dev) -> dict:
@@ -376,20 +387,27 @@ def plain_path():
     """Route the model's kernel calls, forward and backward, to the plain
     versions, for the comparison only (the package itself has no such
     switch)."""
-    from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3
+    from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3, lstm_scan as k6
     from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
-    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain
+    from mgr_tpu_torch.ops.lstm import (
+        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, recurrent_scan_bwd_plain,
+        recurrent_scan_plain)
 
-    saved = k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd
+    saved = (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
+             k6.lstm_scan_streams, k6.lstm_scan_bwd)
     k1.bilstm_tm_streams = lambda xp0, xp1, U, store_c=False: bilstm_scan_tm_plain(
         xp0, xp1, U, store_c=store_c, out_dtype=torch.bfloat16)
     k1.bilstm_tm_bwd = lambda *a: bilstm_scan_tm_bwd_plain(*a)[:2]
     k3.ctc_alpha_loss = ctc_alpha_loss_plain
     k3.ctc_alpha_bwd = ctc_alpha_bwd_plain
+    k6.lstm_scan_streams = lambda xp, U, store_c=False: recurrent_scan_plain(
+        xp, U, store_c=store_c, out_dtype=torch.bfloat16)
+    k6.lstm_scan_bwd = recurrent_scan_bwd_plain
     try:
         yield
     finally:
-        k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd = saved
+        (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
+         k6.lstm_scan_streams, k6.lstm_scan_bwd) = saved
 
 
 def slice_phase(dev) -> dict:
@@ -534,8 +552,9 @@ def train_phase(dev) -> dict:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = dispatch.launch_counts()
-        one_process = {k: v for k, v in launches.items() if not k.startswith("lstm_tm")}
-        if min(one_process.values()) <= 0 or launches["lstm_tm_fwd"] or launches["lstm_tm_bwd"]:
+        one_process = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
+        if min(launches[k] for k in one_process) <= 0 or any(
+                v for k, v in launches.items() if k not in one_process):
             raise AssertionError(f"the training path took the wrong kernels: {launches}")
         if res.epochs_run != EPOCHS or not all(
                 np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in res.history):
@@ -710,6 +729,196 @@ def k5_phase(dev) -> dict:
         "lstm_tm_bwd": {"max_abs_err": worst["dz"], "ms": t["bwd_ms"],
                         "plain_ms": t["bwd_plain_ms"], **bwd_lim, "library_ms": None},
     }
+
+
+def _flip_tm(a, d):
+    """Direction d of a batch-major (D, B, T, ...) tensor as K1 sees it:
+    time-major, and time-flipped for direction 1 (K6 scans direction 1's
+    flipped projection forward where K1 scans the original in reverse)."""
+    a = a[d].transpose(0, 1)
+    return a.flip(0) if d == 1 else a
+
+
+def k6_phase(dev) -> dict:
+    """K6a and K6b, the batch-major scan of D directions and its adjoint,
+    at T=1900, H=500 for (D, B) in K6_CASES and at edge shapes (B=1, two
+    launches at B=300, an odd H, T=64): against their plain versions with
+    K1's and K2's tolerances (dz in relative Frobenius norm, with the count
+    of entries off by more than 2e-2 of the largest), and bit-equal to K1's
+    streams and K2's dz (K5a's and K5b's for D=1) on the same, time-flipped
+    projections."""
+    from mgr_tpu_torch.kernels.bilstm_tm import (
+        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
+    from mgr_tpu_torch.kernels.lstm_scan import lstm_scan_bwd, lstm_scan_streams
+    from mgr_tpu_torch.ops.lstm import (
+        init_bilstm_params, recurrent_scan_bwd_plain, recurrent_scan_plain, scan_weight_grad)
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    dgen = torch.Generator(dev).manual_seed(SEED + 13)
+    bf = torch.bfloat16
+    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
+    unequal, times, cases = [], {}, []
+
+    def case(D, T, B, H, timed=False):
+        xp = 0.5 * torch.randn((D, B, T, 4, H), generator=dgen, device=dev)
+        xp[:, :, :, 1, :] += 1.0
+        xp = xp.to(bf)
+        U = init_bilstm_params(gen, 8, H)["U"][:D].to(dev, bf)
+        dhs = (1e-2 * torch.randn((D, B, T, H), generator=dgen, device=dev)).to(bf)
+        hs, cs = lstm_scan_streams(xp, U, store_c=True)
+        dz = lstm_scan_bwd(xp, U, hs, cs, dhs)
+        dU = scan_weight_grad(hs, dz)
+        want, fwd_plain_ms = _timed(lambda: recurrent_scan_plain(xp, U, store_c=True))
+        dz_w, bwd_plain_ms = _timed(lambda: recurrent_scan_bwd_plain(xp, U, hs, cs, dhs))
+        dU_w = scan_weight_grad(hs, dz_w)
+        for g in (hs, cs, dz):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"K6 gave non-finite values at {(D, T, B, H)}")
+        err_h = max(float((hs.float() - want[0]).abs().max()),
+                    float((cs.float() - want[1]).abs().max()))
+        ddz = (dz.float() - dz_w.float()).abs()
+        scale = float(dz_w.float().abs().max())
+        dz_max, dz_fro = float(ddz.max()) / scale, float(ddz.norm() / dz_w.float().norm())
+        err_dU = float((dU - dU_w).norm() / dU_w.norm())
+        worst["h"] = max(worst["h"], err_h)
+        worst["dz"] = max(worst["dz"], dz_fro)
+        worst["dU"] = max(worst["dU"], err_dU)
+        cases.append({"D": D, "T": T, "B": B, "H": H, "max_abs_err_h_c": err_h,
+                      "dz_max_rel": dz_max, "dz_fro_rel": dz_fro, "dU_fro_rel": err_dU,
+                      "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
+                      "dz_entries": ddz.numel()})
+        if D == 1:
+            one = lstm_tm_streams(_flip_tm(xp, 0), U[0], reverse=False, store_c=True)
+            ref = ([one[0]], [one[1]],
+                   [lstm_tm_bwd(_flip_tm(xp, 0), U[0], *one, _flip_tm(dhs, 0), reverse=False)])
+        else:
+            two = bilstm_tm_streams(_flip_tm(xp, 0), _flip_tm(xp, 1), U, store_c=True)
+            ref = (two[:2], two[2:], bilstm_tm_bwd(_flip_tm(xp, 0), _flip_tm(xp, 1), U, *two,
+                                                   _flip_tm(dhs, 0), _flip_tm(dhs, 1)))
+        if not all(torch.equal(_flip_tm(a, d), r[d])
+                   for a, r in zip((hs, cs, dz), ref) for d in range(D)):
+            unequal.append((D, T, B, H))
+        if timed:
+            times[(D, B)] = {
+                "fwd_ms": cuda_time_ms(lambda: lstm_scan_streams(xp, U, store_c=True), reps=3),
+                "fwd_plain_ms": fwd_plain_ms,
+                "bwd_ms": cuda_time_ms(lambda: lstm_scan_bwd(xp, U, hs, cs, dhs), reps=3),
+                "bwd_plain_ms": bwd_plain_ms,
+                # What K6 saves by reading and writing the batch-major buffers
+                # in place: the two layout copies of pallas_recurrent_scan
+                # (xp to time-major, hs back), timed alone.
+                "layout_copies_ms": cuda_time_ms(lambda: (xp.transpose(1, 2).contiguous(),
+                                                          hs.transpose(1, 2).contiguous()),
+                                                 reps=3),
+                "bound_fwd": lstm_bound(T, B, H, dirs=D, backward=False, store_c=True),
+                "bound_bwd": lstm_bound(T, B, H, dirs=D, backward=True, store_c=False),
+            }
+
+    for D, B in K6_CASES:
+        case(D, T_K1, B, H_K1, timed=True)
+    for D, T, B, H in ((2, 64, 1, 500), (2, 64, 300, 64), (2, 64, 3, 7), (1, 64, 300, 7)):
+        case(D, T, B, H)
+    if unequal:
+        raise AssertionError(f"K6 is not bit-equal to K1/K2's (K5's) directions at {unequal}")
+    # dz in relative Frobenius norm, for the reason K5's is (k5_phase).
+    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
+        raise AssertionError(f"K6 disagrees with its plain versions: {worst} (tol h "
+                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
+    phase("k6_lstm_scan", T=T_K1, H=H_K1, max_abs_err_h_c=worst["h"], tol_h=TOL_K1_H,
+          fro_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
+          bit_equal_to_k1_k2_k5=True, cases=cases,
+          times={f"D={d} B={b}": t for (d, b), t in times.items()})
+    t = times[K6_CASES[0]]
+    return {
+        "lstm_scan_fwd": {"max_abs_err": worst["h"], "ms": t["fwd_ms"],
+                          "plain_ms": t["fwd_plain_ms"], **t["bound_fwd"], "library_ms": None},
+        "lstm_scan_bwd": {"max_abs_err": worst["dz"], "ms": t["bwd_ms"],
+                          "plain_ms": t["bwd_plain_ms"], **t["bound_bwd"], "library_ms": None},
+    }
+
+
+def bm_path_phase(dev) -> dict:
+    """The batch-major layer API as a user calls it, at the speech
+    encoder's width (bf16): a train-mode stack of two ``bilstm_layer``s
+    (F=39 -> 1000 -> 1000, input dropout 0.4 / 0.5, B=32, T=1900) and an
+    ``lstm_layer(reverse=True)`` on its output, forward and backward,
+    timed and counted (K6a/K6b and no other kernel). Checks: each layer's
+    eval-mode output against ``bilstm_layer_tm`` (K1) on the same
+    parameters and input; the train-mode outputs and gradients against
+    the same stack with K6a/K6b's plain versions on the card (same masks:
+    the draws depend on the key only)."""
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.ops import lstm as lstm_lib
+
+    cfg = get_preset("speech")
+    T, F, H, B = cfg.maxlen, cfg.num_feats, cfg.encoder.hidden, cfg.batch_size
+    rates = cfg.encoder.dropout
+    gen = torch.Generator().manual_seed(SEED + 14)
+    dgen = torch.Generator(dev).manual_seed(SEED + 14)
+    stack = [lstm_lib.init_bilstm_params(gen, F, H), lstm_lib.init_bilstm_params(gen, 2 * H, H)]
+    stack = [{k: v.to(dev).requires_grad_() for k, v in p.items()} for p in stack]
+    one = {k: v.to(dev).requires_grad_()
+           for k, v in lstm_lib.init_lstm_params(gen, 2 * H, H).items()}
+    leaves = [v for p in stack + [one] for v in p.values()]
+    x = torch.randn((B, T, F), generator=dgen, device=dev)
+    tangent = torch.randn((B, T, 2 * H), generator=dgen, device=dev)
+    tangent1 = torch.randn((B, T, H), generator=dgen, device=dev)
+    key = prng.fold_name(prng.root_key(SEED), "bm_path")
+
+    def run():
+        h = x
+        for i, p in enumerate(stack):
+            h = lstm_lib.bilstm_layer(p, h, rng=prng.fold_in(key, i), dropout=rates[i],
+                                      train=True)
+        r = lstm_lib.lstm_layer(one, h, reverse=True)
+        loss = (h.float() * tangent).sum() + (r.float() * tangent1).sum()
+        return h.detach(), r.detach(), torch.autograd.grad(loss, leaves)
+
+    run()  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    h_k, r_k, grads_k = run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dispatch.launch_counts()
+    want = {name: 3 if name.startswith("lstm_scan") else 0 for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"the batch-major path took the wrong kernels: {launches}")
+
+    with plain_path():
+        t1 = time.perf_counter()
+        h_p, r_p, grads_p = run()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t1)
+    out_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in ((h_k, h_p), (r_k, r_p)))
+    grad_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(grads_k, grads_p)]
+
+    with torch.no_grad():  # eval mode, layer by layer, against K1
+        h, tm_err = x, 0.0
+        for p in stack:
+            bm = lstm_lib.bilstm_layer(p, h)
+            tm = lstm_lib.bilstm_layer_tm(p, h.transpose(0, 1)).transpose(0, 1)
+            tm_err = max(tm_err, float((bm.float() - tm.float()).abs().max()))
+            h = bm
+    if not (torch.isfinite(h_k.float()).all() and torch.isfinite(r_k.float()).all()) or \
+            h_k.shape != (B, T, 2 * H) or r_k.shape != (B, T, H):
+        raise AssertionError(f"bad outputs {tuple(h_k.shape)}, {tuple(r_k.shape)}")
+    if tm_err > TOL_K1_H or out_err > TOL_K1_H or max(grad_rel) > TOL_GRAD_REL:
+        raise AssertionError(
+            f"the batch-major path disagrees: eval vs bilstm_layer_tm {tm_err}, train outputs "
+            f"vs plain {out_err} (tol {TOL_K1_H}), gradients vs plain {grad_rel} "
+            f"(tol {TOL_GRAD_REL})")
+    phase("bm_path", B=B, T=T, F=F, H=H, layers="bilstm_layer x2 (train, dropout "
+          f"{list(rates)}) + lstm_layer(reverse=True)", wall_ms=wall_ms,
+          plain_wall_ms=plain_ms, launches=launches, eval_vs_k1_max_abs_err=tm_err,
+          train_out_vs_plain_max_abs_err=out_err, tol_out=TOL_K1_H,
+          grad_max_rel_err=max(grad_rel), tol_grad_rel=TOL_GRAD_REL)
+    return launches
 
 
 def _digest(model) -> str:
@@ -1109,7 +1318,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build_phase()
     measured = {"bilstm_tm_fwd": k1_phase(dev), "bilstm_tm_bwd": k2_phase(dev),
-                "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev), **k5_phase(dev)}
+                "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev), **k5_phase(dev),
+                **k6_phase(dev)}
+    batch_major = bm_path_phase(dev)
     serving = slice_phase(dev)
     training = train_phase(dev)
     mesh = mesh_phase(dev)
@@ -1119,15 +1330,18 @@ def main() -> int:
     from mgr_tpu_torch.ops import dispatch
 
     replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,
-                "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151}
+                "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151, "lstm_scan_fwd": 67,
+                "lstm_scan_bwd": 164}
     # launches: K1-K4 from the training path (the one-process main path),
     # with the serving path's counts of K1 and K3 beside them; K5a/K5b from
-    # rank 0 of the 2x2 mesh's train and eval step (the mesh path).
+    # rank 0 of the 2x2 mesh's train and eval step (the mesh path); K6a/K6b
+    # from the batch-major layer path.
+    paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mgr_tpu_torch/csrc/{dispatch.SOURCES[name]}.cu",
          "replaces": f"mgr_tpu/ops/pallas_kernels.py:{replaces[name]}",
-         "launches": mesh[name] if name.startswith("lstm_tm") else training[name],
+         "launches": paths.get(name.rsplit("_", 1)[0], training)[name],
          **({"launches_serving": serving[name]} if name in serving else {}),
          **measured[name]}
         for name in KERNELS

@@ -1,4 +1,5 @@
-// Time-major bidirectional LSTM backward recurrence for Hopper (sm_90a).
+// LSTM backward recurrences for Hopper (sm_90a): the adjoints of the three
+// entries of bilstm_tm_fwd.cu.
 //
 // Replaces the TPU kernel mgr_tpu/ops/pallas_kernels.py:_tm_bwd_kernel
 // (launched by _tm_bwd_call from the custom VJP _tm_core_bwd of
@@ -7,11 +8,16 @@
 // (launched by _tm1_bwd_call from the custom VJP _tm1_core_bwd of
 // pallas_lstm_tm, the direction-sharded tensor-parallel path): the blocks
 // of one direction only, whose walk order is that direction's (reverse = 1
-// walks t = 0 -> T-1). Same function:
+// walks t = 0 -> T-1). The entry lstm_scan_bwd replaces _bwd_kernel
+// (launched by _lstm_scan_bwd_call from the custom VJP _scan_core_bwd of
+// pallas_recurrent_scan, the batch-major layer API): the same blocks on the
+// batch-major layout, every one of the D directions walking t = T-1 -> 0.
+// Same function:
 //
-//   direction 0 walks t = T-1 -> 0 (its pre-state is at t-1), direction 1
-//   walks t = 0 -> T-1 (its scan ran backwards: its pre-state is at t+1);
-//   the pre-state is zero past either end.
+//   a forward-scanning direction walks t = T-1 -> 0 (its pre-state is at
+//   t-1), a reverse-scanning one (direction 1 of the time-major layer)
+//   walks t = 0 -> T-1 (its pre-state is at t+1); the pre-state is zero
+//   past either end.
 //     z     = xp_d[t] + bf16(h_prev) . U_d                 (recomputed, f32)
 //     i,f,o = hard_sigmoid(z);  g = tanh z;  tc = tanh(c_t)
 //     dh    = dhs[t] + dh_carry;  do = dh tc;  dc = dc_carry + dh o (1 - tc^2)
@@ -23,8 +29,11 @@
 //   time positions); dxp = dz, and dU = sum_t h_prev^T dz is one GEMM
 //   outside the kernel, as in the JAX package.
 //
-// Layouts: xp0, xp1 (T, B, 4H) bf16; U (2, H, 4H) bf16; hs*, cs*, dhs*
-// (T, B, H) bf16; dz0, dz1 (T, B, 4H) bf16.
+// Layouts: time-major xp0, xp1 (T, B, 4H) bf16; U (2, H, 4H) bf16; hs*, cs*,
+// dhs* (T, B, H) bf16; dz0, dz1 (T, B, 4H) bf16. Batch-major xp, dz (D, B,
+// T, 4H); U (D, H, 4H); hs, cs, dhs (D, B, T, H). As in the forward, the
+// kernel is a template over the layout (row (t, b) at t * ld + b or
+// b * ld + t), so the batch-major buffers are read and dz written in place.
 //
 // What bounds it on this card: as in the forward, the walk is serial in t
 // and every unit of a step needs the dz of all units of the step before
@@ -49,7 +58,8 @@
 // At H=500 the grid is 2 x 63 = 126 blocks, one per SM, and shared memory
 // 192 KB; a single-direction launch is the 63 blocks of its direction, with
 // the per-unit arithmetic of the two-direction launch, so its dz is
-// bit-equal to that direction of bilstm_tm_bwd. What limits this first version: the grid barrier each step,
+// bit-equal to that direction of bilstm_tm_bwd, and so is the batch-major
+// walk's on the same (flipped) operands. What limits this first version: the grid barrier each step,
 // every block re-reading all of dz_t and h_{t-1} from L2, and FP32 FMAs
 // where tensor cores could run both products.
 
@@ -79,6 +89,12 @@ __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~size_t(
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
+// Row (t, b) of a stream: t * ld + b time-major, b * ld + t batch-major.
+template <bool BM>
+__device__ __forceinline__ size_t row_at(int t, int b, int ld) {
+  return BM ? (size_t)b * ld + t : (size_t)t * ld + b;
+}
+
 // Keras hard_sigmoid, rounded as in bilstm_tm_fwd.cu.
 __device__ __forceinline__ float hard_sigmoid(float x) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.0f), 1.0f);
@@ -89,23 +105,26 @@ __device__ __forceinline__ float hard_sigmoid_grad(float x) {
   return (x > -2.5f && x < 2.5f) ? 0.2f : 0.0f;
 }
 
+template <bool BM>
 __global__ void __launch_bounds__(THREADS, 1)
-bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
-                     const __nv_bfloat16* __restrict__ xp1,
-                     const __nv_bfloat16* __restrict__ U0,
-                     const __nv_bfloat16* __restrict__ U1,
-                     const __nv_bfloat16* __restrict__ hs0,
-                     const __nv_bfloat16* __restrict__ hs1,
-                     const __nv_bfloat16* __restrict__ cs0,
-                     const __nv_bfloat16* __restrict__ cs1,
-                     const __nv_bfloat16* __restrict__ dhs0,
-                     const __nv_bfloat16* __restrict__ dhs1,
-                     __nv_bfloat16* dz0, __nv_bfloat16* dz1,
-                     int T, int B, int ldb, int H, int slices, int d0) {
-  // B <= MAX_B rows of a batch whose time steps are ldb rows apart. The
-  // grid covers directions d0 .. d0 + gridDim.x / slices - 1.
+lstm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
+                const __nv_bfloat16* __restrict__ xp1,
+                const __nv_bfloat16* __restrict__ U0,
+                const __nv_bfloat16* __restrict__ U1,
+                const __nv_bfloat16* __restrict__ hs0,
+                const __nv_bfloat16* __restrict__ hs1,
+                const __nv_bfloat16* __restrict__ cs0,
+                const __nv_bfloat16* __restrict__ cs1,
+                const __nv_bfloat16* __restrict__ dhs0,
+                const __nv_bfloat16* __restrict__ dhs1,
+                __nv_bfloat16* dz0, __nv_bfloat16* dz1,
+                int T, int B, int ld, int H, int slices, int d0, int rev_mask) {
+  // B <= MAX_B rows of a batch laid out as row_at<BM>. The grid covers
+  // directions d0 .. d0 + gridDim.x / slices - 1; direction d's forward
+  // scan ran in reverse where bit d of rev_mask is set.
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = d0 + blockIdx.x / slices;
+  const bool rev = (rev_mask >> d) & 1;
   const int j0 = (blockIdx.x % slices) * JS;
   const int tid = threadIdx.x;
   const int j = tid % JS;
@@ -114,6 +133,9 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
   const bool unit_ok = unit < H;
   const size_t H4 = 4 * (size_t)H;
   const int HW = H / 2;  // bf16 pairs per H-long row segment (H is even)
+  // Row and pair of this thread's first staged word, and THREADS words as
+  // rows and pairs (the batch-major staging's strides).
+  const int r0 = tid / HW, kk0 = tid % HW, dr = THREADS / HW, dk = THREADS % HW;
 
   // Shared memory: uc_s [H][JS] gate quads f32 | ur_s [4][HW][JS] float2 |
   // stage_s [min(B, BT) rounded up to RPT][HW] bf16 pairs.
@@ -158,9 +180,9 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
   cg::grid_group grid = cg::this_grid();
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? T - 1 - s : s;
-    const int t_pre = d == 0 ? t - 1 : t + 1;   // where this step's pre-state lives
-    const int t_last = d == 0 ? t + 1 : t - 1;  // the step walked before this one
+    const int t = rev ? s : T - 1 - s;
+    const int t_pre = rev ? t + 1 : t - 1;   // where this step's pre-state lives
+    const int t_last = rev ? t - 1 : t + 1;  // the step walked before this one
     const bool has_pre = t_pre >= 0 && t_pre < T;
 #pragma unroll
     for (int tile = 0; tile < MAX_TILES; ++tile) {
@@ -177,9 +199,19 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
         const uint32_t* dz32 = reinterpret_cast<const uint32_t*>(dz);
         for (int g = 0; g < 4; ++g) {
           __syncthreads();  // the previous readers are done with stage_s
-          for (int w = tid; w < rows * HW; w += THREADS) {
-            const int r = w / HW, kk = w % HW;
-            stage_s[w] = __ldcg(dz32 + (((size_t)t_last * ldb + b0 + r) * H4 + (size_t)g * H) / 2 + kk);
+          if constexpr (BM) {  // word w = r * HW + kk, advanced without a division
+            int r = r0, kk = kk0;
+            for (int w = tid; w < rows * HW; w += THREADS) {
+              stage_s[w] = __ldcg(dz32 + (row_at<BM>(t_last, b0 + r, ld) * H4 + (size_t)g * H) / 2 + kk);
+              r += dr;
+              kk += dk;
+              if (kk >= HW) kk -= HW, ++r;
+            }
+          } else {
+            for (int w = tid; w < rows * HW; w += THREADS) {
+              const int r = w / HW, kk = w % HW;
+              stage_s[w] = __ldcg(dz32 + (row_at<BM>(t_last, b0 + r, ld) * H4 + (size_t)g * H) / 2 + kk);
+            }
           }
           __syncthreads();
           if (rows_ok) {
@@ -206,9 +238,20 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
         for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
       if (has_pre) {
         __syncthreads();
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            hs + ((size_t)t_pre * ldb + b0) * H);
-        for (int w = tid; w < rows * HW; w += THREADS) stage_s[w] = src[w];
+        if constexpr (BM) {  // one row of H per batch row, T * H apart
+          const uint32_t* h32 = reinterpret_cast<const uint32_t*>(hs);
+          int r = r0, kk = kk0;
+          for (int w = tid; w < rows * HW; w += THREADS) {
+            stage_s[w] = h32[row_at<BM>(t_pre, b0 + r, ld) * HW + kk];
+            r += dr;
+            kk += dk;
+            if (kk >= HW) kk -= HW, ++r;
+          }
+        } else {  // the tile's rows are contiguous
+          const uint32_t* src = reinterpret_cast<const uint32_t*>(
+              hs + row_at<BM>(t_pre, b0, ld) * H);
+          for (int w = tid; w < rows * HW; w += THREADS) stage_s[w] = src[w];
+        }
         __syncthreads();
         if (rows_ok) {
           const uint32_t* h_row = stage_s + (size_t)rg * RPT * HW;
@@ -238,7 +281,8 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
           const int r = rg * RPT + i;
           if (r >= rows) break;
           const int b = b0 + r;
-          const size_t row4 = ((size_t)t * ldb + b) * H4 + unit;
+          const size_t row = row_at<BM>(t, b, ld);
+          const size_t row4 = row * H4 + unit;
           const float zi = __bfloat162float(xp[row4]) + acc[i][0];
           const float zf = __bfloat162float(xp[row4 + (size_t)H]) + acc[i][1];
           const float zg = __bfloat162float(xp[row4 + 2 * (size_t)H]) + acc[i][2];
@@ -247,10 +291,10 @@ bilstm_tm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
           const float fg = hard_sigmoid(zf);
           const float gg = tanhf(zg);
           const float og = hard_sigmoid(zo);
-          const size_t at = ((size_t)t * ldb + b) * H + unit;
+          const size_t at = row * H + unit;
           const float tc = tanhf(__bfloat162float(cs[at]));
           const float c_pre =
-              has_pre ? __bfloat162float(cs[((size_t)t_pre * ldb + b) * H + unit]) : 0.0f;
+              has_pre ? __bfloat162float(cs[row_at<BM>(t_pre, b, ld) * H + unit]) : 0.0f;
           const float dh = __bfloat162float(dhs[at]) + dh_acc[i];
           const float d_o = dh * tc;
           const float dc = dc_reg[tile][i] + dh * og * (1.0f - tc * tc);
@@ -285,7 +329,8 @@ extern "C" size_t bilstm_tm_bwd_smem_bytes(int B, int H) {
 // Blocks per SM at this shared memory size; the kernel's shared memory
 // limit is raised once per device to the opt-in maximum and never lowered
 // (the same rule as bilstm_tm_fwd.cu, where lowering it broke a later,
-// wider launch with error 720).
+// wider launch with error 720). One set of maps per layout.
+template <bool BM>
 static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
   static std::mutex mu;
   static std::map<int, int> optin;  // device -> raised limit in bytes
@@ -296,7 +341,7 @@ static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
     int limit = 0;
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bilstm_tm_bwd_kernel,
+    err = cudaFuncSetAttribute(lstm_bwd_kernel<BM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
     if (err != cudaSuccess) return err;
     optin[device] = limit;
@@ -308,7 +353,7 @@ static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
     *per_sm = it->second;
     return cudaSuccess;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, bilstm_tm_bwd_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, lstm_bwd_kernel<BM>,
                                                       THREADS, smem);
   if (err == cudaSuccess) known[key] = *per_sm;
   return err;
@@ -317,12 +362,14 @@ static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
 // Runs the backward walk of directions d0 .. d0 + ndirs - 1 on `stream`, as
 // one cooperative launch per MAX_B batch rows. Returns the first
 // cudaError_t: an oversized grid is refused, never run.
+template <bool BM>
 static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, const void* U1,
                           const void* hs0, const void* hs1,
                           const void* cs0, const void* cs1,
                           const void* dhs0, const void* dhs1,
                           void* dz0, void* dz1,
-                          int T, int B, int H, int d0, int ndirs, int device, void* stream) {
+                          int T, int B, int H, int d0, int ndirs, int rev_mask,
+                          int device, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || (H & 1)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -331,32 +378,34 @@ static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, cons
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = blocks_per_sm(device, smem, &per_sm);
+  err = blocks_per_sm<BM>(device, smem, &per_sm);
   if (err != cudaSuccess) return err;
   if (ndirs * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
 
   typedef __nv_bfloat16 bf;
   const size_t H4 = 4 * (size_t)H;
+  const int ld = BM ? T : B;
   for (int b0 = 0; b0 < B; b0 += MAX_B) {
-    // Row b0 of every time step: the batch slice [b0, b0 + nb).
-    const bf* a_xp0 = static_cast<const bf*>(xp0) + b0 * H4;
-    const bf* a_xp1 = static_cast<const bf*>(xp1) + b0 * H4;
+    // The batch slice [b0, b0 + nb): its first row, at t = 0.
+    const size_t r0 = BM ? (size_t)b0 * T : (size_t)b0;
+    const bf* a_xp0 = static_cast<const bf*>(xp0) + r0 * H4;
+    const bf* a_xp1 = static_cast<const bf*>(xp1) + r0 * H4;
     const bf* a_U0 = static_cast<const bf*>(U0);
     const bf* a_U1 = static_cast<const bf*>(U1);
-    const bf* a_hs0 = static_cast<const bf*>(hs0) + (size_t)b0 * H;
-    const bf* a_hs1 = static_cast<const bf*>(hs1) + (size_t)b0 * H;
-    const bf* a_cs0 = static_cast<const bf*>(cs0) + (size_t)b0 * H;
-    const bf* a_cs1 = static_cast<const bf*>(cs1) + (size_t)b0 * H;
-    const bf* a_dhs0 = static_cast<const bf*>(dhs0) + (size_t)b0 * H;
-    const bf* a_dhs1 = static_cast<const bf*>(dhs1) + (size_t)b0 * H;
-    bf* a_dz0 = static_cast<bf*>(dz0) + b0 * H4;
-    bf* a_dz1 = static_cast<bf*>(dz1) + b0 * H4;
-    int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ldb = B, a_H = H;
-    int a_slices = slices, a_d0 = d0;
+    const bf* a_hs0 = static_cast<const bf*>(hs0) + r0 * H;
+    const bf* a_hs1 = static_cast<const bf*>(hs1) + r0 * H;
+    const bf* a_cs0 = static_cast<const bf*>(cs0) + r0 * H;
+    const bf* a_cs1 = static_cast<const bf*>(cs1) + r0 * H;
+    const bf* a_dhs0 = static_cast<const bf*>(dhs0) + r0 * H;
+    const bf* a_dhs1 = static_cast<const bf*>(dhs1) + r0 * H;
+    bf* a_dz0 = static_cast<bf*>(dz0) + r0 * H4;
+    bf* a_dz1 = static_cast<bf*>(dz1) + r0 * H4;
+    int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ld = ld, a_H = H;
+    int a_slices = slices, a_d0 = d0, a_rev = rev_mask;
     void* args[] = {&a_xp0, &a_xp1, &a_U0, &a_U1, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
                     &a_dhs0, &a_dhs1, &a_dz0, &a_dz1,
-                    &a_T, &a_B, &a_ldb, &a_H, &a_slices, &a_d0};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bilstm_tm_bwd_kernel),
+                    &a_T, &a_B, &a_ld, &a_H, &a_slices, &a_d0, &a_rev};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_bwd_kernel<BM>),
                                       dim3(ndirs * slices), dim3(THREADS), args, smem,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
@@ -375,8 +424,8 @@ extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
                              void* dz0, void* dz1,
                              int T, int B, int H, int device, void* stream) {
   const void* U1 = static_cast<const __nv_bfloat16*>(U) + (size_t)H * 4 * H;
-  return launch(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, dhs0, dhs1, dz0, dz1,
-                T, B, H, 0, 2, device, stream);
+  return launch<false>(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, dhs0, dhs1, dz0, dz1,
+                       T, B, H, 0, 2, 2, device, stream);
 }
 
 // One direction: xp (T, B, 4H); U (H, 4H); hs, cs, dhs (T, B, H) as the
@@ -385,6 +434,23 @@ extern "C" int lstm_tm_bwd(const void* xp, const void* U, const void* hs, const 
                            const void* dhs, void* dz,
                            int T, int B, int H, int reverse, int device, void* stream) {
   if (reverse != 0 && reverse != 1) return cudaErrorInvalidValue;
-  return launch(xp, xp, U, U, hs, hs, cs, cs, dhs, dhs, dz, dz,
-                T, B, H, reverse, 1, device, stream);
+  return launch<false>(xp, xp, U, U, hs, hs, cs, cs, dhs, dhs, dz, dz,
+                       T, B, H, reverse, 1, 2, device, stream);
+}
+
+// D in {1, 2} batch-major directions whose forward scans ran t = 0 -> T-1:
+// xp (D, B, T, 4H); U (D, H, 4H); hs, cs, dhs (D, B, T, H) as lstm_scan_fwd
+// stored them (and the h stream's cotangent); dz (D, B, T, 4H).
+extern "C" int lstm_scan_bwd(const void* xp, const void* U, const void* hs, const void* cs,
+                             const void* dhs, void* dz,
+                             int D, int T, int B, int H, int device, void* stream) {
+  if (D != 1 && D != 2) return cudaErrorInvalidValue;
+  typedef __nv_bfloat16 bf;
+  const size_t n = (size_t)(D - 1) * B * T * H;  // offset of direction 1's streams
+  return launch<true>(xp, static_cast<const bf*>(xp) + 4 * n,
+                      U, static_cast<const bf*>(U) + (size_t)(D - 1) * H * 4 * H,
+                      hs, static_cast<const bf*>(hs) + n, cs, static_cast<const bf*>(cs) + n,
+                      dhs, static_cast<const bf*>(dhs) + n,
+                      dz, static_cast<bf*>(dz) + 4 * n,
+                      T, B, H, 0, D, 0, device, stream);
 }

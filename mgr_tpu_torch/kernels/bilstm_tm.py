@@ -69,7 +69,7 @@ def _even(*streams: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def _even_u(U: torch.Tensor) -> torch.Tensor:
-    """U (2, H, 4, H) as :func:`_even`, padded on both H axes."""
+    """U (D, H, 4, H) as :func:`_even`, padded on both H axes."""
     U = U.to(torch.bfloat16)
     if U.shape[-1] & 1:
         U = F.pad(U, (0, 1, 0, 0, 0, 1))

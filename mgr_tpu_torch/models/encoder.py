@@ -50,18 +50,20 @@ class Encoder(nn.Module):
             d = 2 * cfg.hidden
 
     def apply_tm(self, x_tm: torch.Tensor, *, train: bool = False,
-                 rng: Optional[prng.Key] = None,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 rng: Optional[prng.Key] = None, compute_dtype=torch.bfloat16,
+                 noise_override: Optional[float] = None) -> torch.Tensor:
         """(T, B, F) -> (T, B, 2H) residual stream in the compute dtype
         (``apply_encoder_tm``, ``mgr_tpu/models/encoder.py:36-72``): noise
-        from ``fold_name(rng, "noise")``, layer i's dropout from
+        of ``noise_override`` if given, else the config's, from
+        ``fold_name(rng, "noise")``; layer i's dropout from
         ``fold_name(rng, f"drop_{i}")``."""
         cfg = self.cfg
 
         def sub(name):
             return None if rng is None else prng.fold_name(rng, name)
 
-        h = gaussian_noise(x_tm, cfg.input_noise, sub("noise"), train)
+        sigma = cfg.input_noise if noise_override is None else noise_override
+        h = gaussian_noise(x_tm, sigma, sub("noise"), train)
         outs = []
         for i in range(cfg.depth):
             rate = cfg.dropout[i] if i < len(cfg.dropout) else cfg.dropout[-1]
@@ -74,3 +76,14 @@ class Encoder(nn.Module):
         if self.cfg.residual and self.cfg.depth >= 2:
             return outs[-2] + outs[-1]
         return outs[-1]
+
+    def apply(self, x: torch.Tensor, *, train: bool = False,
+              rng: Optional[prng.Key] = None, compute_dtype=torch.bfloat16,
+              noise_override: Optional[float] = None) -> torch.Tensor:
+        """Batch-major (B, T, F) -> (B, T, 2H) (``apply_encoder``,
+        ``mgr_tpu/models/encoder.py:75-101``): :meth:`apply_tm` between two
+        transposes. ``noise_override`` re-applies an encoder under another
+        input noise (late fusion)."""
+        out_tm = self.apply_tm(x.transpose(0, 1), train=train, rng=rng,
+                               compute_dtype=compute_dtype, noise_override=noise_override)
+        return out_tm.transpose(0, 1)

@@ -25,13 +25,15 @@ from typing import Any, Dict, Optional
 import torch
 
 KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd",
-           "lstm_tm_fwd", "lstm_tm_bwd")
+           "lstm_tm_fwd", "lstm_tm_bwd", "lstm_scan_fwd", "lstm_scan_bwd")
 
-# The source under csrc/ of each kernel's C entry: K5a/K5b are the
-# single-direction entries of K1's and K2's sources.
+# The source under csrc/ of each kernel's C entry: K5a/K5b (one direction)
+# and K6a/K6b (the batch-major scan) are further entries of K1's and K2's
+# sources.
 SOURCES = {"bilstm_tm_fwd": "bilstm_tm_fwd", "bilstm_tm_bwd": "bilstm_tm_bwd",
            "ctc_fwd": "ctc_fwd", "ctc_bwd": "ctc_bwd",
-           "lstm_tm_fwd": "bilstm_tm_fwd", "lstm_tm_bwd": "bilstm_tm_bwd"}
+           "lstm_tm_fwd": "bilstm_tm_fwd", "lstm_tm_bwd": "bilstm_tm_bwd",
+           "lstm_scan_fwd": "bilstm_tm_fwd", "lstm_scan_bwd": "bilstm_tm_bwd"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

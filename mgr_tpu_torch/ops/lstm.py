@@ -1,4 +1,4 @@
-"""Bidirectional LSTM with Keras-2 semantics, time-major.
+"""Bidirectional LSTM with Keras-2 semantics, time-major and batch-major.
 
 Counterpart of ``mgr_tpu/ops/lstm.py``. Same parameters, same layouts,
 same numerics:
@@ -28,16 +28,29 @@ direction, through K5a/K5b (:func:`lstm_scan_tm_plain`,
 over the model group (:func:`bilstm_layer_tm_dirsharded`). In train mode the layer's input
 dropout draws one (B, F) mask per direction (four with ``per_gate``),
 constant over time, from ``core.prng`` (``mgr_tpu/ops/lstm.py:444-472``).
+
+The batch-major layer API, :func:`bilstm_layer` ((B, T, F) -> (B, T, 2H))
+and :func:`lstm_layer` (one direction), projects every direction in one
+(D, B, T, 4, H) buffer, direction 1 from the time-flipped input, and runs
+:func:`recurrent_scan`: kernel K6a (the entry ``lstm_scan_fwd`` of
+``csrc/bilstm_tm_fwd.cu``) with K6b (``lstm_scan_bwd``) as its adjoint on
+a CUDA device, chosen by ``mgr_tpu_torch.kernels.lstm_scan``;
+:func:`recurrent_scan_plain` and :func:`recurrent_scan_bwd_plain` on the
+CPU. Its train-mode dropout draws ONE (D, B, 1, F) mask straight from the
+key (four with ``per_gate``), not one per direction from ``fold_in``
+(``mgr_tpu/ops/lstm.py:84-125``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.kernels import bilstm_tm as _kernel
+from mgr_tpu_torch.kernels import lstm_scan as _scan
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.parallel import collectives
 
@@ -163,6 +176,18 @@ def dropout_scale(
     return mask.to(dtype) / torch.tensor(keep, dtype=dtype, device=device)
 
 
+def _cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the cell: f32 pre-activations z (..., 4H) and the f32
+    carry c (..., H) -> the new (h, c), f32."""
+    H = c.shape[-1]
+    i = hard_sigmoid(z[..., 0 * H:1 * H])
+    f = hard_sigmoid(z[..., 1 * H:2 * H])
+    g = torch.tanh(z[..., 2 * H:3 * H])
+    o = hard_sigmoid(z[..., 3 * H:4 * H])
+    c = f * c + i * g
+    return o * torch.tanh(c), c
+
+
 def lstm_scan_tm_plain(
     xp: torch.Tensor, U1: torch.Tensor, *, reverse: bool,
     store_c: bool = False, out_dtype: torch.dtype = torch.float32,
@@ -188,12 +213,7 @@ def lstm_scan_tm_plain(
     for s in range(T):
         t = T - 1 - s if reverse else s
         z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h.to(cd), Uc)
-        i = hard_sigmoid(z[:, 0 * H:1 * H])
-        f = hard_sigmoid(z[:, 1 * H:2 * H])
-        g = torch.tanh(z[:, 2 * H:3 * H])
-        o = hard_sigmoid(z[:, 3 * H:4 * H])
-        c = f * c + i * g
-        h = o * torch.tanh(c)
+        h, c = _cell(z, c)
         hs[t] = h.to(cd)
         if store_c:
             cs[t] = c.to(cd)
@@ -242,6 +262,15 @@ def lstm_scan_tm_bwd_plain(
     :func:`lstm_scan_tm_plain`). dh and dc carry in f32; dz is rounded to
     the compute dtype before ``dh_prev = dz . U1^T``. Returns dz (T, B, 4,
     H) in the compute dtype (dxp = dz) and dU (H, 4, H) f32."""
+    dz = _lstm_dz(xp, U1, hs, cs, dhs, reverse=reverse)
+    return dz, lstm_weight_grad(hs, dz, reverse=reverse)
+
+
+def _lstm_dz(
+    xp: torch.Tensor, U1: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: torch.Tensor, *, reverse: bool,
+) -> torch.Tensor:
+    """dz (T, B, 4, H) of :func:`lstm_scan_tm_bwd_plain`."""
     T, B, _, H = xp.shape
     cd = xp.dtype
     Uc = U1.to(cd).reshape(H, 4 * H)
@@ -272,8 +301,7 @@ def lstm_scan_tm_bwd_plain(
         dz[t] = dz_t
         dh_c = matmul_f32(dz_t, Uc.t())
         dc_c = dc * f
-    dz = dz.reshape(T, B, 4, H)
-    return dz, lstm_weight_grad(hs, dz, reverse=reverse)
+    return dz.reshape(T, B, 4, H)
 
 
 def bilstm_scan_tm_bwd_plain(
@@ -408,3 +436,208 @@ def bilstm_layer_tm_dirsharded(
         hs = _kernel.lstm_tm_streams(xp, U1, reverse=d == 1)[0]
     both = collectives.gather_directions(hs.to(compute_dtype), shard.group, d)
     return torch.cat([both[0], both[1]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Batch-major layer API (``mgr_tpu/ops/lstm.py:84-269, 374-390``).
+# ---------------------------------------------------------------------------
+
+def _scan_steps(
+    xp: torch.Tensor, Uc: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    *, store_c: bool = False,
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Forward scans of D directions: xp (D, B, T, 4, H) added in f32,
+    Uc (D, H, 4H) and the h operand in Uc's dtype (the compute dtype), f32
+    carries h, c (D, B, H). Returns the stored streams [hs] or [hs, cs]
+    (D, B, T, H) in the compute dtype and the last carries."""
+    D, B, T, _, H = xp.shape
+    cd = Uc.dtype
+    hs, cs = [], []
+    for t in range(T):
+        z = xp[:, :, t].float().reshape(D, B, 4 * H) + torch.stack(
+            [matmul_f32(h[d].to(cd), Uc[d]) for d in range(D)])
+        h, c = _cell(z, c)
+        hs.append(h.to(cd))
+        if store_c:
+            cs.append(c.to(cd))
+    return [torch.stack(s, dim=2) for s in ((hs, cs) if store_c else (hs,))], h, c
+
+
+def recurrent_scan_plain(
+    xp: torch.Tensor, U: torch.Tensor, *, store_c: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain recurrence of D directions that all scan forward: the
+    reference for kernel K6a (``_fwd_kernel``, ``pallas_kernels.py:67-115``)
+    and, in f32, JAX's XLA ``_recurrent_scan`` (``mgr_tpu/ops/lstm.py:
+    159-183``).
+
+    xp: (D, B, T, 4, H) projections in the compute dtype (direction 1's
+    already from the flipped input); U: (D, H, 4, H). Returns (hs,) or,
+    with ``store_c``, (hs, cs), (D, B, T, H) in ``out_dtype``, each value
+    rounded through the compute dtype (the stored streams). Any T: the TPU
+    kernel pads T at the end, after every real step of a forward scan."""
+    D, B, T, _, H = xp.shape
+    zero = torch.zeros((D, B, H), dtype=torch.float32, device=xp.device)
+    streams, _, _ = _scan_steps(xp, U.to(xp.dtype).reshape(D, H, 4 * H), zero, zero,
+                                store_c=store_c)
+    return tuple(s.to(out_dtype) for s in streams)
+
+
+def recurrent_scan_bwd_plain(
+    xp: torch.Tensor, U: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: torch.Tensor,
+) -> torch.Tensor:
+    """Plain adjoint of :func:`recurrent_scan_plain`: the reference for
+    kernel K6b (``_bwd_kernel``, ``pallas_kernels.py:164-256``), written
+    out as :func:`lstm_scan_tm_bwd_plain` is, for each direction's forward
+    scan. xp (D, B, T, 4, H) and U (D, H, 4, H) as the forward took them;
+    hs, cs (D, B, T, H) the stored streams; dhs (D, B, T, H) the h
+    streams' cotangent. Returns dz (D, B, T, 4, H) in the compute dtype
+    (dxp = dz); dU is :func:`scan_weight_grad`."""
+    def tm(a: torch.Tensor, d: int) -> torch.Tensor:  # direction d, time-major
+        return a[d].transpose(0, 1)
+
+    return torch.stack([
+        _lstm_dz(tm(xp, d), U[d], tm(hs, d), tm(cs, d), tm(dhs, d),
+                 reverse=False).transpose(0, 1)
+        for d in range(xp.shape[0])
+    ])
+
+
+def scan_weight_grad(hs: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """``dU = sum_t h_prev[t]^T dz[t]`` (D, H, 4, H) f32 of forward scans,
+    one GEMM per direction outside the kernel (``_scan_core_bwd``,
+    ``pallas_kernels.py:328-334``): h_prev is hs one step later in time,
+    zero at t=0. hs (D, B, T, H), dz (D, B, T, 4, H); operands in dz's
+    dtype, f32 sums."""
+    D, B, T, H = hs.shape
+    hp = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2).to(dz.dtype)
+    return torch.stack([
+        _mm_f32(hp[d].reshape(B * T, H).t(), dz[d].reshape(B * T, 4 * H))
+        for d in range(D)
+    ]).reshape(D, H, 4, H)
+
+
+def input_projection_bm(
+    x2: torch.Tensor, W: torch.Tensor, b: torch.Tensor, *,
+    rng: Optional[prng.Key], dropout: float, per_gate: bool, train: bool,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """``_input_projection`` (``mgr_tpu/ops/lstm.py:84-125``): x2 (D, B, T,
+    F), W (D, F, 4, H), b (D, 4, H) -> (D, B, T, 4, H), operands in the
+    compute dtype, f32 sums, the bias added in f32.
+
+    In train mode with ``dropout`` > 0 the input is scaled by ONE
+    ``dropout_scale(rng, 1 - dropout, (D, B, 1, F))`` drawn straight from
+    ``rng`` (no per-direction ``fold_in``), or with ``per_gate`` by
+    (4, D, B, 1, F), gate g seeing ``x * scale[g]``. The per-gate
+    projection is returned in f32 (``:113``); every other one is rounded
+    to the compute dtype (``:125``)."""
+    D, B, T, F = x2.shape
+    H = W.shape[-1]
+    xc, Wc = x2.to(compute_dtype), W.to(compute_dtype)
+    dropping = train and dropout > 0.0
+    if dropping:
+        shape = (4, D, B, 1, F) if per_gate else (D, B, 1, F)
+        scale = dropout_scale(rng, 1.0 - dropout, shape, compute_dtype, x2.device)
+        if not per_gate:
+            xc = xc * scale
+    out = []
+    for d in range(D):
+        if dropping and per_gate:
+            xp = torch.cat([matmul_f32(xc[d] * scale[g, d], Wc[d, :, g]) for g in range(4)],
+                           dim=-1)
+        else:
+            xp = matmul_f32(xc[d], Wc[d].reshape(F, 4 * H))
+        out.append(xp + b[d].reshape(4 * H))
+    xp = torch.stack(out).reshape(D, B, T, 4, H)
+    return xp if dropping and per_gate else xp.to(compute_dtype)
+
+
+def recurrent_scan(
+    xp: torch.Tensor, U: torch.Tensor, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """``_recurrent_scan`` (``mgr_tpu/ops/lstm.py:146-183``) with the
+    kernel backend: xp (D, B, T, 4, H) projections, U (D, H, 4, H) -> h
+    streams (D, B, T, H) in the compute dtype, every direction scanning
+    forward. K6a on a CUDA device, differentiable through K6b whenever
+    autograd records (:class:`~mgr_tpu_torch.kernels.lstm_scan.LSTMScan`);
+    the plain versions on the CPU. xp is rounded to the compute dtype
+    first (an f32 per-gate projection included), as the kernel rounds its
+    operands (``pallas_kernels.py:374``)."""
+    xp = xp.to(compute_dtype)
+    if _records_grad(xp, U):
+        hs = _scan.LSTMScan.apply(xp, U)
+    else:
+        hs = _scan.lstm_scan_streams(xp, U)[0]
+    return hs.to(compute_dtype)
+
+
+def recurrent_scan_remat(
+    xp: torch.Tensor, U: torch.Tensor, compute_dtype: torch.dtype, chunk: int = 64,
+) -> torch.Tensor:
+    """``_recurrent_scan_remat`` (``mgr_tpu/ops/lstm.py:186-229``): the
+    plain recurrence over chunks of ``chunk`` steps, each under
+    ``torch.utils.checkpoint``, so the backward keeps the carries between
+    chunks and recomputes one chunk's activations at a time. xp (D, B, T,
+    4, H) is added in f32 whatever its dtype; U and the h operand are in
+    the compute dtype. Returns hs (D, B, T, H) in the compute dtype."""
+    D, B, T, _, H = xp.shape
+    Uc = U.to(compute_dtype).reshape(D, H, 4 * H)
+    h = c = torch.zeros((D, B, H), dtype=torch.float32, device=xp.device)
+    out = []
+    for t0 in range(0, T, chunk):
+        (hs,), h, c = checkpoint(_scan_steps, xp[:, :, t0:t0 + chunk], Uc, h, c,
+                                 use_reentrant=False)
+        out.append(hs)
+    return torch.cat(out, dim=2)
+
+
+def bilstm_layer(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    rng: Optional[prng.Key] = None,
+    dropout: float = 0.0,
+    per_gate: bool = False,
+    train: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Batch-major bidirectional LSTM, merge_mode='concat' (``bilstm_layer``,
+    ``mgr_tpu/ops/lstm.py:232-269``): (B, T, F) -> (B, T, 2H) in the
+    compute dtype. Direction 1 projects the time-flipped input and its h
+    stream is flipped back. ``remat`` takes :func:`recurrent_scan_remat`
+    on the CPU; a CUDA tensor ignores it and runs K6, which already keeps
+    only the bf16 h and c streams for the backward (as JAX ignores it on
+    its Pallas backend)."""
+    if train and dropout > 0.0 and rng is None:
+        raise ValueError("dropout requires an rng key in train mode")
+    x2 = torch.stack([x, torch.flip(x, dims=(1,))])
+    xp = input_projection_bm(x2, params["W"], params["b"], rng=rng, dropout=dropout,
+                             per_gate=per_gate, train=train, compute_dtype=compute_dtype)
+    if remat and not xp.is_cuda:
+        hs = recurrent_scan_remat(xp, params["U"], compute_dtype)
+    else:
+        hs = recurrent_scan(xp, params["U"], compute_dtype)
+    return torch.cat([hs[0], torch.flip(hs[1], dims=(1,))], dim=-1)
+
+
+def lstm_layer(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    reverse: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Single-direction LSTM, no dropout (``lstm_layer``,
+    ``mgr_tpu/ops/lstm.py:374-390``): params W (F, 4, H), U (H, 4, H),
+    b (4, H); (B, T, F) -> (B, T, H) in the compute dtype. ``reverse``
+    flips the input before the scan and the output after it."""
+    xi = torch.flip(x, dims=(1,)) if reverse else x
+    xp = input_projection_bm(xi[None], params["W"][None], params["b"][None], rng=None,
+                             dropout=0.0, per_gate=False, train=False,
+                             compute_dtype=compute_dtype)
+    hs = recurrent_scan(xp, params["U"][None], compute_dtype)[0]
+    return torch.flip(hs, dims=(1,)) if reverse else hs

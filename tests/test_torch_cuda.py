@@ -19,7 +19,11 @@ direction of K1 and K2 (the same blocks run the same arithmetic). The
 gloo exchange and a 2x2 mesh step with ranks sharing the card: the mesh
 loss within 1e-3 relative and gradients within 5e-2 relative Frobenius of
 the single-process step (bf16 model; other batch splits give other GEMM
-shapes and sum orders).
+shapes and sum orders). K6a/K6b (the batch-major entries of the same
+sources) with K1's tolerance for h and c and K2's for dz (relative
+Frobenius) and dU, bit-equal to K1/K2's directions (K5's for D=1) on the
+same, time-flipped, projections; the batch-major layers on the card
+against the CPU: outputs 3e-2, gradients 5e-2 relative Frobenius.
 """
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 from mgr_tpu_torch.core.config import EncoderConfig, get_preset
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.kernels import ctc as k3
+from mgr_tpu_torch.kernels import lstm_scan as k6
 from mgr_tpu_torch.models.zoo import build_model
 from mgr_tpu_torch.ops import ctc as tctc
 from mgr_tpu_torch.ops import dispatch
@@ -339,3 +344,82 @@ def test_mesh_step_with_ranks_sharing_the_card(cuda, shape):
         one = shape[1] == 2
         assert (counts["lstm_tm_fwd"] > 0) == one and (counts["lstm_tm_bwd"] > 0) == one
         assert (counts["bilstm_tm_fwd"] > 0) != one and (counts["bilstm_tm_bwd"] > 0) != one
+
+
+@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16)])
+@pytest.mark.parametrize("D", [1, 2])
+def test_k6_matches_plain_version_and_k1_k2(cuda, T, B, H, D):
+    rng = np.random.default_rng(H + 3)
+    bf = torch.bfloat16
+    xp = torch.from_numpy(rng.standard_normal((D, B, T, 4, H)).astype(np.float32)).to(cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"][:D].to(cuda, bf)
+    dhs = torch.from_numpy(rng.standard_normal((D, B, T, H)).astype(np.float32)).to(cuda, bf)
+    before = dispatch.launch_counts()
+    hs, cs = k6.lstm_scan_streams(xp, U, store_c=True)
+    assert dispatch.launch_counts()["lstm_scan_fwd"] == before["lstm_scan_fwd"] + 1
+    want = tlstm.recurrent_scan_plain(xp, U, store_c=True)
+    for g, w in zip((hs, cs), want):
+        assert g.shape == (D, B, T, H) and g.dtype == bf
+        assert float((g.float() - w).abs().max()) <= TOL_K1
+    dz = k6.lstm_scan_bwd(xp, U, hs, cs, dhs)
+    assert dispatch.launch_counts()["lstm_scan_bwd"] == before["lstm_scan_bwd"] + 1
+    dz_w = tlstm.recurrent_scan_bwd_plain(xp, U, hs, cs, dhs)
+    assert dz.shape == (D, B, T, 4, H) and dz.dtype == bf
+    assert float((dz.float() - dz_w.float()).norm() / dz_w.float().norm()) <= TOL_K2_REL
+    dU, dU_w = tlstm.scan_weight_grad(hs, dz), tlstm.scan_weight_grad(hs, dz_w)
+    assert float((dU - dU_w).norm() / dU_w.norm()) <= TOL_K2_REL
+
+    # The same blocks as K1/K2 (K5a/K5b for one direction): direction 1 of
+    # K6 on its flipped projection is K1's reverse scan on the original.
+    def tm(a, d):
+        a = a[d].transpose(0, 1)
+        return a.flip(0) if d == 1 else a
+
+    if D == 1:
+        one = k1.lstm_tm_streams(tm(xp, 0), U[0], reverse=False, store_c=True)
+        dz_one = k1.lstm_tm_bwd(tm(xp, 0), U[0], *one, tm(dhs, 0), reverse=False)
+        assert torch.equal(tm(hs, 0), one[0]) and torch.equal(tm(cs, 0), one[1])
+        assert torch.equal(tm(dz, 0), dz_one)
+    else:
+        two = k1.bilstm_tm_streams(tm(xp, 0), tm(xp, 1), U, store_c=True)
+        dz_two = k1.bilstm_tm_bwd(tm(xp, 0), tm(xp, 1), U, *two, tm(dhs, 0), tm(dhs, 1))
+        for d in range(2):
+            assert torch.equal(tm(hs, d), two[d]) and torch.equal(tm(cs, d), two[2 + d])
+            assert torch.equal(tm(dz, d), dz_two[d])
+
+
+def test_batch_major_layers_run_k6_on_the_card(cuda, monkeypatch):
+    """bilstm_layer / lstm_layer on CUDA tensors launch K6a, and K6b under
+    autograd, never the plain versions (remat is ignored on the card), and
+    agree with the same layers on the CPU."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    rng = np.random.default_rng(7)
+    p = {k: v.numpy() for k, v in tlstm.init_bilstm_params(
+        torch.Generator().manual_seed(7), 5, 16).items()}
+    x = rng.standard_normal((3, 20, 5)).astype(np.float32)
+    g = rng.standard_normal((3, 20, 32)).astype(np.float32)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        if dev.type == "cuda":
+            for name in ("recurrent_scan_plain", "recurrent_scan_bwd_plain",
+                         "recurrent_scan_remat"):
+                monkeypatch.setattr(tlstm, name, refuse)
+        params = {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in p.items()}
+        xx = torch.from_numpy(x).to(dev).requires_grad_()
+        before = dispatch.launch_counts()
+        y = tlstm.bilstm_layer(params, xx, train=True, dropout=0.0, remat=True)
+        (y.float() * torch.from_numpy(g).to(dev)).sum().backward()
+        one = tlstm.lstm_layer({k: v[1] for k, v in params.items()}, xx, reverse=True)
+        after = dispatch.launch_counts()
+        if dev.type == "cuda":
+            assert after["lstm_scan_fwd"] == before["lstm_scan_fwd"] + 2
+            assert after["lstm_scan_bwd"] == before["lstm_scan_bwd"] + 1
+        out[dev.type] = [t.detach().float().cpu() for t in
+                         (y, one, xx.grad, *(params[k].grad for k in ("W", "U", "b")))]
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        if i < 2:
+            assert float((a - b).abs().max()) <= TOL_K1
+        else:
+            assert float((a - b).norm() / b.norm()) <= 5e-2, i

@@ -43,6 +43,7 @@ def test_every_module_imports_with_jax_blocked():
         "from mgr_tpu_torch.parallel import collectives, mesh, multihost, sharding, spawn\n"
         "build_parser().parse_args(['train', 'speech', '--mesh', '2x2', '--device', 'cpu'])\n"
         "from mgr_tpu_torch.core import metrics, prng\n"
+        "from mgr_tpu_torch.kernels import lstm_scan\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -75,7 +76,8 @@ def test_package_sources_avoid(pattern):
 
 
 def test_no_switch_sends_a_cuda_tensor_to_a_plain_version():
-    for name in ("kernels/bilstm_tm.py", "kernels/ctc.py", "ops/dispatch.py"):
+    for name in ("kernels/bilstm_tm.py", "kernels/ctc.py", "kernels/lstm_scan.py",
+                 "ops/dispatch.py"):
         text = (PKG / name).read_text()
         assert not re.search(r"\btry:|os\.environ|getenv", text), name
 
@@ -89,8 +91,9 @@ def test_each_kernel_source_states_what_it_replaces():
 
 
 def test_every_kernel_has_a_source_and_a_counter():
-    """Each kernel is a C entry of its source under csrc/ (K5a/K5b are the
-    single-direction entries of K1's and K2's sources), every source holds
+    """Each kernel is a C entry of its source under csrc/ (K5a/K5b, one
+    direction, and K6a/K6b, the batch-major scan, are further entries of
+    K1's and K2's sources), every source holds
     a kernel, and each kernel has a launch counter that chip_smoke.py
     reads."""
     from mgr_tpu_torch.ops import dispatch

@@ -188,10 +188,10 @@ def test_mixed_devices_are_refused():
         k1.bilstm_tm(xp, xp, torch.zeros((2, 2, 4, 2), device="meta"))
 
 
-def test_train_mode_is_not_ported_yet():
-    """Train mode runs now (the name is kept from when it raised): the
-    dropout masks come from the key, one per direction, constant over
-    time, and a train-mode layer without a key is refused."""
+def test_train_mode_dropout_follows_the_key():
+    """In train mode the dropout masks come from the key, one per
+    direction, constant over time, and a train-mode layer without a key
+    is refused."""
     p = _torch(_jax_params())
     x = torch.from_numpy(_x(2))
     with pytest.raises(ValueError, match="rng"):
