@@ -53,6 +53,7 @@ KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd"
            "lstm_scan_fwd", "lstm_scan_bwd")
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
 B_K2 = 32                                   # the preset's train batch
+B_STEP = (1, 32, 128)  # K1/K2 per-step cost: B=1 is the floor (barrier + latency)
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
 B_K4 = 32
 TOL_K1_H = 3e-2        # max |h| diff: bf16 h stream, f32 sums in another order
@@ -179,7 +180,19 @@ def build_phase() -> None:
                if "registers" in ln or "spill" in ln]
         for name in sources
     }
-    phase("build", seconds=secs, ptxas=ptxas)
+    # Tensor-core instructions in each library's SASS: the recurrences'
+    # step products must show HMMA (mma.sync) or HGMMA (wgmma).
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = {}
+    for name in sources:
+        out = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                             capture_output=True, text=True, timeout=120, check=True).stdout
+        sass[name] = {op: sum(1 for ln in out.splitlines() if f" {op}." in ln or f" {op} " in ln)
+                      for op in ("HMMA", "HGMMA")}
+    for name in ("bilstm_tm_fwd", "bilstm_tm_bwd"):
+        if sass[name]["HMMA"] + sass[name]["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in its SASS: {sass[name]}")
+    phase("build", seconds=secs, ptxas=ptxas, sass_tensor_core_instructions=sass)
 
 
 def k1_phase(dev) -> dict:
@@ -213,18 +226,26 @@ def k1_phase(dev) -> dict:
         err = max([err] + [float((g - w).abs().max()) for g, w in zip(ge, we)])
     if not all(torch.isfinite(g).all() for g in got) or err > TOL_K1_H:
         raise AssertionError(f"K1 disagrees with its plain version: max |dh| {err} > {TOL_K1_H}")
-    ms = cuda_time_ms(lambda: bilstm_tm(xps[0], xps[1], U), reps=5)
+    again = bilstm_tm(xps[0], xps[1], U)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K1: two launches on the same inputs differ")
     plain_ms = cuda_time_ms(lambda: bilstm_scan_tm_plain(xps[0], xps[1], U), reps=1)
     lim = lstm_bound(T_K1, B_K1, H_K1, dirs=2, backward=False, store_c=False)
-    # At the train batch too, the shape at which fit's launches are counted.
-    x32 = [x[:, :B_K2].contiguous() for x in xps]
-    ms_b32 = cuda_time_ms(lambda: bilstm_tm(x32[0], x32[1], U), reps=5)
-    lim_b32 = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=False, store_c=False)
+    # Per-step cost at B=1 (the floor: barrier and latency), the train batch
+    # (the shape at which fit's launches are counted) and B=128.
+    per_b = {}
+    for B in B_STEP:
+        xb = [x[:, :B].contiguous() for x in xps]
+        ms_b = cuda_time_ms(lambda: bilstm_tm(xb[0], xb[1], U), reps=5)
+        per_b[B] = {"ms": ms_b, "ms_per_step": ms_b / T_K1,
+                    **lstm_bound(T_K1, B, H_K1, dirs=2, backward=False, store_c=False)}
+    ms = per_b[B_K1]["ms"]
     phase("k1_bilstm_tm_fwd", B=B_K1, T=T_K1, H=H_K1, max_abs_err_h=err,
-          tol=TOL_K1_H, ms=ms, plain_ms=plain_ms, **lim,
-          at_b32={"ms": ms_b32, **lim_b32})
+          tol=TOL_K1_H, bit_identical_launches=True, ms=ms, plain_ms=plain_ms, **lim,
+          per_B={f"B={b}": v for b, v in per_b.items()},
+          step_floor_ms=per_b[1]["ms_per_step"])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
-            "ms_b32": ms_b32}
+            "ms_b32": per_b[B_K2]["ms"]}
 
 
 def k3_phase(dev) -> dict:
@@ -269,7 +290,8 @@ def k3_phase(dev) -> dict:
 def k2_phase(dev) -> dict:
     """K2 against its plain version at B=32, T=1900, H=500, then the edge
     shapes K1 is checked at (B=1, a partial tile B=130, three launches
-    B=520, an odd H)."""
+    B=520, an odd H), and at B=1 and B=128 (T=1900), where it is timed
+    beside B=32; two launches bit-identical."""
     from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
     from mgr_tpu_torch.ops.lstm import (
         bilstm_scan_tm_bwd_plain, init_bilstm_params, recurrent_weight_grad)
@@ -301,17 +323,34 @@ def k2_phase(dev) -> dict:
 
     xp, U, streams, dhs, got, want = case(T_K1, B_K2, H_K1)
     abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want[:2]))
+    again = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K2: two launches on the same inputs differ")
     for T, B, H in ((64, 1, 500), (64, 130, 300), (32, 520, 64), (64, 3, 7)):
         case(T, B, H)
+    # Per-step cost at B=1 (the floor), the train batch and B=128, each
+    # timed shape also held against the plain version.
+    timed = {B_K2: (xp, U, streams, dhs)}
+    for B in B_STEP:
+        if B not in timed:
+            timed[B] = case(T_K1, B, H_K1)[:4]
     if max(worst.values()) > TOL_K2_REL:
         raise AssertionError(f"K2 disagrees with its plain version: {worst} > {TOL_K2_REL}")
-    ms = cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=5)
+    per_b = {}
+    for B in B_STEP:
+        x, u, st, dh = timed[B]
+        ms_b = cuda_time_ms(lambda: bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1]), reps=5)
+        per_b[B] = {"ms": ms_b, "ms_per_step": ms_b / T_K1,
+                    **lstm_bound(T_K1, B, H_K1, dirs=2, backward=True, store_c=False)}
+    ms = per_b[B_K2]["ms"]
     plain_ms = cuda_time_ms(
         lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=1)
     lim = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=True, store_c=False)
     phase("k2_bilstm_tm_bwd", B=B_K2, T=T_K1, H=H_K1, max_abs_err_dz=abs_err,
           max_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
-          ms=ms, plain_ms=plain_ms, **lim)
+          bit_identical_launches=True, ms=ms, plain_ms=plain_ms, **lim,
+          per_B={f"B={b}": v for b, v in per_b.items()},
+          step_floor_ms=per_b[1]["ms_per_step"])
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 

@@ -35,74 +35,82 @@
 // kernel is a template over the layout (row (t, b) at t * ld + b or
 // b * ld + t), so the batch-major buffers are read and dz written in place.
 //
-// What bounds it on this card: as in the forward, the walk is serial in t
-// and every unit of a step needs the dz of all units of the step before
-// (dh_carry sums over all 4H columns). Per step and direction it is two
-// (B,H)x(H,4H)-sized products, the z recompute and the dh_carry product,
-// then a device-wide dependency.
+// What bounds it on this card: latency. The walk is serial in t and every
+// unit of a step needs the dz of all units of the step before (dh_carry
+// sums over all 4H columns), so each block gathers the whole dz row set of
+// the last step from L2 (B x 8H bytes: 128 KB at B=32, H=500) every step.
+// Per step and direction there are two (B,H)x(H,4H)-sized products, the z
+// recompute and the dh_carry product, then a dependency on every other
+// block of the direction.
 //
-// Design: ONE cooperative launch runs all T steps, with one grid barrier
-// per step. Each block owns JS = 8 hidden units of one direction and keeps
-// two f32 slices of U_d in shared memory: the COLUMNS U_d[:, :, slice] for
-// the z recompute (as K1) and the ROWS U_d[slice, :, :] for dh_carry (64 KB
-// each at H=500). Each (batch row, unit) belongs to one thread, which keeps
-// that dc carry in registers for the whole walk; the dh carry of a step is
-// made and used by the same thread within the next step. The only exchange
-// is dz: every block writes its units' columns of dz_t into the kernel's own
-// bf16 dz output, then the grid barrier, then each block reads the full dz_t
-// rows back (one gate, H columns, at a time, staged through shared memory)
-// to form dh_carry for its units. A step stages h_{t-1} the same way for the
-// z recompute. Rows are processed in tiles of BT = 64 (RPT = 2 rows per
-// thread) and a launch covers at most MAX_TILES tiles (256 rows); the host
-// entry runs a larger batch as consecutive launches over slices of rows.
-// At H=500 the grid is 2 x 63 = 126 blocks, one per SM, and shared memory
-// 192 KB; a single-direction launch is the 63 blocks of its direction, with
-// the per-unit arithmetic of the two-direction launch, so its dz is
-// bit-equal to that direction of bilstm_tm_bwd, and so is the batch-major
-// walk's on the same (flipped) operands. What limits this first version: the grid barrier each step,
-// every block re-reading all of dz_t and h_{t-1} from L2, and FP32 FMAs
-// where tensor cores could run both products.
+// Design: ONE cooperative launch runs all T steps. Each block owns JS = 8
+// hidden units of one direction; a thread owns a (batch row, unit) of a
+// 32-row tile and keeps its dc carry in registers. The only exchange is
+// dz, through the kernel's own bf16 output.
+//   - Both products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 sums; lstm_common.cuh), K split over the 8 warps with partial
+//     sums added in warp order through shared memory: the z recompute as
+//     in bilstm_tm_fwd.cu (K = H), and dh_carry = bf16(dz_{t_last}) .
+//     U_d[slice, :]^T with K = the flat 4H axis (125 k16 steps at H=500, 16
+//     a warp). The partition depends only on H, so the two-direction
+//     launch, one direction (lstm_tm_bwd) and the batch-major walk give
+//     bit-equal dz, and two launches give identical bits.
+//   - U_d resident in bf16: the dh_carry operand (U_d's 8 rows, 16 k16
+//     steps a warp) in registers, 32 a thread; the z operand (U_d's 32
+//     columns) in shared memory as B fragments, 32 KB.
+//   - The z recompute is off the serial path. z_t needs only the streams
+//     the forward stored (xp_t, h_{t_pre}), as the TPU kernel's
+//     direction_step does, so right after arriving at step s's barrier a
+//     block recomputes step s+1's z and everything that does not depend
+//     on the walk: the gates, tanh c_t, c_{t_pre}, dhs[t] (read there,
+//     ahead of the z product), folded into 7 floats per (row, unit) in
+//     shared memory. After the wait only the dependent part is left: the
+//     dz gather, the dh_carry products, 3 multiply-adds per gate and the
+//     dz store.
+//   - The dz gather: rows are 8H bytes (16-byte aligned), so each m16 row
+//     tile of dz_{t_last} is staged whole with 16-byte cp.async.cg copies
+//     (L2 only: other blocks wrote it during the launch) through a ring of
+//     two buffers, so tile m+1 (and m+2's issue) overlaps tile m's
+//     products. The smem row pitch is padded to 8 mod 32 words, which
+//     makes the fragment reads free of bank conflicts.
+//   - A per-direction split barrier as in bilstm_tm_fwd.cu.
+// Shared memory budget (bytes, H=500; at most 232,448 a block): U_d's
+// z fragments 32,768; the dz ring 2 x 16 x 4000 = 128,000 (the z partial
+// sums, 40,960, reuse it between arrive and wait); dh partial sums 8,192;
+// the step's folded values 7 x 4 x 8 x min(B, 256): 57,344 at 256 rows.
+// 226,304 at B=256, H=500; 230,400 at B=256, H=512 (MAX_H).
+// A launch covers at most MAX_B = 256 rows; the host entry runs a larger
+// batch as consecutive launches over slices of rows. At H=500 the grid is
+// 2 x 63 = 126 blocks, one per SM.
+// What it leaves: wgmma (M is the batch: 32 rows at the train batch); a
+// cluster / distributed-shared-memory exchange of dz in place of the L2
+// gather (a direction's 63 blocks exceed a cluster); K6's layout.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <utility>
-
-namespace cg = cooperative_groups;
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int JS = 8;                    // hidden units per block
-constexpr int THREADS = 256;
-constexpr int RPT = 2;                   // batch rows per thread
-constexpr int ROW_GROUPS = THREADS / JS; // 32
-constexpr int BT = ROW_GROUPS * RPT;     // batch rows per staged tile
-constexpr int MAX_TILES = 4;             // tiles per launch (dc carry in registers)
-constexpr int MAX_B = MAX_TILES * BT;    // batch rows per launch
+using namespace lstm;
 
-__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~size_t(15); }
+constexpr int KPW_DH = 16;     // k16 steps per warp of the dh_carry product (4H <= 2048)
+constexpr int NPREP = 7;       // folded values per (row, unit)
+constexpr int RED_DH_FLOATS = WARPS * RT * JS;
 
-__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-// Row (t, b) of a stream: t * ld + b time-major, b * ld + t batch-major.
-template <bool BM>
-__device__ __forceinline__ size_t row_at(int t, int b, int ld) {
-  return BM ? (size_t)b * ld + t : (size_t)t * ld + b;
+// Row pitch of the dz ring in 32-bit words: the row's 2H words, padded to
+// 8 mod 32 (a multiple of 4 words, so 16-byte aligned).
+__host__ __device__ inline int ring_pitch_words(int H) {
+  const int w = 2 * H;
+  return w + (((8 - w) % 32) + 32) % 32;
 }
 
-// Keras hard_sigmoid, rounded as in bilstm_tm_fwd.cu.
-__device__ __forceinline__ float hard_sigmoid(float x) {
-  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.0f), 1.0f);
-}
-
-// Its derivative as the TPU kernel takes it: 0.2 on the open interval.
-__device__ __forceinline__ float hard_sigmoid_grad(float x) {
-  return (x > -2.5f && x < 2.5f) ? 0.2f : 0.0f;
+__host__ __device__ inline size_t ring_bytes(int H) {
+  const size_t ring = (size_t)2 * 16 * ring_pitch_words(H) * 4;
+  const size_t red = sizeof(float) * RED_Z_FLOATS;
+  return round16(ring > red ? ring : red);
 }
 
 template <bool BM>
@@ -117,198 +125,200 @@ lstm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
                 const __nv_bfloat16* __restrict__ cs1,
                 const __nv_bfloat16* __restrict__ dhs0,
                 const __nv_bfloat16* __restrict__ dhs1,
-                __nv_bfloat16* dz0, __nv_bfloat16* dz1,
+                __nv_bfloat16* dz0, __nv_bfloat16* dz1, unsigned int* barrier,
                 int T, int B, int ld, int H, int slices, int d0, int rev_mask) {
   // B <= MAX_B rows of a batch laid out as row_at<BM>. The grid covers
   // directions d0 .. d0 + gridDim.x / slices - 1; direction d's forward
   // scan ran in reverse where bit d of rev_mask is set.
   extern __shared__ __align__(16) unsigned char smem[];
-  const int d = d0 + blockIdx.x / slices;
+  const int dl = blockIdx.x / slices;  // direction within the launch
+  const int d = d0 + dl;
   const bool rev = (rev_mask >> d) & 1;
   const int j0 = (blockIdx.x % slices) * JS;
   const int tid = threadIdx.x;
-  const int j = tid % JS;
-  const int rg = tid / JS;
-  const int unit = j0 + j;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, c4 = lane & 3;
+  const int gr = tid / JS, gj = tid % JS;  // this thread's (tile row, unit) of the gate math
+  const int unit = j0 + gj;
   const bool unit_ok = unit < H;
   const size_t H4 = 4 * (size_t)H;
-  const int HW = H / 2;  // bf16 pairs per H-long row segment (H is even)
-  // Row and pair of this thread's first staged word, and THREADS words as
-  // rows and pairs (the batch-major staging's strides).
-  const int r0 = tid / HW, kk0 = tid % HW, dr = THREADS / HW, dk = THREADS % HW;
+  const int H4i = 4 * H;
+  const int tiles = (B + RT - 1) / RT;
+  const int mtiles = (B + 15) / 16;
+  const int KS = (H + 15) >> 4;          // k16 steps of the z product
+  const int KS_DH = (H4i + 15) >> 4;     // k16 steps of the dh_carry product
+  const int pitch = 4 * ring_pitch_words(H);  // bytes
+  const int prep_n = B * JS;                  // folded values per kind
+  unsigned int* ctr = barrier + dl * BAR_STRIDE;
 
-  // Shared memory: uc_s [H][JS] gate quads f32 | ur_s [4][HW][JS] float2 |
-  // stage_s [min(B, BT) rounded up to RPT][HW] bf16 pairs.
-  float* uc_s = reinterpret_cast<float*>(smem);
-  float2* ur_s = reinterpret_cast<float2*>(smem + round16((size_t)H * JS * 4 * 4));
-  uint32_t* stage_s = reinterpret_cast<uint32_t*>(
-      smem + round16((size_t)H * JS * 4 * 4) + round16((size_t)4 * H * JS * 4));
+  // Shared memory: uz_s [KS][4 gates][32 lanes] uint2 | ring (2 x 16 rows x
+  // pitch, or red_z [WARPS][RT][RED_PITCH] f32 between arrive and wait) |
+  // red_dh [WARPS][RT][JS] f32 | prep [NPREP][B][JS] f32.
+  uint2* uz_s = reinterpret_cast<uint2*>(smem);
+  unsigned char* ring = smem + (size_t)KS * 4 * 32 * sizeof(uint2);
+  float* red_z = reinterpret_cast<float*>(ring);
+  float* red_dh = reinterpret_cast<float*>(ring + ring_bytes(H));
+  float* prep = red_dh + RED_DH_FLOATS;
 
   const __nv_bfloat16* Ud = d == 0 ? U0 : U1;
-  for (int idx = tid; idx < H * JS * 4; idx += THREADS) {
-    const int k = idx / (JS * 4);
-    const int jj = (idx / 4) % JS;
-    const int g = idx % 4;
-    const int u = j0 + jj;
-    uc_s[idx] = u < H ? __bfloat162float(Ud[(size_t)k * H4 + (size_t)g * H + u]) : 0.0f;
-  }
-  for (int idx = tid; idx < 4 * HW * JS; idx += THREADS) {
-    const int jj = idx % JS;
-    const int col = 2 * (idx / JS);  // g * H + 2 kk
-    const int u = j0 + jj;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (u < H) {
-      v.x = __bfloat162float(Ud[(size_t)u * H4 + col]);
-      v.y = __bfloat162float(Ud[(size_t)u * H4 + col + 1]);
-    }
-    ur_s[idx] = v;
-  }
-  __syncthreads();
-
-  float dc_reg[MAX_TILES][RPT];  // dc carry of rows tile * BT + rg * RPT + i, unit j
-#pragma unroll
-  for (int tile = 0; tile < MAX_TILES; ++tile)
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) dc_reg[tile][i] = 0.0f;
-
   const __nv_bfloat16* xp = d == 0 ? xp0 : xp1;
   const __nv_bfloat16* hs = d == 0 ? hs0 : hs1;
   const __nv_bfloat16* cs = d == 0 ? cs0 : cs1;
   const __nv_bfloat16* dhs = d == 0 ? dhs0 : dhs1;
   __nv_bfloat16* dz = d == 0 ? dz0 : dz1;
-  const float4* u4 = reinterpret_cast<const float4*>(uc_s);  // [H][JS] gate quads
-  cg::grid_group grid = cg::this_grid();
 
+  for (int e = tid; e < KS * 4 * 32; e += THREADS)
+    uz_s[e] = u_col_frag(Ud, e >> 7, (e >> 5) & 3, j0, e & 31, H);
+  // dh_carry's B fragments: U_d[u, k .. k+3] with u = j0 + g8 (a row of
+  // U_d, 8H bytes: an 8-byte load), zero past H or 4H.
+  uint2 ubd[KPW_DH];
+#pragma unroll
+  for (int i = 0; i < KPW_DH; ++i) {
+    const int u = j0 + g8, k = (warp * KPW_DH + i) * 16 + 4 * c4;
+    ubd[i] = (u < H && k < H4i) ? *reinterpret_cast<const uint2*>(Ud + (size_t)u * H4 + k)
+                                : make_uint2(0u, 0u);
+  }
+  __syncthreads();
+
+  float dc_reg[MAX_TILES];  // dc carry of row tile * RT + gr, unit j0 + gj
+#pragma unroll
+  for (int tile = 0; tile < MAX_TILES; ++tile) dc_reg[tile] = 0.0f;
+
+  // Step s's z recompute and the values that do not depend on the walk,
+  // folded per (row, unit) into prep. Between arrive and wait (and once
+  // before the walk): the ring is free, and red_z lives there.
+  auto precompute = [&](int s) {
+    const int t = rev ? s : T - 1 - s;
+    const int t_pre = rev ? t + 1 : t - 1;
+    const bool has_pre = t_pre >= 0 && t_pre < T;
+#pragma unroll 1
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * RT;
+      const int b = b0 + gr;
+      const bool mine = unit_ok && b < B;
+      // This thread's operands, read ahead of the z product.
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ct = 0.0f, cp = 0.0f, dh_in = 0.0f;
+      if (mine) {
+        const size_t row = row_at<BM>(t, b, ld);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[g] = __bfloat162float(xp[row * H4 + (size_t)g * H + unit]);
+        ct = __bfloat162float(cs[row * H + unit]);
+        dh_in = __bfloat162float(dhs[row * H + unit]);
+        if (has_pre) cp = __bfloat162float(cs[row_at<BM>(t_pre, b, ld) * H + unit]);
+      }
+      if (has_pre) {
+        if (tile > 0) __syncthreads();  // the previous tile's readers are done with red_z
+        float acc[2][4][4];
+        z_partial<BM>(hs, t_pre, b0, B, ld, H,
+                      [&](int i, int g) { return uz_s[((warp * KPW + i) * 4 + g) * 32 + lane]; },
+                      acc);
+        store_z_partial(red_z, acc);
+        __syncthreads();
+      }
+      if (mine) {
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) z[g] = has_pre ? x[g] + z_sum(red_z, gr, g, gj) : x[g];
+        const float ig = hard_sigmoid(z[0]);
+        const float fg = hard_sigmoid(z[1]);
+        const float gg = tanhf(z[2]);
+        const float og = hard_sigmoid(z[3]);
+        const float tc = tanhf(ct);
+        float* p = prep + b * JS + gj;
+        p[0 * prep_n] = dh_in;
+        p[1 * prep_n] = og * (1.0f - tc * tc);                // dc += dh * this
+        p[2 * prep_n] = hard_sigmoid_slope(z[0]) ? gg : 0.0f;  // dz_i = (dc * this) * 0.2
+        p[3 * prep_n] = hard_sigmoid_slope(z[1]) ? cp : 0.0f;  // dz_f = (dc * this) * 0.2
+        p[4 * prep_n] = ig * (1.0f - gg * gg);                // dz_g = dc * this
+        p[5 * prep_n] = hard_sigmoid_slope(z[3]) ? tc : 0.0f;  // dz_o = (dh * this) * 0.2
+        p[6 * prep_n] = fg;                                   // dc_carry = dc * this
+      }
+    }
+  };
+
+  // m16 row tile m of dz_{t_last} into ring buffer m & 1: warp w stages
+  // rows w and w + 8, its lanes striding over the row's 16-byte chunks.
+  auto stage_dz = [&](int t_last, int m) {
+    unsigned char* buf = ring + (size_t)(m & 1) * 16 * pitch;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = warp + 8 * rr, b = m * 16 + r;
+      if (b < B) {
+        const __nv_bfloat16* src = dz + row_at<BM>(t_last, b, ld) * H4;
+        for (int q = lane; q < H / 2; q += 32) cp_async16(buf + r * pitch + 16 * q, src + 8 * q);
+      }
+    }
+    cp_async_commit();
+  };
+
+  precompute(0);
+  __syncthreads();
   for (int s = 0; s < T; ++s) {
     const int t = rev ? s : T - 1 - s;
-    const int t_pre = rev ? t + 1 : t - 1;   // where this step's pre-state lives
     const int t_last = rev ? t - 1 : t + 1;  // the step walked before this one
-    const bool has_pre = t_pre >= 0 && t_pre < T;
+    if (s > 0) {
+      barrier_wait(ctr, (unsigned int)(s * slices));  // dz_{t_last} is in the dz output
+      stage_dz(t_last, 0);
+      if (mtiles > 1) stage_dz(t_last, 1);
+    }
 #pragma unroll
     for (int tile = 0; tile < MAX_TILES; ++tile) {
-      const int b0 = tile * BT;
-      if (b0 >= B) break;  // uniform over the block
-      const int rows = min(BT, B - b0);
-      const bool rows_ok = rg * RPT < rows;  // the staged tile is rounded up to RPT
-
-      // dh carry: dz_{t_last} . U_d^T for this block's units, one gate at a time.
-      float dh_acc[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) dh_acc[i] = 0.0f;
+      if (tile >= tiles) break;  // uniform over the block
       if (s > 0) {
-        const uint32_t* dz32 = reinterpret_cast<const uint32_t*>(dz);
-        for (int g = 0; g < 4; ++g) {
-          __syncthreads();  // the previous readers are done with stage_s
-          if constexpr (BM) {  // word w = r * HW + kk, advanced without a division
-            int r = r0, kk = kk0;
-            for (int w = tid; w < rows * HW; w += THREADS) {
-              stage_s[w] = __ldcg(dz32 + (row_at<BM>(t_last, b0 + r, ld) * H4 + (size_t)g * H) / 2 + kk);
-              r += dr;
-              kk += dk;
-              if (kk >= HW) kk -= HW, ++r;
-            }
-          } else {
-            for (int w = tid; w < rows * HW; w += THREADS) {
-              const int r = w / HW, kk = w % HW;
-              stage_s[w] = __ldcg(dz32 + (row_at<BM>(t_last, b0 + r, ld) * H4 + (size_t)g * H) / 2 + kk);
-            }
-          }
-          __syncthreads();
-          if (rows_ok) {
-            const uint32_t* dz_row = stage_s + (size_t)rg * RPT * HW;
-            const float2* urg = ur_s + (size_t)g * HW * JS;
-            for (int kk = 0; kk < HW; ++kk) {
-              const float2 u = urg[kk * JS + j];
+        // dh_carry of the tile's two m16 tiles: bf16(dz_{t_last}) . U_d[slice, :]^T.
 #pragma unroll
-              for (int i = 0; i < RPT; ++i) {
-                const uint32_t v = dz_row[i * HW + kk];
-                dh_acc[i] = fmaf(bf16_lo(v), u.x, dh_acc[i]);
-                dh_acc[i] = fmaf(bf16_hi(v), u.y, dh_acc[i]);
-              }
-            }
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int m = 2 * tile + h2;
+          if (m >= mtiles) break;
+          if (m + 1 < mtiles) cp_async_wait<1>(); else cp_async_wait<0>();
+          __syncthreads();  // tile m landed for every warp (and red_dh's readers are done)
+          const unsigned char* buf = ring + (size_t)(m & 1) * 16 * pitch;
+          float acc0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int i = 0; i < KPW_DH; ++i) {
+            const int ks = warp * KPW_DH + i;
+            if (ks >= KS_DH) break;  // uniform over the warp
+            const int k = ks * 16 + 4 * c4;
+            uint2 lo = *reinterpret_cast<const uint2*>(buf + g8 * pitch + 2 * k);
+            uint2 hi = *reinterpret_cast<const uint2*>(buf + (g8 + 8) * pitch + 2 * k);
+            if (k >= H4i) lo = hi = make_uint2(0u, 0u);  // past the row: the ring's padding
+            if (i & 1)  // two chains of products, added at the end
+              mma16816(acc1, lo.x, hi.x, lo.y, hi.y, ubd[i].x, ubd[i].y);
+            else
+              mma16816(acc0, lo.x, hi.x, lo.y, hi.y, ubd[i].x, ubd[i].y);
           }
+          float* p = red_dh + (warp * RT + h2 * 16 + g8) * JS + 2 * c4;
+          *reinterpret_cast<float2*>(p) = make_float2(acc0[0] + acc1[0], acc0[1] + acc1[1]);
+          *reinterpret_cast<float2*>(p + 8 * JS) =
+              make_float2(acc0[2] + acc1[2], acc0[3] + acc1[3]);
+          __syncthreads();  // buffer m & 1 is free, and the partial sums are visible
+          if (m + 2 < mtiles) stage_dz(t_last, m + 2);
         }
       }
-
-      // z recompute: xp_d[t] + bf16(h_pre) . U_d[:, :, unit], as K1 does.
-      float acc[RPT][4];
+      const int b = tile * RT + gr;
+      if (unit_ok && b < B) {
+        const float* p = prep + b * JS + gj;
+        float dh = p[0];
+        if (s > 0) {
+          const float* q = red_dh + gr * JS + gj;
+          float carry = q[0];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-      if (has_pre) {
-        __syncthreads();
-        if constexpr (BM) {  // one row of H per batch row, T * H apart
-          const uint32_t* h32 = reinterpret_cast<const uint32_t*>(hs);
-          int r = r0, kk = kk0;
-          for (int w = tid; w < rows * HW; w += THREADS) {
-            stage_s[w] = h32[row_at<BM>(t_pre, b0 + r, ld) * HW + kk];
-            r += dr;
-            kk += dk;
-            if (kk >= HW) kk -= HW, ++r;
-          }
-        } else {  // the tile's rows are contiguous
-          const uint32_t* src = reinterpret_cast<const uint32_t*>(
-              hs + row_at<BM>(t_pre, b0, ld) * H);
-          for (int w = tid; w < rows * HW; w += THREADS) stage_s[w] = src[w];
+          for (int w = 1; w < WARPS; ++w) carry += q[w * RT * JS];
+          dh += carry;
         }
-        __syncthreads();
-        if (rows_ok) {
-          const uint32_t* h_row = stage_s + (size_t)rg * RPT * HW;
-          for (int kk = 0; kk < HW; ++kk) {
-            const float4 ua = u4[(2 * kk) * JS + j];
-            const float4 ub = u4[(2 * kk + 1) * JS + j];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-              const uint32_t hv = h_row[i * HW + kk];
-              const float h0 = bf16_lo(hv), h1 = bf16_hi(hv);
-              acc[i][0] = fmaf(h0, ua.x, acc[i][0]);
-              acc[i][1] = fmaf(h0, ua.y, acc[i][1]);
-              acc[i][2] = fmaf(h0, ua.z, acc[i][2]);
-              acc[i][3] = fmaf(h0, ua.w, acc[i][3]);
-              acc[i][0] = fmaf(h1, ub.x, acc[i][0]);
-              acc[i][1] = fmaf(h1, ub.y, acc[i][1]);
-              acc[i][2] = fmaf(h1, ub.z, acc[i][2]);
-              acc[i][3] = fmaf(h1, ub.w, acc[i][3]);
-            }
-          }
-        }
-      }
-
-      if (unit_ok) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = rg * RPT + i;
-          if (r >= rows) break;
-          const int b = b0 + r;
-          const size_t row = row_at<BM>(t, b, ld);
-          const size_t row4 = row * H4 + unit;
-          const float zi = __bfloat162float(xp[row4]) + acc[i][0];
-          const float zf = __bfloat162float(xp[row4 + (size_t)H]) + acc[i][1];
-          const float zg = __bfloat162float(xp[row4 + 2 * (size_t)H]) + acc[i][2];
-          const float zo = __bfloat162float(xp[row4 + 3 * (size_t)H]) + acc[i][3];
-          const float ig = hard_sigmoid(zi);
-          const float fg = hard_sigmoid(zf);
-          const float gg = tanhf(zg);
-          const float og = hard_sigmoid(zo);
-          const size_t at = row * H + unit;
-          const float tc = tanhf(__bfloat162float(cs[at]));
-          const float c_pre =
-              has_pre ? __bfloat162float(cs[row_at<BM>(t_pre, b, ld) * H + unit]) : 0.0f;
-          const float dh = __bfloat162float(dhs[at]) + dh_acc[i];
-          const float d_o = dh * tc;
-          const float dc = dc_reg[tile][i] + dh * og * (1.0f - tc * tc);
-          dz[row4] = __float2bfloat16_rn((dc * gg) * hard_sigmoid_grad(zi));
-          dz[row4 + (size_t)H] = __float2bfloat16_rn((dc * c_pre) * hard_sigmoid_grad(zf));
-          dz[row4 + 2 * (size_t)H] = __float2bfloat16_rn((dc * ig) * (1.0f - gg * gg));
-          dz[row4 + 3 * (size_t)H] = __float2bfloat16_rn(d_o * hard_sigmoid_grad(zo));
-          dc_reg[tile][i] = dc * fg;
-        }
+        const float dc = dc_reg[tile] + dh * p[1 * prep_n];
+        const size_t row4 = row_at<BM>(t, b, ld) * H4 + unit;
+        dz[row4] = __float2bfloat16_rn((dc * p[2 * prep_n]) * 0.2f);
+        dz[row4 + (size_t)H] = __float2bfloat16_rn((dc * p[3 * prep_n]) * 0.2f);
+        dz[row4 + 2 * (size_t)H] = __float2bfloat16_rn(dc * p[4 * prep_n]);
+        dz[row4 + 3 * (size_t)H] = __float2bfloat16_rn((dh * p[5 * prep_n]) * 0.2f);
+        dc_reg[tile] = dc * p[6 * prep_n];
       }
     }
     if (s + 1 < T) {
-      __threadfence();
-      grid.sync();
+      __syncthreads();  // the step's dz stores are done, and every read of prep and the ring
+      barrier_arrive(ctr);
+      precompute(s + 1);
     }
   }
 }
@@ -321,64 +331,38 @@ extern "C" const char* bilstm_tm_bwd_error_string(int err) {
 
 // Dynamic shared memory the kernel needs at this (B, H).
 extern "C" size_t bilstm_tm_bwd_smem_bytes(int B, int H) {
-  const size_t tile_rows = ((size_t)(B < BT ? B : BT) + RPT - 1) / RPT * RPT;
-  return round16((size_t)H * JS * 4 * 4) + round16((size_t)4 * H * JS * 4) +
-         round16(tile_rows * H * 2);
+  const size_t rows = (size_t)(B < MAX_B ? B : MAX_B);
+  const size_t uz = (size_t)((H + 15) / 16) * 4 * 32 * sizeof(uint2);
+  return uz + ring_bytes(H) + sizeof(float) * RED_DH_FLOATS +
+         round16(sizeof(float) * NPREP * rows * JS);
 }
 
-// Blocks per SM at this shared memory size; the kernel's shared memory
-// limit is raised once per device to the opt-in maximum and never lowered
-// (the same rule as bilstm_tm_fwd.cu, where lowering it broke a later,
-// wider launch with error 720). One set of maps per layout.
-template <bool BM>
-static cudaError_t blocks_per_sm(int device, size_t smem, int* per_sm) {
-  static std::mutex mu;
-  static std::map<int, int> optin;  // device -> raised limit in bytes
-  static std::map<std::pair<int, size_t>, int> known;
-  std::lock_guard<std::mutex> lock(mu);
-  cudaError_t err;
-  if (optin.find(device) == optin.end()) {
-    int limit = 0;
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(lstm_bwd_kernel<BM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-    if (err != cudaSuccess) return err;
-    optin[device] = limit;
-  }
-  if (smem > (size_t)optin[device]) return cudaErrorInvalidValue;  // H too wide
-  const auto key = std::make_pair(device, smem);
-  const auto it = known.find(key);
-  if (it != known.end()) {
-    *per_sm = it->second;
-    return cudaSuccess;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, lstm_bwd_kernel<BM>,
-                                                      THREADS, smem);
-  if (err == cudaSuccess) known[key] = *per_sm;
-  return err;
-}
+// Words of the zeroed int32 scratch a call at batch B takes as `barrier`.
+extern "C" int bilstm_tm_bwd_barrier_words(int B) { return barrier_words(B); }
 
 // Runs the backward walk of directions d0 .. d0 + ndirs - 1 on `stream`, as
-// one cooperative launch per MAX_B batch rows. Returns the first
-// cudaError_t: an oversized grid is refused, never run.
+// one cooperative launch per MAX_B batch rows, each on its own counters in
+// `barrier`. Returns the first cudaError_t: an oversized grid is refused,
+// never run.
 template <bool BM>
 static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, const void* U1,
                           const void* hs0, const void* hs1,
                           const void* cs0, const void* cs1,
                           const void* dhs0, const void* dhs1,
-                          void* dz0, void* dz1,
+                          void* dz0, void* dz1, void* barrier,
                           int T, int B, int H, int d0, int ndirs, int rev_mask,
                           int device, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || (H & 1)) return cudaErrorInvalidValue;
+  if (T <= 0 || B <= 0 || H <= 0 || (H & 1) || H > MAX_H || barrier == nullptr)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int slices = (H + JS - 1) / JS;
   const size_t smem = bilstm_tm_bwd_smem_bytes(B, H);
+  const void* kernel = reinterpret_cast<const void*>(lstm_bwd_kernel<BM>);
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = blocks_per_sm<BM>(device, smem, &per_sm);
+  err = blocks_per_sm(kernel, device, smem, &per_sm);
   if (err != cudaSuccess) return err;
   if (ndirs * slices > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
 
@@ -400,13 +384,13 @@ static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, cons
     const bf* a_dhs1 = static_cast<const bf*>(dhs1) + r0 * H;
     bf* a_dz0 = static_cast<bf*>(dz0) + r0 * H4;
     bf* a_dz1 = static_cast<bf*>(dz1) + r0 * H4;
+    unsigned int* a_bar = static_cast<unsigned int*>(barrier) + (b0 / MAX_B) * 2 * BAR_STRIDE;
     int a_T = T, a_B = B - b0 < MAX_B ? B - b0 : MAX_B, a_ld = ld, a_H = H;
     int a_slices = slices, a_d0 = d0, a_rev = rev_mask;
     void* args[] = {&a_xp0, &a_xp1, &a_U0, &a_U1, &a_hs0, &a_hs1, &a_cs0, &a_cs1,
-                    &a_dhs0, &a_dhs1, &a_dz0, &a_dz1,
+                    &a_dhs0, &a_dhs1, &a_dz0, &a_dz1, &a_bar,
                     &a_T, &a_B, &a_ld, &a_H, &a_slices, &a_d0, &a_rev};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_bwd_kernel<BM>),
-                                      dim3(ndirs * slices), dim3(THREADS), args, smem,
+    err = cudaLaunchCooperativeKernel(kernel, dim3(ndirs * slices), dim3(THREADS), args, smem,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
@@ -416,25 +400,26 @@ static cudaError_t launch(const void* xp0, const void* xp1, const void* U0, cons
 }
 
 // Both directions: xp0, xp1 (T, B, 4H); U (2, H, 4H); streams (T, B, H);
-// dz0, dz1 (T, B, 4H).
+// dz0, dz1 (T, B, 4H); barrier: bilstm_tm_bwd_barrier_words(B) zeroed
+// int32 words.
 extern "C" int bilstm_tm_bwd(const void* xp0, const void* xp1, const void* U,
                              const void* hs0, const void* hs1,
                              const void* cs0, const void* cs1,
                              const void* dhs0, const void* dhs1,
-                             void* dz0, void* dz1,
+                             void* dz0, void* dz1, void* barrier,
                              int T, int B, int H, int device, void* stream) {
   const void* U1 = static_cast<const __nv_bfloat16*>(U) + (size_t)H * 4 * H;
-  return launch<false>(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, dhs0, dhs1, dz0, dz1,
+  return launch<false>(xp0, xp1, U, U1, hs0, hs1, cs0, cs1, dhs0, dhs1, dz0, dz1, barrier,
                        T, B, H, 0, 2, 2, device, stream);
 }
 
 // One direction: xp (T, B, 4H); U (H, 4H); hs, cs, dhs (T, B, H) as the
 // forward of the same `reverse` stored them; dz (T, B, 4H).
 extern "C" int lstm_tm_bwd(const void* xp, const void* U, const void* hs, const void* cs,
-                           const void* dhs, void* dz,
+                           const void* dhs, void* dz, void* barrier,
                            int T, int B, int H, int reverse, int device, void* stream) {
   if (reverse != 0 && reverse != 1) return cudaErrorInvalidValue;
-  return launch<false>(xp, xp, U, U, hs, hs, cs, cs, dhs, dhs, dz, dz,
+  return launch<false>(xp, xp, U, U, hs, hs, cs, cs, dhs, dhs, dz, dz, barrier,
                        T, B, H, reverse, 1, 2, device, stream);
 }
 
@@ -442,7 +427,7 @@ extern "C" int lstm_tm_bwd(const void* xp, const void* U, const void* hs, const 
 // xp (D, B, T, 4H); U (D, H, 4H); hs, cs, dhs (D, B, T, H) as lstm_scan_fwd
 // stored them (and the h stream's cotangent); dz (D, B, T, 4H).
 extern "C" int lstm_scan_bwd(const void* xp, const void* U, const void* hs, const void* cs,
-                             const void* dhs, void* dz,
+                             const void* dhs, void* dz, void* barrier,
                              int D, int T, int B, int H, int device, void* stream) {
   if (D != 1 && D != 2) return cudaErrorInvalidValue;
   typedef __nv_bfloat16 bf;
@@ -451,6 +436,6 @@ extern "C" int lstm_scan_bwd(const void* xp, const void* U, const void* hs, cons
                       U, static_cast<const bf*>(U) + (size_t)(D - 1) * H * 4 * H,
                       hs, static_cast<const bf*>(hs) + n, cs, static_cast<const bf*>(cs) + n,
                       dhs, static_cast<const bf*>(dhs) + n,
-                      dz, static_cast<bf*>(dz) + 4 * n,
+                      dz, static_cast<bf*>(dz) + 4 * n, barrier,
                       T, B, H, 0, D, 0, device, stream);
 }

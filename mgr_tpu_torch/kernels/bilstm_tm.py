@@ -37,7 +37,8 @@ ONE_BWD_NAME = "lstm_tm_bwd"
 
 def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     """The library of ``entry``'s source, with ``entry``'s C signature:
-    ``n_ptrs`` pointers, ``n_ints`` ints, the stream."""
+    ``n_ptrs`` pointers (the last is the barrier scratch), ``n_ints`` ints,
+    the stream."""
     source = dispatch.SOURCES[entry]
     lib = build.load(source)
     fn = getattr(lib, entry)
@@ -46,7 +47,18 @@ def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     err = getattr(lib, f"{source}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    words = getattr(lib, f"{source}_barrier_words")
+    words.argtypes = [ctypes.c_int]
+    words.restype = ctypes.c_int
     return lib
+
+
+def _barrier(lib: ctypes.CDLL, entry: str, B: int, device: torch.device) -> torch.Tensor:
+    """The split barrier's counters for one call of ``entry`` at batch B:
+    zeroed int32 words on ``device`` (a counter per direction and launch of
+    at most 256 rows), fresh for every call, so no call sees another's."""
+    n = getattr(lib, f"{dispatch.SOURCES[entry]}_barrier_words")(B)
+    return torch.zeros(n, dtype=torch.int32, device=device)
 
 
 def _device_and_stream(t: torch.Tensor):
@@ -107,12 +119,13 @@ def bilstm_tm_streams(
     hs1 = torch.empty_like(hs0)
     cs0 = torch.empty_like(hs0) if store_c else None
     cs1 = torch.empty_like(hs0) if store_c else None
-    lib = _lib(NAME, 7)
+    lib = _lib(NAME, 8)
     err = lib.bilstm_tm_fwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
         hs0.data_ptr(), hs1.data_ptr(),
         cs0.data_ptr() if store_c else None,
         cs1.data_ptr() if store_c else None,
+        _barrier(lib, NAME, B, dev).data_ptr(),
         T, B, Hk, *_device_and_stream(xp0),
     )
     build.check(lib, NAME, err)
@@ -154,11 +167,11 @@ def bilstm_tm_bwd(
     Hk = xp0k.shape[-1]
     dz0 = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp0.device)
     dz1 = torch.empty_like(dz0)
-    lib = _lib(BWD_NAME, 11)
+    lib = _lib(BWD_NAME, 12)
     err = lib.bilstm_tm_bwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
         *(s.data_ptr() for s in streams),
-        dz0.data_ptr(), dz1.data_ptr(),
+        dz0.data_ptr(), dz1.data_ptr(), _barrier(lib, BWD_NAME, B, xp0.device).data_ptr(),
         T, B, Hk, *_device_and_stream(xp0),
     )
     build.check(lib, BWD_NAME, err)
@@ -218,10 +231,11 @@ def lstm_tm_streams(
     Hk = xpk.shape[-1]
     hs = torch.empty((T, B, Hk), dtype=torch.bfloat16, device=xp.device)
     cs = torch.empty_like(hs) if store_c else None
-    lib = _lib(ONE_NAME, 4, 5)
+    lib = _lib(ONE_NAME, 5, 5)
     err = lib.lstm_tm_fwd(
         xpk.data_ptr(), Uk.data_ptr(), hs.data_ptr(),
         cs.data_ptr() if store_c else None,
+        _barrier(lib, ONE_NAME, B, xp.device).data_ptr(),
         T, B, Hk, int(reverse), *_device_and_stream(xp),
     )
     build.check(lib, NAME, err, ONE_NAME)
@@ -248,9 +262,10 @@ def lstm_tm_bwd(
     streams = _even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    lib = _lib(ONE_BWD_NAME, 6, 5)
+    lib = _lib(ONE_BWD_NAME, 7, 5)
     err = lib.lstm_tm_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),
+        _barrier(lib, ONE_BWD_NAME, B, xp.device).data_ptr(),
         T, B, Hk, int(reverse), *_device_and_stream(xp),
     )
     build.check(lib, BWD_NAME, err, ONE_BWD_NAME)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` into ``mgr_tpu_torch/_build/lib<name>_<hash>.so``
-(the hash is of the source, so an edited kernel is rebuilt) and loaded
+(the hash is of the source and the shared headers ``csrc/*.cuh``, so an
+edited kernel or header is rebuilt) and loaded
 with ``ctypes``. Only the repository's sources are compiled; nothing is
 downloaded. The build needs the CUDA toolkit, which the GPU machine has
 and a CPU-only host does not: nothing here runs at import time.
@@ -49,10 +50,20 @@ def nvcc() -> str:
     )
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<name>.cu`` and every header beside it
+    (``csrc/*.cuh``): an edited header rebuilds the libraries that may
+    include it."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,6 +77,12 @@ def _compile(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {src}:\n{_logs[name]}")
     os.replace(tmp, out)
     return out
+
+
+def library_path(name: str) -> Path:
+    """The built library of ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        return _compile(name)
 
 
 def load(name: str) -> ctypes.CDLL:

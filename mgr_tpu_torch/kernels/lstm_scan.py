@@ -56,10 +56,11 @@ def lstm_scan_streams(
     Hk = xpk.shape[-1]
     hs = torch.empty((D, B, T, Hk), dtype=torch.bfloat16, device=xp.device)
     cs = torch.empty_like(hs) if store_c else None
-    lib = _k1._lib(NAME, 4, 5)
+    lib = _k1._lib(NAME, 5, 5)
     err = lib.lstm_scan_fwd(
         xpk.data_ptr(), Uk.data_ptr(), hs.data_ptr(),
         cs.data_ptr() if store_c else None,
+        _k1._barrier(lib, NAME, B, xp.device).data_ptr(),
         D, T, B, Hk, *_k1._device_and_stream(xp),
     )
     build.check(lib, dispatch.SOURCES[NAME], err, NAME)
@@ -86,9 +87,10 @@ def lstm_scan_bwd(
     streams = _k1._even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((D, B, T, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    lib = _k1._lib(BWD_NAME, 6, 5)
+    lib = _k1._lib(BWD_NAME, 7, 5)
     err = lib.lstm_scan_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),
+        _k1._barrier(lib, BWD_NAME, B, xp.device).data_ptr(),
         D, T, B, Hk, *_k1._device_and_stream(xp),
     )
     build.check(lib, dispatch.SOURCES[BWD_NAME], err, BWD_NAME)

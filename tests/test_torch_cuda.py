@@ -24,6 +24,15 @@ sources) with K1's tolerance for h and c and K2's for dz (relative
 Frobenius) and dU, bit-equal to K1/K2's directions (K5's for D=1) on the
 same, time-flipped, projections; the batch-major layers on the card
 against the CPU: outputs 3e-2, gradients 5e-2 relative Frobenius.
+
+The tensor-core design of K1/K2 (split-K over 8 warps, fixed-order
+reduction, per-direction split barrier) is held at its edges with the
+same tolerances: the launch shape B=32, H=500 at short T; H=500 against
+H=504 (h rows 8- and 16-byte aligned); B = 1, 16, 17, 64 and 256 (m16 and
+32-row tile edges, one full launch); two launches bit-identical (the
+reduction order depends only on H); and K1, K5a, K1 again on one stream
+(each call's barrier counters are fresh). K2's dz there is held relative
+to the largest |dz|, as in ``test_k2_matches_plain_version``.
 """
 
 import numpy as np
@@ -423,3 +432,68 @@ def test_batch_major_layers_run_k6_on_the_card(cuda, monkeypatch):
             assert float((a - b).abs().max()) <= TOL_K1
         else:
             assert float((a - b).norm() / b.norm()) <= 5e-2, i
+
+
+def _k1_k2_case(cuda, T, B, H, seed):
+    """K1 (c stored) and K2 on seeded inputs at (T, B, H): the kernels'
+    streams and dz, and their errors against the plain versions (h and c
+    absolute; dz relative to the largest |dz|; dU relative Frobenius)."""
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+    xp = 0.5 * rng.standard_normal((2, T, B, 4, H)).astype(np.float32)
+    xp[:, :, :, 1, :] += 1.0
+    xp = torch.from_numpy(xp).to(cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(seed), 4, H)["U"].to(cuda, bf)
+    dhs = torch.from_numpy(
+        0.1 * rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    want = tlstm.bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=True)
+    err_h = max(float((g.float() - w).abs().max()) for g, w in zip(streams, want))
+    dz = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    dz_w = tlstm.bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    err_dz = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                 for g, w in zip(dz, dz_w[:2]))
+    dU = tlstm.recurrent_weight_grad(streams[0], streams[1], *dz)
+    err_dU = float((dU - dz_w[2]).norm() / dz_w[2].norm())
+    for g in (*streams, *dz):
+        assert torch.isfinite(g.float()).all()
+    return (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU)
+
+
+@pytest.mark.parametrize("T,B,H", [
+    (16, 32, 500),                     # the launch shape at short T
+    (12, 5, 500), (12, 5, 504),        # h rows 8- and 16-byte aligned
+    (10, 1, 64), (10, 16, 64), (10, 17, 64), (10, 64, 64), (6, 256, 64),  # tile edges
+])
+def test_k1_k2_tensor_core_design_edges(cuda, T, B, H):
+    _, streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, H, seed=T * B + H)
+    assert streams[0].shape == (T, B, H) and dz[0].shape == (T, B, 4, H)
+    assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
+        (err_h, err_dz, err_dU)
+
+
+def test_k1_k2_two_launches_are_bit_identical(cuda):
+    (xp, U, dhs), streams, dz, _ = _k1_k2_case(cuda, 24, 32, 500, seed=5)
+    again = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    assert all(torch.equal(a, b) for a, b in zip(streams, again))
+    dz_again = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    assert all(torch.equal(a, b) for a, b in zip(dz, dz_again))
+
+
+def test_k1_k5a_k1_on_one_stream(cuda):
+    """Each call zeroes its own barrier counters: K1, then K5a, then K1
+    again, back to back on one stream, are each right."""
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    T, B, H = 20, 32, 500
+    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(11), 4, H)["U"].to(cuda, bf)
+    first = k1.bilstm_tm_streams(xp[0], xp[1], U)
+    one = k1.lstm_tm_streams(xp[1], U[1], reverse=True)
+    last = k1.bilstm_tm_streams(xp[0], xp[1], U)
+    torch.cuda.synchronize()
+    want = tlstm.bilstm_scan_tm_plain(xp[0], xp[1], U)
+    for got in (first, last):
+        assert max(float((g.float() - w).abs().max()) for g, w in zip(got, want)) <= TOL_K1
+    assert float((one[0].float() - want[1]).abs().max()) <= TOL_K1
+    assert torch.equal(one[0], first[1]) and all(torch.equal(a, b) for a, b in zip(first, last))

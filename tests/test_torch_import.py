@@ -117,6 +117,47 @@ def test_build_is_lazy_and_targets_sm90a():
     assert "mgr_tpu_torch/_build/" in (ROOT / ".gitignore").read_text().split()
 
 
+def test_build_hash_covers_the_shared_headers(tmp_path):
+    """A library's name hashes its source and the headers beside it, so
+    an edited header rebuilds every library, and an edited source only
+    its own."""
+    from mgr_tpu_torch.kernels import build
+
+    for p in (PKG / "csrc").iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    names = sorted(p.stem for p in tmp_path.glob("*.cu"))
+    before = {n: build.source_digest(n, tmp_path) for n in names}
+    assert before == {n: build.source_digest(n) for n in names}
+    src = tmp_path / "bilstm_tm_fwd.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    after_src = {n: build.source_digest(n, tmp_path) for n in names}
+    assert [n for n in names if after_src[n] != before[n]] == ["bilstm_tm_fwd"]
+    header = tmp_path / "lstm_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after_header = {n: build.source_digest(n, tmp_path) for n in names}
+    assert all(after_header[n] != after_src[n] for n in names)
+
+
+def test_kernel_sources_include_only_headers_beside_them():
+    for cu in sorted((PKG / "csrc").glob("*.cu")):
+        for inc in re.findall(r'^#include "([^"]+)"', cu.read_text(), re.M):
+            assert inc.endswith(".cuh") and (PKG / "csrc" / inc).is_file(), (cu.name, inc)
+
+
+def test_recurrences_use_tensor_cores_and_a_per_direction_barrier():
+    """K1/K2 (and their K5/K6 entries) run their step products as
+    mma.sync and meet on a counter per direction, not a grid-wide sync."""
+    common = (PKG / "csrc" / "lstm_common.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in common
+    assert "ld.acquire.gpu" in common and "fence.acq_rel.gpu" in common
+    for name in ("bilstm_tm_fwd", "bilstm_tm_bwd"):
+        text = (PKG / "csrc" / f"{name}.cu").read_text()
+        assert '#include "lstm_common.cuh"' in text, name
+        assert "mma16816(" in text or "z_partial<" in text, name
+        assert "grid.sync" not in text and "cooperative_groups" not in text, name
+        assert f'extern "C" int {name}_barrier_words(int B)' in text, name
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
