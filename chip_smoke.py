@@ -6,8 +6,9 @@ kernels, on one process and over meshes of ranks that share the card.
     python3 chip_smoke.py [--profile]
 
 Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
-adjoint), K3 (CTC forward, with and without the alpha store), K4 (its
-adjoint), K5a/K5b (the single-direction recurrence and its adjoint) and
+adjoint), K3 (CTC forward, timed without the alpha store at B=128 and with
+it at B=32), K4 (its adjoint; two launches of each of K1-K4 bit-identical),
+K5a/K5b (the single-direction recurrence and its adjoint) and
 K6a/K6b (the batch-major scan of D directions and its adjoint) against
 their plain versions (K5 and K6 also against K1's and K2's streams), the
 batch-major layer API (a train-mode ``bilstm_layer`` stack and an
@@ -124,16 +125,20 @@ def lstm_bound(T, B, H, *, dirs, backward, store_c):
     return bound(nbytes, ops, BF16_FLOPS)
 
 
-def ctc_bound(lp, in_len, lab_len, N, *, backward):
-    """K3 (loss only) / K4, from this run's lengths: the recursion visits
-    2L+1 lattice states for each of a sequence's valid frames."""
+def ctc_bound(lp, in_len, lab_len, N, *, backward, store=False):
+    """K3 (loss only, or with ``store`` the alpha store too) / K4, from this
+    run's lengths: the recursion visits 2L+1 lattice states for each of a
+    sequence's valid frames."""
     T, B, K = lp.shape
     visits = float((in_len.double() * (2 * lab_len.double() + 1)).sum())
     lp_bytes, lens = T * B * K * 4, B * N * 4 + 2 * B * 4
+    alpha_bytes = T * B * (2 * N + 1) * 4  # alpha_phi (T, B, N+1) and alpha_emit (T, B, N)
     if backward:  # lp, both alpha stores, labels, lengths, two seeds in; d lp out
-        nbytes = lp_bytes + T * B * (2 * N + 1) * 4 + lens + 2 * B * 4 + lp_bytes
+        nbytes = lp_bytes + alpha_bytes + lens + 2 * B * 4 + lp_bytes
         return bound(nbytes, CTC_BWD_OPS * visits, F32_FLOPS)
-    return bound(lp_bytes + lens + B * 4, CTC_FWD_OPS * visits, F32_FLOPS)
+    # lp, labels, lengths in; the loss (and the alphas) out
+    nbytes = lp_bytes + lens + B * 4 + (alpha_bytes if store else 0)
+    return bound(nbytes, CTC_FWD_OPS * visits, F32_FLOPS)
 
 
 def library_ctc_ms(lp, labels, in_len, lab_len, blank, *, backward: bool) -> float:
@@ -249,7 +254,11 @@ def k1_phase(dev) -> dict:
 
 
 def k3_phase(dev) -> dict:
-    from mgr_tpu_torch.kernels.ctc import ctc_alpha_loss
+    """K3 loss-only against its plain version at B=128, T'=1898, K=44,
+    N=150, timed; two launches bit-identical; and timed with the alpha
+    store at the train batch (B=32), the launch the train path makes (its
+    alphas are held to the plain version's in the k4 phase)."""
+    from mgr_tpu_torch.kernels.ctc import NAME, ctc_alpha_loss, launch_shape
     from mgr_tpu_torch.ops.ctc import ctc_alpha_loss_plain
 
     rng = np.random.default_rng(SEED + 1)
@@ -276,13 +285,25 @@ def k3_phase(dev) -> dict:
     rel = float((diff / want.abs().clamp_min(1.0)).max())
     if not torch.isfinite(got).all() or rel > TOL_K3_REL:
         raise AssertionError(f"K3 disagrees with its plain version: rel {rel} > {TOL_K3_REL}")
+    lp32, args32 = lp[:, :B_K4].contiguous(), [a[:B_K4].contiguous() for a in args]
+    stored = ctc_alpha_loss(lp32, *args32, blank, store_alphas=True)
+    if not (torch.equal(got, ctc_alpha_loss(lp, *args, blank)) and all(
+            torch.equal(a, b) for a, b in
+            zip(stored, ctc_alpha_loss(lp32, *args32, blank, store_alphas=True)))):
+        raise AssertionError("K3: two launches on the same inputs differ")
     ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank), reps=20)
     plain_ms = cuda_time_ms(lambda: ctc_alpha_loss_plain(lp, *args, blank), reps=1)
     lib_ms = library_ctc_ms(lp, *args, blank, backward=False)
     lim = ctc_bound(lp, args[1], args[2], N_K3, backward=False)
+    store_ms = cuda_time_ms(
+        lambda: ctc_alpha_loss(lp32, *args32, blank, store_alphas=True), reps=20)
+    store_lim = ctc_bound(lp32, args32[1], args32[2], N_K3, backward=False, store=True)
     phase("k3_ctc_fwd", B=B_K3, T=T_K3, K=K_K3, N=N_K3,
           max_abs_err_loss=float(diff.max()), max_rel_err_loss=rel, tol_rel=TOL_K3_REL,
-          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
+          bit_identical_launches=True, launch=launch_shape(NAME, N_K3, K_K3),
+          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim,
+          with_alpha_store={"B": B_K4, "ms": store_ms, **store_lim,
+                            "share": store_lim["bound_ms"] / store_ms})
     return {"max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms, **lim,
             "library_ms": lib_ms}
 
@@ -373,8 +394,10 @@ def _ctc_batch(rng, B, T, K, N):
 
 def k4_phase(dev) -> dict:
     """K3 with the alpha store and K4 against their plain versions at
-    B=32, T'=1898, K=44, N=150, seeded as the loss seeds them."""
-    from mgr_tpu_torch.kernels.ctc import ctc_alpha_bwd, ctc_alpha_loss
+    B=32, T'=1898, K=44, N=150, seeded as the loss seeds them (K4 on the
+    plain version's alphas); two K4 launches on K3's alphas bit-identical
+    (no atomics: repeated labels sum in column order), and timed."""
+    from mgr_tpu_torch.kernels.ctc import BWD_NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape
     from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
 
     rng = np.random.default_rng(SEED + 6)
@@ -409,15 +432,21 @@ def k4_phase(dev) -> dict:
             f"K3 alphas / K4 disagree with their plain versions: alpha rel {alpha_err} "
             f"(tol {TOL_K3_REL}), d lp {d_err} (tol {TOL_K4}), frame sums "
             f"{frame_sum_err} (tol {TOL_FRAME_SUM}), zero past the length {past_zero}")
-    ms = cuda_time_ms(lambda: ctc_alpha_bwd(*bwd_args), reps=20)
+    # Timed and repeated on K3's own alphas, as the train path hands them
+    # over (row-pitched: no layout copy in front of the launch).
+    own_args = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
+    d_own = ctc_alpha_bwd(*own_args)
+    if not torch.equal(d_own, ctc_alpha_bwd(*own_args)):
+        raise AssertionError("K4: two launches on the same inputs differ")
+    ms = cuda_time_ms(lambda: ctc_alpha_bwd(*own_args), reps=20)
     plain_ms = cuda_time_ms(lambda: ctc_alpha_bwd_plain(*bwd_args), reps=1)
-    store_ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True), reps=20)
     lib_ms = library_ctc_ms(lp, *args, blank, backward=True)
     lim = ctc_bound(lp, args[1], args[2], N_K3, backward=True)
     phase("k4_ctc_bwd", B=B_K4, T=T_K3, K=K_K3, N=N_K3, alpha_max_rel_err=alpha_err,
           tol_alpha_rel=TOL_K3_REL, max_abs_err_dlp=d_err, tol=TOL_K4,
-          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM, ms=ms, plain_ms=plain_ms,
-          k3_with_alpha_store_ms=store_ms, library_ms=lib_ms, **lim)
+          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM,
+          bit_identical_launches=True, launch=launch_shape(BWD_NAME, N_K3, K_K3),
+          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
     return {"max_abs_err": d_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": lib_ms}
 
 

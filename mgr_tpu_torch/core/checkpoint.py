@@ -3,18 +3,22 @@
 Counterpart of ``mgr_tpu/core/checkpoint.py``. Layout inside a workdir:
 
     <stamp>_config.json       pipeline config (``PipelineConfig.to_json``)
+    <stamp>_<slot>.state.pt   a whole train state in one file: the
+                              parameters, the step and the optimizer's
+                              state (Adam moments, counts)
     <stamp>_<slot>.params.pt  ``torch.save`` of the model's state dict
                               (keys = JAX pytree paths joined with dots)
-    <stamp>_<slot>.opt.pt     the rest of a train state: step and the
-                              optimizer's state (Adam moments, counts)
     <stamp>_fitmeta.json      facts fit(resume=True) needs: batches per
                               epoch, best monitored loss, plateau state
 
-A train-state slot is the pair ``params.pt`` + ``opt.pt``; decode and
-evaluate read ``params.pt`` alone. Writes are atomic (tmp + rename).
-Reading the JAX package's msgpack checkpoints is not ported yet
-(ROADMAP.md 'Modules to port', item 9); until then, the weight bridge
-(``mgr_tpu_torch.bridge``) moves weights across from numpy.
+Every write is atomic (tmp + rename). A train-state slot is ``state.pt``
+alone, written before the slot's ``params.pt``: a save killed between the
+two leaves a slot that resumes wholly from the new save and a complete
+``params.pt`` of the one before (decode and evaluate read ``params.pt``),
+so preemption mid-save never mixes two saves. Reading the JAX package's
+msgpack checkpoints is not ported yet (ROADMAP.md 'Modules to port',
+item 3); until then, the weight bridge (``mgr_tpu_torch.bridge``) moves
+weights across from numpy.
 """
 
 from __future__ import annotations
@@ -69,8 +73,8 @@ def load_params(workdir: str, stamp: str, model: nn.Module, *,
     return model
 
 
-def _opt_path(workdir: str, stamp: str, slot: str) -> str:
-    return os.path.join(workdir, f"{stamp}_{slot}.opt.pt")
+def state_path(workdir: str, stamp: str, slot: str = "latest") -> str:
+    return os.path.join(workdir, f"{stamp}_{slot}.state.pt")
 
 
 def _to_cpu(x):
@@ -80,26 +84,26 @@ def _to_cpu(x):
 
 
 def save_train_state(workdir: str, stamp: str, state, *, slot: str = "latest") -> str:
-    """Write a train state (``train.step.TrainState``) to a slot: its
-    parameters as ``params.pt`` (what decode reads), its step and
-    optimizer state as ``opt.pt``."""
+    """Write a train state (``train.step.TrainState``) to a slot: the
+    whole state as ``state.pt`` (what a resume reads), then its
+    parameters again as ``params.pt`` (what decode reads)."""
     os.makedirs(workdir, exist_ok=True)
     params = {k: v.detach().cpu() for k, v in state.params.items()}
-    _atomic_save({"step": int(state.step), "opt_state": _to_cpu(state.opt_state.state_dict())},
-                 _opt_path(workdir, stamp, slot))
+    _atomic_save({"params": params, "step": int(state.step),
+                  "opt_state": _to_cpu(state.opt_state.state_dict())},
+                 state_path(workdir, stamp, slot))
     return _atomic_save(params, params_path(workdir, stamp, slot))
 
 
 def load_train_state(workdir: str, stamp: str, state, *, slot: str = "latest"):
-    """Restore a slot into ``state`` (same config), in place: parameters
-    copied into the model's tensors, step and optimizer state replaced
-    (on the parameters' device). Returns ``state``."""
+    """Restore a slot's ``state.pt`` into ``state`` (same config), in
+    place: parameters copied into the model's tensors, step and optimizer
+    state replaced (on the parameters' device). Returns ``state``."""
     from mgr_tpu_torch.train.optimizer import AdamState
 
-    params = torch.load(params_path(workdir, stamp, slot), map_location="cpu",
-                        weights_only=True)
-    rest = torch.load(_opt_path(workdir, stamp, slot), map_location="cpu",
-                      weights_only=True)
+    saved = torch.load(state_path(workdir, stamp, slot), map_location="cpu",
+                       weights_only=True)
+    params = saved["params"]
     if params.keys() != state.params.keys():
         raise ValueError(f"checkpoint {stamp}/{slot}: parameters differ from the model's")
     dev = next(iter(state.params.values())).device
@@ -112,14 +116,13 @@ def load_train_state(workdir: str, stamp: str, state, *, slot: str = "latest"):
             return {k: to_dev(v) for k, v in x.items()}
         return x.to(dev)
 
-    state.step = int(rest["step"])
-    state.opt_state = AdamState(**to_dev(rest["opt_state"]))
+    state.step = int(saved["step"])
+    state.opt_state = AdamState(**to_dev(saved["opt_state"]))
     return state
 
 
 def has_checkpoint(workdir: str, stamp: str, slot: str = "latest") -> bool:
-    return (os.path.exists(params_path(workdir, stamp, slot))
-            and os.path.exists(_opt_path(workdir, stamp, slot)))
+    return os.path.exists(state_path(workdir, stamp, slot))
 
 
 def save_fit_meta(workdir: str, stamp: str, meta: dict) -> None:

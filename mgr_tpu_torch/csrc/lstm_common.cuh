@@ -1,6 +1,7 @@
 // Shared by bilstm_tm_fwd.cu and bilstm_tm_bwd.cu: the block and tile
 // shape, the cell's rounding, the tensor-core step product, the
-// per-direction split barrier and the occupancy cache.
+// per-direction split barrier and the occupancy cache (the cp.async
+// helpers are in async_copy.cuh).
 //
 // The step product is mma.sync.m16n8k16 (bf16 operands, exact products,
 // f32 sums). Its K axis is split over the block's 8 warps; each warp's
@@ -21,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 #include <map>
 #include <mutex>
@@ -89,28 +92,6 @@ __device__ __forceinline__ uint2 ld_row4(const __nv_bfloat16* row, int k, int H)
     if (k + 2 < H) v.y = __ldcg(reinterpret_cast<const unsigned int*>(row + k + 2));
   }
   return v;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 4 bytes (through L1: only for data no block writes during
-// the launch) and of 16 bytes at L2 only.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The split barrier of one direction's blocks, on a counter that only

@@ -6,7 +6,10 @@ Function that pairs them as the custom VJP ``ctc_alpha_loss`` pairs the
 Pallas kernels.
 
 A CPU tensor goes to the plain versions in ``ops.ctc``; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. On the card the stored alphas are views
+(T, B, w) of buffers whose rows are :func:`alpha_pitch` floats apart (w
+rounded up to a multiple of 4), so that K4 stages each row with one bulk
+copy; K4 copies alphas of another layout into that one first.
 """
 
 from __future__ import annotations
@@ -33,6 +36,42 @@ def _lib(name: str, n_ptrs: int) -> ctypes.CDLL:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
+
+
+def alpha_pitch(width: int) -> int:
+    """Floats between two rows of a stored alpha array of ``width``
+    columns on the card (``csrc/ctc_common.cuh``)."""
+    return (width + 3) // 4 * 4
+
+
+def _pitched_empty(T: int, B: int, width: int, device) -> torch.Tensor:
+    return torch.empty((T, B, alpha_pitch(width)), dtype=torch.float32,
+                       device=device)[..., :width]
+
+
+def _pitched(alpha: torch.Tensor) -> torch.Tensor:
+    """``alpha`` (T, B, w) in K4's layout: f32, rows alpha_pitch(w) floats
+    apart, 16-byte aligned; itself where it is so already (K3's store),
+    else a copy."""
+    T, B, w = alpha.shape
+    p = alpha_pitch(w)
+    if (alpha.dtype == torch.float32 and alpha.stride() == (B * p, p, 1)
+            and alpha.data_ptr() % 16 == 0):
+        return alpha
+    return _pitched_empty(T, B, w, alpha.device).copy_(alpha)
+
+
+def launch_shape(name: str, N: int, K: int) -> dict:
+    """The launch of K3 (``name`` = "ctc_fwd") or K4 ("ctc_bwd") at N
+    labels and K classes: threads per block, frames per staged chunk and
+    dynamic shared memory in bytes, as the C entry computes them."""
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch_shape")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    build.check(lib, name, fn(N, K, *(ctypes.byref(o) for o in out)), f"{name}_launch_shape")
+    return dict(zip(("threads", "chunk_frames", "smem_bytes"), (o.value for o in out)))
 
 
 def _check(log_probs_tm, labels, blank, name) -> None:
@@ -71,7 +110,8 @@ def ctc_alpha_loss(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """K3: per-sequence CTC negative log-likelihood (B,) f32, and with
     ``store_alphas`` the post-step alphas alpha_phi (T, B, N+1) and
-    alpha_emit (T, B, N) f32 that K4 reads.
+    alpha_emit (T, B, N) f32 that K4 reads (on the card, views of
+    row-pitched buffers).
 
     log_probs_tm (T, B, K) time-major log-probabilities; labels (B, N)
     padded with -1; lengths (B,)."""
@@ -89,8 +129,8 @@ def ctc_alpha_loss(
     loss = torch.empty((B,), dtype=torch.float32, device=dev)
     a_phi = a_emit = None
     if store_alphas:
-        a_phi = torch.empty((T, B, N + 1), dtype=torch.float32, device=dev)
-        a_emit = torch.empty((T, B, N), dtype=torch.float32, device=dev)
+        a_phi = _pitched_empty(T, B, N + 1, dev)
+        a_emit = _pitched_empty(T, B, N, dev)
     lib = _lib(NAME, 7)
     err = lib.ctc_fwd(
         lp.data_ptr(), lab.data_ptr(), il.data_ptr(), ll.data_ptr(),
@@ -134,8 +174,8 @@ def ctc_alpha_bwd(
         )
     lp, lab, il, ll, index, stream = _operands(
         log_probs_tm, labels, input_lengths, label_lengths, BWD_NAME)
-    a_phi, a_emit, gp, ge = (
-        x.to(torch.float32).contiguous() for x in (alpha_phi, alpha_emit, g_phi, g_emit))
+    a_phi, a_emit = _pitched(alpha_phi), _pitched(alpha_emit)
+    gp, ge = (x.to(torch.float32).contiguous() for x in (g_phi, g_emit))
     dlp = torch.empty((T, B, K), dtype=torch.float32, device=lp.device)
     lib = _lib(BWD_NAME, 9)
     err = lib.ctc_bwd(

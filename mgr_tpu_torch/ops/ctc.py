@@ -97,9 +97,10 @@ def ctc_alpha_loss_plain(
 
     rows = torch.arange(B, device=dev)
     final_phi = phi[rows, lab_len]
-    final_emit = torch.where(
-        lab_len > 0, emit[rows, (lab_len - 1).clamp_min(0)], LOG_EPS
-    )
+    final_emit = torch.full_like(final_phi, LOG_EPS)  # N = 0: the all-blank path alone
+    if N:
+        final_emit = torch.where(
+            lab_len > 0, emit[rows, (lab_len - 1).clamp_min(0)], final_emit)
     loss = -torch.logaddexp(final_phi, final_emit)
     return (loss, alpha_phi, alpha_emit) if store_alphas else loss
 

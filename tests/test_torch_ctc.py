@@ -214,3 +214,34 @@ def test_no_grad_takes_the_loss_only_launch(monkeypatch):
         tctc.ctc_loss(x, *(torch.from_numpy(a) for a in (labels, in_len, lab_len)))
     tctc.ctc_loss(x, *(torch.from_numpy(a) for a in (labels, in_len, lab_len)))
     assert seen == [{}, {"store_alphas": True}]
+
+
+def test_no_label_columns_score_the_all_blank_path():
+    """N = 0 (labels (B, 0)): the loss is the all-blank path's, and its
+    gradient is -1 at the blank on every valid frame, 0 elsewhere."""
+    rng = np.random.default_rng(7)
+    T, B, K = 9, 3, 5
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal((T, B, K)).astype(np.float32)),
+                           -1).requires_grad_()
+    in_len = torch.tensor([9, 4, 0], dtype=torch.int32)
+    args = (torch.zeros((B, 0), dtype=torch.int32), in_len, torch.zeros(B, dtype=torch.int32))
+    loss = tctc.ctc_loss(lp, *args, time_major=True)
+    valid = torch.arange(T)[:, None] < in_len[None, :]
+    want = -(lp[:, :, K - 1] * valid).sum(0)
+    np.testing.assert_allclose(loss.detach().numpy(), want.detach().numpy(), rtol=TOL, atol=TOL)
+    loss.sum().backward()
+    grad = torch.zeros((T, B, K))
+    grad[:, :, K - 1] = -valid.float()
+    np.testing.assert_allclose(lp.grad.numpy(), grad.numpy(), atol=TOL)
+
+
+def test_k4_layout_keeps_a_pitched_view_and_copies_the_rest():
+    """K4 reads alpha rows alpha_pitch(w) floats apart: K3's pitched views
+    pass through as they are; alphas of another layout (the plain
+    version's, contiguous) are copied into that layout, values unchanged."""
+    assert [k3.alpha_pitch(w) for w in (0, 1, 4, 150, 151)] == [0, 4, 4, 152, 152]
+    pitched = torch.zeros((2, 3, 152))[..., :151]
+    assert k3._pitched(pitched) is pitched
+    plain = torch.randn((2, 3, 151))
+    copied = k3._pitched(plain)
+    assert copied.stride() == (3 * 152, 152, 1) and torch.equal(copied, plain)

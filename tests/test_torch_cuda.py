@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import EncoderConfig, get_preset
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.kernels import ctc as k3
@@ -123,8 +124,10 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    monkeypatch.setattr(tlstm, "bilstm_scan_tm_plain", refuse)
-    monkeypatch.setattr(tctc, "ctc_alpha_loss_plain", refuse)
+    for name in ("bilstm_scan_tm_plain", "bilstm_scan_tm_bwd_plain"):
+        monkeypatch.setattr(tlstm, name, refuse)
+    for name in ("ctc_alpha_loss_plain", "ctc_alpha_bwd_plain"):
+        monkeypatch.setattr(tctc, name, refuse)
     cfg = get_preset("speech").replace(maxlen=32, batch_size=2, max_label_len=4,
                                        encoder=EncoderConfig(hidden=16))
     model = build_model(cfg, device=cuda)
@@ -136,6 +139,13 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
         "label_length": np.array([2, 3], np.int32),
     }
     assert np.isfinite(float(make_eval_step(model)(batch)))
+    # The backward too: K2 and K4 under autograd.
+    tb = {k: step_lib.to_device(batch[k], cuda) for k in step_lib.BATCH_KEYS}
+    before = dispatch.launch_counts()
+    loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb,
+                                           prng.fold_name(prng.root_key(0), "dropout"))
+    assert dispatch.launch_counts()["ctc_bwd"] == before["ctc_bwd"] + 1
+    assert np.isfinite(float(loss)) and all(torch.isfinite(g).all() for g in grads.values())
 
 
 def test_model_on_the_card_matches_the_cpu(cuda):
@@ -203,6 +213,87 @@ def test_k3_alphas_and_k4_match_plain_versions(cuda, B, T, K, N):
     assert float((d_got - d_want).abs().max()) <= TOL_K4
     past = torch.arange(T, device=cuda)[:, None] >= args[1][None, :]  # t >= len
     assert bool((d_got[past] == 0).all())
+
+
+def _ctc_edge(rng, T, B, K, N, in_len, lab_len):
+    """Seeded log-probs and labels with runs of repeated labels; row 0 has
+    a label >= K where N > 1 (it scores 0 and gets no gradient)."""
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T, B, K)).astype(np.float32)), -1)
+    labels = np.full((B, N), -1, np.int32)
+    for b, n in enumerate(lab_len):
+        seq = rng.integers(0, K - 1, size=n)
+        seq[1::3] = seq[0::3][: len(seq[1::3])]  # runs of two
+        labels[b, :n] = seq
+    if N > 1 and lab_len[0] > 1:
+        labels[0, 1] = K + 3
+    return lp, [torch.from_numpy(np.asarray(a, np.int32)) for a in (labels, in_len, lab_len)]
+
+
+# The design's edges: N = 1023 (the largest block, K4's chunk at its floor
+# of 2 frames) and N = 0; T below a chunk and T not a multiple of it; K =
+# 300 wider than a block of 32; input lengths 0, 1 and T; runs of repeated
+# labels and a label >= K. (T, K, N, input lengths, label lengths.)
+CTC_EDGES = {
+    "N=1023": (1400, 44, 1023, [1400, 1300], [1023, 600]),
+    "N=0": (20, 6, 0, [20, 7, 1, 0], [0, 0, 0, 0]),
+    "T below a chunk": (5, 6, 2, [5, 3, 1, 0], [2, 1, 1, 0]),
+    "T not a multiple of a chunk": (37, 44, 8, [37, 17, 1, 0], [8, 5, 1, 2]),
+    "K=300, N=4": (40, 300, 4, [40, 1, 0, 23], [4, 1, 0, 4]),
+    "repeats, label >= K": (50, 10, 6, [50, 33, 1, 50], [6, 6, 1, 3]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CTC_EDGES))
+def test_k3_k4_design_edges(cuda, case):
+    """K3 (loss and stored alphas) and K4 against their plain versions, K4
+    on the plain version's alphas; zero past each length."""
+    T, K, N, in_len, lab_len = CTC_EDGES[case]
+    B = len(in_len)
+    lp, args = _ctc_edge(np.random.default_rng(T + K + N), T, B, K, N, in_len, lab_len)
+    lp, args = lp.to(cuda), [a.to(cuda) for a in args]
+    shape = k3.launch_shape(k3.BWD_NAME, N, K)
+    if case == "N=1023":
+        assert shape["threads"] == 1024 and shape["chunk_frames"] == 2
+    if case == "K=300, N=4":
+        assert shape["threads"] == 32
+    loss = k3.ctc_alpha_loss(lp, *args, K - 1)
+    got = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    want = tctc.ctc_alpha_loss_plain(lp, *args, K - 1, store_alphas=True)
+    assert torch.equal(loss, got[0])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        rel = (g - w).abs() / w.abs().clamp_min(1.0)
+        assert rel.numel() == 0 or float(rel.max()) <= TOL_K3_REL
+    rows, L = torch.arange(B, device=cuda), args[2].long()
+    g_phi = -torch.exp(want[1][-1][rows, L] + want[0])
+    g_emit = torch.zeros_like(g_phi)
+    if N:
+        g_emit = torch.where(L > 0, -torch.exp(
+            want[2][-1][rows, (L - 1).clamp_min(0)] + want[0]), 0.0)
+    d_got = k3.ctc_alpha_bwd(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+    d_want = tctc.ctc_alpha_bwd_plain(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+    assert torch.isfinite(d_got).all()
+    assert float((d_got - d_want).abs().max()) <= TOL_K4
+    past = torch.arange(T, device=cuda)[:, None] >= args[1][None, :]
+    assert bool((d_got[past] == 0).all())
+
+
+def test_k3_k4_two_launches_are_bit_identical(cuda):
+    """No atomics, fixed summation orders: repeated labels (which several
+    columns scatter onto one class) give the same bits launch after launch."""
+    T, K, N = 400, 44, 150
+    lp, args = _ctc_edge(np.random.default_rng(3), T, 7, K, N,
+                         [400, 390, 350, 1, 0, 400, 320], [150, 150, 120, 1, 0, 90, 40])
+    lp, args = lp.to(cuda), [a.to(cuda) for a in args]
+    first = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    again = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    loss, a_phi, a_emit = first
+    g = -torch.ones_like(loss)
+    d_first = k3.ctc_alpha_bwd(lp, *args, K - 1, a_phi, a_emit, g, g)
+    d_again = k3.ctc_alpha_bwd(lp, *args, K - 1, a_phi, a_emit, g, g)
+    assert torch.equal(d_first, d_again)
 
 
 def test_train_autograd_functions_on_the_card(cuda):

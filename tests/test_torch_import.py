@@ -158,6 +158,24 @@ def test_recurrences_use_tensor_cores_and_a_per_direction_barrier():
         assert f'extern "C" int {name}_barrier_words(int B)' in text, name
 
 
+def test_ctc_kernels_stage_frames_ahead_and_scatter_without_atomics():
+    """K3 and K4 stage their frames into shared memory with asynchronous
+    copies (cp.async; K4's alpha rows by bulk copy on an mbarrier) and wait
+    only at chunk boundaries; K4 writes d lp with no atomic, so two
+    launches give the same bits."""
+    copies = (PKG / "csrc" / "async_copy.cuh").read_text()
+    assert "cp.async.ca.shared.global" in copies
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in copies
+    assert '#include "async_copy.cuh"' in (PKG / "csrc" / "ctc_common.cuh").read_text()
+    for name in ("ctc_fwd", "ctc_bwd"):
+        text = (PKG / "csrc" / f"{name}.cu").read_text()
+        assert '#include "ctc_common.cuh"' in text, name
+        assert "cp_async4(" in text and "cp_async_wait<" in text, name
+    bwd = (PKG / "csrc" / "ctc_bwd.cu").read_text()
+    assert "bulk_copy(" in bwd and "mbar_wait(" in bwd
+    assert not re.search(r"atomic[A-Z]\w*\(|\bred\.|\batom\.", bwd)
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

@@ -377,8 +377,8 @@ def test_fit_over_a_dp_mesh_writes_on_rank_0_and_ranks_agree(tmp_path):
     for k, v in out[0]["params"].items():
         np.testing.assert_array_equal(v, out[1]["params"][k])
     assert sorted(os.listdir(tmp_path / "mesh")) == [
-        "speech_best.opt.pt", "speech_best.params.pt", "speech_config.json",
-        "speech_fitmeta.json", "speech_latest.opt.pt", "speech_latest.params.pt",
+        "speech_best.params.pt", "speech_best.state.pt", "speech_config.json",
+        "speech_fitmeta.json", "speech_latest.params.pt", "speech_latest.state.pt",
         "speech_metrics.jsonl"]
     from mgr_tpu_torch.data.batcher import Batcher
 
@@ -423,7 +423,7 @@ def test_train_cli_mesh_under_torchrun(skeletal_corpus, tmp_path):
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     assert len(lines) == 1, proc.stdout
     assert '"epochs_run": 2' in lines[0]
-    assert {"skeletal_best.params.pt", "skeletal_latest.opt.pt",
+    assert {"skeletal_best.params.pt", "skeletal_latest.state.pt",
             "skeletal_config.json"} <= set(os.listdir(wd))
     assert '"data": 2' in open(os.path.join(wd, "skeletal_config.json")).read()
 

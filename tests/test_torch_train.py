@@ -365,8 +365,8 @@ def test_fit_matches_jax_fit(tmp_path):
     best_epoch = int(np.argmin([h["val_loss"] for h in jres.history]))
     assert int(np.argmin([h["val_loss"] for h in tres.history])) == best_epoch
     assert _slots(tdir) == [
-        "skeletal_best.opt.pt", "skeletal_best.params.pt", "skeletal_config.json",
-        "skeletal_fitmeta.json", "skeletal_latest.opt.pt", "skeletal_latest.params.pt"]
+        "skeletal_best.params.pt", "skeletal_best.state.pt", "skeletal_config.json",
+        "skeletal_fitmeta.json", "skeletal_latest.params.pt", "skeletal_latest.state.pt"]
     assert {"skeletal_best.msgpack", "skeletal_latest.msgpack"} <= set(_slots(jdir))
     jmeta = json.load(open(os.path.join(jdir, "skeletal_fitmeta.json")))
     tmeta = json.load(open(os.path.join(tdir, "skeletal_fitmeta.json")))
