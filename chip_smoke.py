@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the speech shapes, then
 serves and trains the speech BLSTM+CTC pipeline end to end through the
-kernels, on one process and over meshes of ranks that share the card.
+kernels, on one process and over meshes of ranks that share the card,
+then trains and serves the two fusion families (early fusion, and late
+fusion over frozen grafted encoders).
 
     python3 chip_smoke.py [--profile]
 
@@ -16,16 +18,23 @@ batch-major layer API (a train-mode ``bilstm_layer`` stack and an
 serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer), the
 training slice (``fit`` at full speech width, a train step through the
 kernels against the same step through the plain versions, a learning
+check), the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
+at the fusion presets' K=22, N=35, against their plain versions and
+timed), the fusion slice (early fusion trained by ``fit`` and decoded;
+speech and skeletal donors trained, grafted into late fusion, ``fit``
+over the frozen encoders, decode and evaluate; each family's step
+launches and wall, its kernel step against the plain one, a learning
 check), the mesh slice (a mesh train and eval step at full speech width
 on 2x1, 1x2 and 2x2 meshes of gloo ranks that time-share the one card,
 against the single-process step, and ``fit`` over the 2x2 mesh), with
 ``--profile`` a per-layer breakdown of a decode step at B=1, 32 and 128
-and of a train step at B=32, a JSON line of the kernels (each with its
-bound and, for K3/K4, the time of ``torch.nn.functional.ctc_loss``), and
-last ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed
-phase or rank raises, so the exit code is not 0 and the last line is
-never printed. There is no CPU fallback: without a CUDA device the
-script fails.
+and of a train step at B=32 (speech and late fusion), a JSON line of the
+kernels (each with its bound and, for K3/K4, the time of
+``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
+path and their times at its shapes), and last ``{"ok": true, "device":
+{"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
+code is not 0 and the last line is never printed. There is no CPU
+fallback: without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -78,6 +87,9 @@ K6_CASES = ((2, 32), (2, 128), (1, 32))  # (directions, B) of K6 at T=1900, H=50
 MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
 N_MESH_TRAIN, N_MESH_VAL = 64, 32  # fit over the 2x2 mesh: 2 train + 1 val batch
 MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
+N_FUS_TRAIN, N_FUS_VAL, FUS_EPOCHS = 64, 32, 2  # the fusion slice: 2 train + 1 val batch
+H_FUS = 100            # the late-fusion BiLSTM over the 1600-wide encoder concat
+K_FUS, N_FUS = 22, 35  # the fusion presets' gesture classes and label cap
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
@@ -592,8 +604,6 @@ def train_phase(dev) -> dict:
     step's wall time, the best slot reloaded and decoded, one train step
     through the kernels against the same step through the plain versions
     (same parameters, same masks), and a learning check."""
-    import copy
-
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.core import prng
     from mgr_tpu_torch.core.config import get_preset
@@ -651,25 +661,7 @@ def train_phase(dev) -> dict:
 
     # One step through the kernels and through the plain versions, from
     # the same parameters and the same masks (the draws depend on the key).
-    twin = copy.deepcopy(model)
-    tb = {k: step_lib.to_device(batch[k], dev) for k in step_lib.BATCH_KEYS}
-    sk = prng.fold_in(key, 1000)
-    loss_k, grads_k = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, sk)
-    grads_k = {k: g.clone() for k, g in grads_k.items()}
-    with plain_path():
-        t2 = time.perf_counter()
-        loss_p, grads_p = step_lib._loss_and_grads(twin, dict(twin.named_parameters()), tb, sk)
-        torch.cuda.synchronize()
-        plain_step_s = time.perf_counter() - t2
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    grad_rel = {k: float((grads_k[k] - g).norm() / g.norm().clamp_min(1e-30))
-                for k, g in grads_p.items()}
-    if loss_rel > TOL_LOSS_REL or max(grad_rel.values()) > TOL_GRAD_REL:
-        raise AssertionError(
-            f"the kernel train step disagrees with the plain one: loss rel {loss_rel} "
-            f"(tol {TOL_LOSS_REL}), grads {grad_rel} (tol {TOL_GRAD_REL})")
-    for p in model.parameters():
-        p.grad = None
+    check = _kernel_vs_plain_step(model, batch, prng.fold_in(key, 1000), dev)
 
     # Learning check: a fixed batch's eval loss falls over steps on it.
     eval_step = step_lib.make_eval_step(model)
@@ -687,12 +679,309 @@ def train_phase(dev) -> dict:
           epoch_val_loss=[h["val_loss"] for h in res.history],
           epoch_seq_per_s=[h["seqs_per_sec"] for h in res.history],
           step_wall_ms_median=1e3 * step_s, step_seq_per_s=B / step_s, peak_mem_gb=peak_gb,
-          plain_loss_and_grads_s=plain_step_s, loss_rel_err=loss_rel,
-          tol_loss_rel=TOL_LOSS_REL, grad_max_rel_err=max(grad_rel.values()),
-          grad_rel_err=grad_rel, tol_grad_rel=TOL_GRAD_REL,
+          **check, tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
           learning_check={"eval_loss_before": before, "eval_loss_after": after,
                           "steps": LEARN_STEPS})
     return launches
+
+
+def _two_stream_corpus(cfg, n, seed):
+    """n files of seeded random audio (T, 39) and skeletal (T, 20)
+    features and labels (1..N gestures)."""
+    rng = np.random.default_rng(seed)
+    T = cfg.maxlen
+    a = rng.standard_normal((n, T, cfg.num_feats), dtype=np.float32)
+    s = rng.standard_normal((n, T, cfg.second_stream_feats), dtype=np.float32)
+    lab_len = rng.integers(1, cfg.max_label_len + 1, size=n).astype(np.int32)
+    labels = np.full((n, cfg.max_label_len), -1, np.int32)
+    for i, k in enumerate(lab_len):
+        labels[i, :k] = rng.integers(0, cfg.nb_classes - 1, size=k)
+    in_len = np.full((n,), T - cfg.ctc.trim_frames, np.int32)
+    return (a, s), labels, lab_len, in_len
+
+
+def _batcher(corpus, n_train):
+    from mgr_tpu_torch.data.batcher import Batcher
+
+    feats, labels, lab_len, in_len = corpus
+    ids = list(range(1, len(labels) + 1))
+    return Batcher(feats, labels, lab_len, in_len, ids, train_ids=ids[:n_train],
+                   val_ids=ids[n_train:])
+
+
+def _kernel_vs_plain_step(model, batch, key, dev):
+    """One step's loss and gradients through the kernels and through the
+    plain versions (a copy of the model, the same masks): the loss's
+    relative error, each gradient's relative Frobenius error, the plain
+    step's seconds."""
+    import copy
+
+    from mgr_tpu_torch.train import step as step_lib
+
+    twin = copy.deepcopy(model)
+    tb = step_lib.batch_to_device(batch, dev)
+    loss_k, grads_k = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, key)
+    grads_k = {k: g.clone() for k, g in grads_k.items()}
+    with plain_path():
+        t0 = time.perf_counter()
+        loss_p, grads_p = step_lib._loss_and_grads(twin, dict(twin.named_parameters()), tb, key)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    for p in model.parameters():
+        p.grad = None
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel = {k: float((grads_k[k] - g).norm() / g.norm().clamp_min(1e-30))
+                for k, g in grads_p.items()}
+    if loss_rel > TOL_LOSS_REL or max(grad_rel.values()) > TOL_GRAD_REL:
+        raise AssertionError(
+            f"{model.config.name}: the kernel train step disagrees with the plain one: loss "
+            f"rel {loss_rel} (tol {TOL_LOSS_REL}), grads {grad_rel} (tol {TOL_GRAD_REL})")
+    return {"loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel.values()),
+            "grad_rel_err": grad_rel, "plain_loss_and_grads_s": plain_s}
+
+
+def _step_launches_and_wall(model, batch, key):
+    """The launch counts of one train step and the wall median of five
+    more (host clock around steps ending in a sync)."""
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+
+    state = step_lib.create_train_state(model)
+    step = step_lib.make_train_step(model)
+    walls = []
+    for i in range(6):
+        if i == 1:
+            dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, prng.fold_in(key, i))
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        if i == 1:
+            per_step = dispatch.launch_counts()
+    return state, per_step, float(np.median(walls[1:]))
+
+
+def fusion_phase(dev) -> dict:
+    """The two fusion families at full width (B=32, T=1900), trained and
+    served through the kernels, files cut to 64 train + 32 val.
+
+    Early fusion (audio 39 + skeletal 20 -> BiLSTM(500)x2 -> Dense(22)):
+    ``fit`` for 2 epochs, the best slot reloaded and decoded. Late fusion:
+    donors from 1-epoch fits of speech and skeletal into one workdir, the
+    graft (``build_fusion_with_pretrained``), ``fit`` for 2 epochs over the
+    frozen encoders (K1 at H=500 and 300, the fusion BiLSTM(100) on the
+    1600-wide concat), decode and evaluate of the best slot. The launch
+    counts of that run are the fusion path's. Then, for each family, one
+    step's launch counts (late fusion: K2 once, for the fusion layer
+    alone) and wall, the kernel step against the plain one, and a
+    learning check; the frozen encoders bit-equal to the donors."""
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.decode.evaluate import evaluate_accuracy
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.curriculum import build_fusion_with_pretrained
+    from mgr_tpu_torch.train.loop import fit
+
+    n = N_FUS_TRAIN + N_FUS_VAL
+    ef_cfg, lf_cfg = get_preset("early_fusion"), get_preset("late_fusion")
+    B = ef_cfg.batch_size
+    ef_data = _batcher(_two_stream_corpus(ef_cfg, n, SEED + 20), N_FUS_TRAIN)
+    lf_data = _batcher(_two_stream_corpus(lf_cfg, n, SEED + 21), N_FUS_TRAIN)
+    donors = {name: _batcher(_speech_corpus(get_preset(name), n, SEED + 22 + i), N_FUS_TRAIN)
+              for i, name in enumerate(("speech", "skeletal"))}
+    one = {tag: next(iter(d.epoch(B, train=False))) for tag, d in
+           (("early_fusion", ef_data), ("late_fusion", lf_data))}
+    out = {}
+
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, data in donors.items():  # the donors' fits are not the fusion path
+            fit(build_model(get_preset(name), seed=SEED, device=dev), data, workdir=workdir,
+                epochs=1)
+        ef = build_model(ef_cfg, seed=SEED, device=dev)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        ef_res = fit(ef, ef_data, workdir=workdir, epochs=FUS_EPOCHS)
+        fresh = build_model(ef_cfg, seed=SEED + 99, device=dev)
+        ckpt_lib.load_params(workdir, "early_fusion", fresh, slot="best")
+        ef_decoded = Decoder.for_model(fresh, "early_fusion").decode_batches(
+            [one["early_fusion"]])
+        torch.cuda.synchronize()
+        ef_s = time.perf_counter() - t0
+        lf = build_fusion_with_pretrained(workdir, device=dev)
+        t1 = time.perf_counter()
+        lf_res = fit(lf, lf_data, workdir=workdir, epochs=FUS_EPOCHS)
+        best = build_fusion_with_pretrained(workdir, device=dev)
+        ckpt_lib.load_params(workdir, "late_fusion", best, slot="best")
+        lf_decoded = Decoder.for_model(best, "late_fusion").decode_batches([one["late_fusion"]])
+        lf_metrics = evaluate_accuracy(best, lf_data)
+        torch.cuda.synchronize()
+        lf_s = time.perf_counter() - t1
+        launches = dispatch.launch_counts()
+        donor_enc = {name: ckpt_lib.read_params(workdir, name) for name in donors}
+
+    path = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
+    if min(launches[k] for k in path) <= 0 or any(v for k, v in launches.items()
+                                                  if k not in path):
+        raise AssertionError(f"the fusion path took the wrong kernels: {launches}")
+    for tag, res, decoded in (("early_fusion", ef_res, ef_decoded),
+                              ("late_fusion", lf_res, lf_decoded)):
+        if res.epochs_run != FUS_EPOCHS or not all(
+                np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in res.history):
+            raise AssertionError(f"{tag}: fit ran {res.epochs_run} epochs: {res.history}")
+        if len(decoded) != B:
+            raise AssertionError(f"{tag}: the best slot decoded {len(decoded)} of {B}")
+    # The frozen encoders end the late-fusion fit as the donors' best slots.
+    state = lf.state_dict()
+    unchanged = all(torch.equal(state[f"{name}.{k[len('encoder.'):]}"].cpu(), v)
+                    for name, enc in donor_enc.items() for k, v in enc.items()
+                    if k.startswith("encoder."))
+    if not unchanged:
+        raise AssertionError("late fusion's frozen encoders changed in training")
+
+    key = prng.fold_name(prng.root_key(SEED), "dropout")
+    want_step = {"early_fusion": {"bilstm_tm_fwd": 2, "bilstm_tm_bwd": 2},
+                 "late_fusion": {"bilstm_tm_fwd": 5, "bilstm_tm_bwd": 1}}
+    for tag, model, res, secs in (("early_fusion", ef, ef_res, ef_s),
+                                  ("late_fusion", lf, lf_res, lf_s)):
+        batch = one[tag][1]
+        want = {k: 0 for k in KERNELS}
+        want.update(want_step[tag], ctc_fwd=1, ctc_bwd=1)
+        _, per_step, step_s = _step_launches_and_wall(model, batch, key)
+        if per_step != want:
+            raise AssertionError(f"{tag}: one train step launched {per_step}, want {want}")
+        check = _kernel_vs_plain_step(model, batch, prng.fold_in(key, 1000), dev)
+        eval_step = step_lib.make_eval_step(model)
+        state = step_lib.create_train_state(model)
+        train_step = step_lib.make_train_step(model)
+        before = float(eval_step(batch))
+        for i in range(LEARN_STEPS):
+            state, _ = train_step(state, batch, prng.fold_in(key, 2000 + i))
+        after = float(eval_step(batch))
+        if not after < before:
+            raise AssertionError(f"{tag}: no learning: eval loss {before} -> {after}")
+        out[tag] = {
+            "fit_and_decode_s": secs, "step_launches": per_step,
+            "step_wall_ms_median": 1e3 * step_s, "step_seq_per_s": B / step_s,
+            "epoch_train_loss": [h["train_loss"] for h in res.history],
+            "epoch_val_loss": [h["val_loss"] for h in res.history],
+            "epoch_seq_per_s": [h["seqs_per_sec"] for h in res.history], **check,
+            "learning_check": {"eval_loss_before": before, "eval_loss_after": after,
+                               "steps": LEARN_STEPS}}
+    out["late_fusion"].update(frozen_encoders_bit_unchanged=True,
+                              evaluate={k: lf_metrics[k] for k in ("accuracy", "N")})
+    phase("fusion", B=B, T=ef_cfg.maxlen, files_train=N_FUS_TRAIN, files_val=N_FUS_VAL,
+          epochs=FUS_EPOCHS, launches=launches, tol_loss_rel=TOL_LOSS_REL,
+          tol_grad_rel=TOL_GRAD_REL, **out)
+    return launches
+
+
+def fusion_kernels_phase(dev) -> dict:
+    """K1-K4 at the shapes the fusion path gives them and no other phase
+    does: K1/K2 at H=100 (13 eight-unit slices, the last half empty), T=1900,
+    B=32, timed, and at B=1 and 33 (T=64), against their plain versions;
+    K1 without the c store (the frozen encoders' path) bit-equal to K1 with
+    it; K3/K4 at K=22, N=35 (T'=1898, B=32), timed, against their plain
+    versions; two launches of each bit-identical."""
+    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
+    from mgr_tpu_torch.kernels.ctc import (
+        BWD_NAME, NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape)
+    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
+    from mgr_tpu_torch.ops.lstm import (
+        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, init_bilstm_params)
+
+    rng = np.random.default_rng(SEED + 30)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    bf = torch.bfloat16
+    worst = {"h": 0.0, "dz": 0.0}
+    out = {}
+    for T, B in ((T_K1, B_K2), (64, 1), (64, 33)):
+        xp = 0.5 * rng.standard_normal((2, T, B, 4, H_FUS), dtype=np.float32)
+        xp[:, :, :, 1, :] += 1.0
+        xp = torch.from_numpy(xp).to(dev, bf)
+        U = init_bilstm_params(gen, 8, H_FUS)["U"].to(dev, bf)
+        dhs = torch.from_numpy(
+            1e-2 * rng.standard_normal((2, T, B, H_FUS), dtype=np.float32)).to(dev, bf)
+        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+        (want_h, want_h1), fwd_plain_ms = _timed(lambda: bilstm_scan_tm_plain(xp[0], xp[1], U))
+        dz = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+        dz_w, bwd_plain_ms = _timed(
+            lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]))
+        worst["h"] = max(worst["h"], *(float((g.float() - w).abs().max())
+                                        for g, w in zip(streams[:2], (want_h, want_h1))))
+        worst["dz"] = max(worst["dz"], *(float((g.float() - w.float()).abs().max()
+                                               / w.float().abs().max())
+                                         for g, w in zip(dz, dz_w[:2])))
+        no_c = bilstm_tm_streams(xp[0], xp[1], U)
+        if not all(torch.equal(a, b) for a, b in zip(no_c, streams[:2])):
+            raise AssertionError(f"K1 without the c store differs from K1 with it at {(T, B)}")
+        if (T, B) == (T_K1, B_K2):
+            if not (all(torch.equal(a, b) for a, b in zip(
+                    streams, bilstm_tm_streams(xp[0], xp[1], U, store_c=True))) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        dz, bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])))):
+                raise AssertionError("K1/K2 at H=100: two launches differ")
+            out["bilstm_tm_fwd"] = {
+                "ms": cuda_time_ms(lambda: bilstm_tm_streams(xp[0], xp[1], U), reps=5),
+                "plain_ms": fwd_plain_ms,
+                **lstm_bound(T, B, H_FUS, dirs=2, backward=False, store_c=False)}
+            out["bilstm_tm_bwd"] = {
+                "ms": cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0],
+                                                         dhs[1]), reps=5),
+                "plain_ms": bwd_plain_ms,
+                **lstm_bound(T, B, H_FUS, dirs=2, backward=True, store_c=False)}
+    if not worst["h"] <= TOL_K1_H or not worst["dz"] <= TOL_K2_REL:
+        raise AssertionError(f"K1/K2 at H=100 disagree with their plain versions: {worst}")
+    out["bilstm_tm_fwd"]["max_abs_err"] = worst["h"]
+    out["bilstm_tm_bwd"]["max_abs_err"] = worst["dz"]
+
+    T, B = T_K3, B_K2
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T, B, K_FUS), dtype=np.float32)).to(dev), dim=-1)
+    blank = K_FUS - 1
+    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B, T, K_FUS, N_FUS)]
+    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
+    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
+    k3_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) for g, w in zip(got, want))
+    loss, a_phi, a_emit = want
+    rows, L = torch.arange(B, device=dev), args[2].long()
+    g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
+    g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
+    d_got = ctc_alpha_bwd(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    d_want = ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    k4_err = float((d_got - d_want).abs().max())
+    if k3_err > TOL_K3_REL or k4_err > TOL_K4 or not torch.isfinite(d_got).all():
+        raise AssertionError(f"K3/K4 at K=22, N=35 disagree with their plain versions: K3 "
+                             f"{k3_err} (tol {TOL_K3_REL}), K4 {k4_err} (tol {TOL_K4})")
+    own = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
+    if not (all(torch.equal(a, b) for a, b in zip(
+            got, ctc_alpha_loss(lp, *args, blank, store_alphas=True)))
+            and torch.equal(ctc_alpha_bwd(*own), ctc_alpha_bwd(*own))):
+        raise AssertionError("K3/K4 at K=22, N=35: two launches differ")
+    out["ctc_fwd"] = {
+        "max_abs_err": k3_err, "launch": launch_shape(NAME, N_FUS, K_FUS),
+        "ms": cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True), reps=20),
+        "plain_ms": _timed(lambda: ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True))[1],
+        "library_ms": library_ctc_ms(lp, *args, blank, backward=False),
+        **ctc_bound(lp, args[1], args[2], N_FUS, backward=False, store=True)}
+    out["ctc_bwd"] = {
+        "max_abs_err": k4_err, "launch": launch_shape(BWD_NAME, N_FUS, K_FUS),
+        "ms": cuda_time_ms(lambda: ctc_alpha_bwd(*own), reps=20),
+        "plain_ms": _timed(lambda: ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi,
+                                                       g_emit))[1],
+        "library_ms": library_ctc_ms(lp, *args, blank, backward=True),
+        **ctc_bound(lp, args[1], args[2], N_FUS, backward=True)}
+    for v in out.values():
+        v["share"] = v["bound_ms"] / v["ms"]
+    phase("fusion_kernels", T=T_K1, B=B_K2, H=H_FUS, K=K_FUS, N=N_FUS, tol_h=TOL_K1_H,
+          tol_dz_rel=TOL_K2_REL, tol_k3_rel=TOL_K3_REL, tol_k4=TOL_K4,
+          k1_without_c_store_bit_equal=True, bit_identical_launches=True, kernels=out)
+    return out
 
 
 def _timed(fn):
@@ -1245,7 +1534,7 @@ def profile_phase(dev) -> None:
 
 
 @contextlib.contextmanager
-def timed_calls(marks: list):
+def timed_calls(marks: list, head_width: int = 44):
     """Wrap the train step's kernels and GEMMs so each call records a pair
     of CUDA events under a label (profiling only: the package has no such
     hook). Labels: K1 / K2 per layer (layer 0 is the first K1 of a step,
@@ -1275,7 +1564,7 @@ def timed_calls(marks: list):
     def gemm(kind):
         def label(ctx, *a):
             w = a[1] if kind == "forward" else ctx.saved_tensors[1]
-            return f"{'head' if w.shape[-1] == 44 else 'projection'} GEMM {kind}"
+            return f"{'head' if w.shape[-1] == head_width else 'projection'} GEMM {kind}"
         return label
 
     k1.bilstm_tm_streams = wrap(saved[0], lambda *a, **k: "K1")
@@ -1293,23 +1582,36 @@ def timed_calls(marks: list):
         mm.forward, mm.backward = staticmethod(saved[5]), staticmethod(saved[6])
 
 
-def profile_train_phase(dev) -> None:
+# The K1 / K2 calls of one train step, in call order, by pipeline.
+K1_LAYERS = {"speech": ("layer 0", "layer 1"),
+             "late_fusion": ("speech layer 0 (frozen)", "speech layer 1 (frozen)",
+                             "skeletal layer 0 (frozen)", "skeletal layer 1 (frozen)",
+                             "fusion layer")}
+K2_LAYERS = {"speech": ("layer 1", "layer 0"), "late_fusion": ("fusion layer",)}
+
+
+def profile_train_phase(dev, pipeline: str = "speech") -> None:
     """Where a train step's time goes at B=32, T=1900: CUDA-event times of
     the forward, the backward and the optimizer tail of one step (the
     step's own functions, called in its order), and within them of each
     kernel and GEMM; the log-softmax backward at the step's shape on its
     own; the host-clock wall of the real step; the device's idle share of
-    a profiled step (device rows only)."""
+    a profiled step (device rows only). ``pipeline``: speech, or late
+    fusion (its frozen encoders' K1 in the forward, K2 for the fusion
+    layer alone)."""
     from mgr_tpu_torch.core import prng
     from mgr_tpu_torch.core.config import get_preset
     from mgr_tpu_torch.models.zoo import build_model
     from mgr_tpu_torch.train import optimizer as opt_lib
     from mgr_tpu_torch.train import step as step_lib
 
-    cfg = get_preset("speech")
+    cfg = get_preset(pipeline)
     B = cfg.batch_size
-    feats, labels, lab_len, in_len = _speech_corpus(cfg, B, SEED + 8)
-    batch = {"inputs": feats, "labels": labels, "input_length": in_len, "label_length": lab_len}
+    corpus = _speech_corpus if pipeline == "speech" else _two_stream_corpus
+    feats, labels, lab_len, in_len = corpus(cfg, B, SEED + 8)
+    batch = {"labels": labels, "input_length": in_len, "label_length": lab_len,
+             **({"inputs": feats} if pipeline == "speech" else
+                {"inputs": feats[0], "inputs2": feats[1]})}
     model = build_model(cfg, seed=SEED, device=dev)
     state = step_lib.create_train_state(model)
     tx = opt_lib.keras_adam(cfg.optimizer)
@@ -1321,9 +1623,9 @@ def profile_train_phase(dev) -> None:
 
     def one_step(i):
         marks = []
-        tb = {k: step_lib.to_device(batch[k], dev) for k in step_lib.BATCH_KEYS}
+        tb = step_lib.batch_to_device(batch, dev)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with timed_calls(marks):
+        with timed_calls(marks, cfg.nb_classes):
             for p in state.params.values():
                 p.grad = None
             ev[0].record()
@@ -1333,7 +1635,8 @@ def profile_train_phase(dev) -> None:
                 ev[1].record()
                 loss.backward()
             ev[2].record()
-            grads = {k: p.grad for k, p in state.params.items()}
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in state.params.items()}  # frozen: no .grad, as the step
             step_lib._apply_updates(model, state, tx, loss.detach(), grads, 1.0)
             ev[3].record()
         torch.cuda.synchronize()
@@ -1341,8 +1644,8 @@ def profile_train_phase(dev) -> None:
                "backward (total)": ev[1].elapsed_time(ev[2]),
                "optimizer tail (clip, Adam, maxnorm, grad norm)": ev[2].elapsed_time(ev[3])}
         for label, n, start, end in marks:
-            name = f"{label}, layer {n if label == 'K1' else 1 - n}" \
-                if label in ("K1", "K2") else label
+            layers = {"K1": K1_LAYERS, "K2": K2_LAYERS}.get(label)
+            name = f"{label}, {layers[pipeline][n]}" if layers else label
             out[name] = out.get(name, 0.0) + start.elapsed_time(end)
         return out
 
@@ -1370,7 +1673,7 @@ def profile_train_phase(dev) -> None:
         torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
     dev_us = _device_us(prof)
-    phase("profile_train", pipeline="speech", B=B, T=cfg.maxlen,
+    phase("profile_train", pipeline=pipeline, B=B, T=cfg.maxlen,
           step_wall_ms_median=float(np.median(walls)), n=len(walls), layers_ms=layers_ms,
           profiled_wall_ms=prof_wall_us / 1e3, device_ms=dev_us / 1e3,
           idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None)
@@ -1380,7 +1683,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print where a decode step's time goes (B=1, 32, 128) "
-                             "and a train step's (B=32)")
+                             "and a train step's (B=32; speech and late fusion)")
     args = parser.parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
@@ -1391,17 +1694,22 @@ def main() -> int:
     batch_major = bm_path_phase(dev)
     serving = slice_phase(dev)
     training = train_phase(dev)
+    fusion_shapes = fusion_kernels_phase(dev)
+    fusion = fusion_phase(dev)
     mesh = mesh_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
+        profile_train_phase(dev, "late_fusion")
     from mgr_tpu_torch.ops import dispatch
 
     replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,
                 "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151, "lstm_scan_fwd": 67,
                 "lstm_scan_bwd": 164}
     # launches: K1-K4 from the training path (the one-process main path),
-    # with the serving path's counts of K1 and K3 beside them; K5a/K5b from
+    # with the serving path's counts of K1 and K3 and the fusion path's
+    # (both families' fit, decode and evaluate) beside them, and each
+    # one's measurements at the fusion shapes; K5a/K5b from
     # rank 0 of the 2x2 mesh's train and eval step (the mesh path); K6a/K6b
     # from the batch-major layer path.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
@@ -1411,6 +1719,8 @@ def main() -> int:
          "replaces": f"mgr_tpu/ops/pallas_kernels.py:{replaces[name]}",
          "launches": paths.get(name.rsplit("_", 1)[0], training)[name],
          **({"launches_serving": serving[name]} if name in serving else {}),
+         **({"launches_fusion": fusion[name], "at_fusion_shape": fusion_shapes[name]}
+            if name in fusion_shapes else {}),
          **measured[name]}
         for name in KERNELS
     ]

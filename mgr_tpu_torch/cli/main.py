@@ -1,7 +1,12 @@
-"""CLI of the port: the train and serving commands of
-``mgr_tpu/cli/main.py`` (``:128-170``, ``:203-344``), with the same flags.
+"""CLI of the port: the train, curriculum and serving commands of
+``mgr_tpu/cli/main.py`` (``:101-344``), with the same flags, for the
+speech, skeletal, early-fusion and late-fusion families.
 
     python -m mgr_tpu_torch.cli.main train speech --data-dir ... --labels ... --workdir runs
+    python -m mgr_tpu_torch.cli.main train early_fusion --audio-csv ... --skeletal-csv ...
+    python -m mgr_tpu_torch.cli.main train late_fusion --audio-dir ... --skeletal-csv ... --labels ...
+    python -m mgr_tpu_torch.cli.main curriculum --audio-dir ... --audio-labels ... \
+        --skeletal-csv ... --labels ... --workdir runs
     python -m mgr_tpu_torch.cli.main infer speech utt.csv --workdir runs
     python -m mgr_tpu_torch.cli.main decode speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main evaluate speech --workdir runs --data-dir ... --labels ...
@@ -9,10 +14,14 @@
 
 A workdir holds ``<pipeline>_config.json`` and
 ``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``);
-``train`` writes them. The model runs on ``--device``: ``cuda`` (the
-default: the first card, through the kernels) or ``cpu`` (through their
-plain versions), and a command asked for ``cuda`` on a host without a
-card fails; it never carries on on the CPU.
+``train`` writes them. ``train late_fusion`` grafts the best speech and
+skeletal slots of its workdir into the fusion model's frozen encoders
+(unless ``--from-scratch``), and ``decode``/``evaluate late_fusion``
+build the model through that graft, as the JAX CLI does; ``curriculum``
+trains the three stages in one workdir. The model runs on ``--device``:
+``cuda`` (the default: the first card, through the kernels) or ``cpu``
+(through their plain versions), and a command asked for ``cuda`` on a
+host without a card fails; it never carries on on the CPU.
 
 ``train --mesh DATAxMODEL`` trains over a mesh of ranks (pure data
 parallelism, or data parallelism x direction-sharded tensor parallelism
@@ -22,9 +31,11 @@ with MODEL = 2), one process per rank, started by torchrun:
 
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
 on the CPU over gloo; rank 0 writes the workdir and prints the result.
-Only the speech and skeletal families are ported. The JAX CLI's
-``decode``/``evaluate --mesh``, ``--async-checkpoints``, ``--trace-dir``,
-``--debug-nans`` and ``--cache-dir`` wait with ROADMAP.md items 8 and 12.
+The rgb family is not ported. Not ported yet either (ROADMAP.md 'Modules
+to port'): the fusion families and ``curriculum`` under ``--mesh`` and
+``decode``/``evaluate --mesh`` ('The mesh path's remainder');
+``--async-checkpoints``, ``--trace-dir``, ``--debug-nans`` and
+``--cache-dir`` ('fit's remaining knobs and the train CLI's flags').
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ import sys
 from typing import Optional
 
 PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
+FUSION = ("early_fusion", "late_fusion")
+MESH_ITEM = "ROADMAP.md 'Modules to port', 'The mesh path's remainder'"
 
 
 def _device(args):
@@ -50,11 +63,19 @@ def _device(args):
 
 
 def _load_model(args):
+    """The workdir's config and its ``--slot`` parameters in the model;
+    late fusion built through the graft of the workdir's encoders, as the
+    JAX CLI builds it (``mgr_tpu/cli/main.py:213-216``)."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.train.curriculum import build_fusion_with_pretrained
 
     cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
-    model = build_model(cfg, device=_device(args))
+    dev = _device(args)
+    if args.pipeline == "late_fusion":
+        model = build_fusion_with_pretrained(args.workdir, cfg, device=dev)
+    else:
+        model = build_model(cfg, device=dev)
     return cfg, ckpt_lib.load_params(args.workdir, args.pipeline, model, slot=args.slot)
 
 
@@ -103,6 +124,9 @@ def _mesh_for(cfg, args, dev):
     n = cfg.mesh.num_devices
     if n <= 1:
         return None
+    if cfg.name in FUSION:
+        raise SystemExit(f"--mesh {args.mesh}: {cfg.name} does not run on a mesh yet "
+                         f"({MESH_ITEM})")
     sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
     world = os.environ.get("WORLD_SIZE")
     if world is None or int(world) != n:
@@ -116,13 +140,19 @@ def _mesh_for(cfg, args, dev):
 
 def cmd_train(args) -> int:
     from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.train.curriculum import build_fusion_with_pretrained
     from mgr_tpu_torch.train.loop import fit
 
     cfg = _config_for(args, args.pipeline)
     dev = _device(args)
     mesh = _mesh_for(cfg, args, dev)
     data = _build_dataset(args.pipeline, cfg, args, mode="train")
-    model = build_model(cfg, device=dev if mesh is None else mesh.device)
+    if args.pipeline == "late_fusion" and not args.from_scratch:
+        # The graft is the starting point; --resume then restores the
+        # latest slot over it, as the JAX CLI's resume does.
+        model = build_fusion_with_pretrained(args.workdir, cfg, device=dev)
+    else:
+        model = build_model(cfg, device=dev if mesh is None else mesh.device)
     res = fit(model, data, workdir=args.workdir, resume=args.resume,
               epochs=args.epochs, checkpoint_every=args.checkpoint_every,
               monitor=args.monitor, mesh=mesh)
@@ -139,6 +169,28 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_curriculum(args) -> int:
+    """speech -> skeletal -> late fusion in one workdir
+    (``mgr_tpu/cli/main.py:173-200``)."""
+    from mgr_tpu_torch.data import datasets
+    from mgr_tpu_torch.train.curriculum import run_curriculum
+
+    if args.mesh:
+        raise SystemExit(f"curriculum --mesh: the curriculum does not run on a mesh yet "
+                         f"({MESH_ITEM})")
+    cfgs = {name: _config_for(args, name) for name in ("speech", "skeletal", "late_fusion")}
+    dev = _device(args)
+    speech = datasets.build_audio_dataset(args.audio_dir, args.audio_labels, cfgs["speech"])
+    skeletal = datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfgs["skeletal"])
+    fusion = datasets.build_late_fusion_dataset(args.audio_dir, args.skeletal_csv, args.labels,
+                                                cfgs["late_fusion"])
+    results = run_curriculum(speech, skeletal, fusion, args.workdir, configs=cfgs,
+                             epochs=args.epochs, device=dev)
+    print(json.dumps({k: {"best_val_loss": v.best_val_loss, "epochs": v.epochs_run}
+                      for k, v in results.items()}))
+    return 0
+
+
 def _build_dataset(name: str, cfg, args, mode: str):
     from mgr_tpu_torch.data import datasets
 
@@ -146,7 +198,14 @@ def _build_dataset(name: str, cfg, args, mode: str):
         return datasets.build_audio_dataset(args.data_dir, args.labels, cfg, mode=mode)
     if name == "skeletal":
         return datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfg, mode=mode)
-    raise SystemExit(f"{name}: only the speech and skeletal families are ported")
+    if name == "early_fusion":
+        return datasets.build_early_fusion_dataset(args.audio_csv, args.skeletal_csv, cfg,
+                                                   mode=mode)
+    if name == "late_fusion":
+        return datasets.build_late_fusion_dataset(args.audio_dir, args.skeletal_csv,
+                                                  args.labels, cfg, mode=mode)
+    raise SystemExit(f"{name}: the rgb family is not ported yet (ROADMAP.md 'Modules to "
+                     f"port', 'The rgb family')")
 
 
 def cmd_decode(args) -> int:
@@ -157,13 +216,13 @@ def cmd_decode(args) -> int:
     dec = Decoder.for_model(model, args.pipeline)
     if args.beam and args.beam > 1:
         from mgr_tpu_torch.decode.beam import beam_decode_batch
-        from mgr_tpu_torch.train.step import make_predict_step
+        from mgr_tpu_torch.train.step import batch_inputs, make_predict_step
 
         spec = DECODE_SPECS[args.pipeline]
         predict = make_predict_step(model)
         results = []
         for ids, batch in data.epoch(cfg.batch_size, train=False):
-            probs = predict(batch["inputs"]).cpu().numpy()
+            probs = predict(batch_inputs(batch)).cpu().numpy()
             lengths = batch["input_length"] if args.true_lengths else None
             seqs = beam_decode_batch(probs, lengths, beam_width=args.beam,
                                      trim_frames=spec.trim_frames)
@@ -235,6 +294,31 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
                         "card) or cpu")
 
 
+def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--workdir", default="runs")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.add_argument("--true-lengths", action="store_true",
+                   help="mask CTC to true sequence lengths instead of the "
+                        "reference's padded-length convention")
+    p.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"])
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="gradient-accumulation microbatches per step")
+    p.add_argument("--lr", type=float, default=None,
+                   help="override the preset learning rate")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="write checkpoints every N epochs (the best state "
+                        "is kept in memory and still flushed)")
+    p.add_argument("--monitor", choices=("val", "train"), default="val",
+                   help="loss that drives the best checkpoint and early stopping")
+    p.add_argument("--mesh", default=None,
+                   help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
+                        "one process per rank under torchrun (speech and skeletal)")
+    _add_device_flag(p)
+
+
 def _add_corpus_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-dir")
     p.add_argument("--labels")
@@ -253,29 +337,21 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--data-dir", help="per-file audio CSV dir")
     pt.add_argument("--labels", help="Id,Sequence label CSV")
     pt.add_argument("--skeletal-csv", help="monolithic skeletal CSV")
-    pt.add_argument("--workdir", default="runs")
-    pt.add_argument("--epochs", type=int, default=None)
-    pt.add_argument("--batch-size", type=int, default=None)
-    pt.add_argument("--resume", action="store_true",
-                    help="continue from the latest checkpoint")
-    pt.add_argument("--true-lengths", action="store_true",
-                    help="mask CTC to true sequence lengths instead of the "
-                         "reference's padded-length convention")
-    pt.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"])
-    pt.add_argument("--accum-steps", type=int, default=None,
-                    help="gradient-accumulation microbatches per step")
-    pt.add_argument("--lr", type=float, default=None,
-                    help="override the preset learning rate")
-    pt.add_argument("--checkpoint-every", type=int, default=1,
-                    help="write checkpoints every N epochs (the best state "
-                         "is kept in memory and still flushed)")
-    pt.add_argument("--monitor", choices=("val", "train"), default="val",
-                    help="loss that drives the best checkpoint and early stopping")
-    pt.add_argument("--mesh", default=None,
-                    help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
-                         "one process per rank under torchrun")
-    _add_device_flag(pt)
+    pt.add_argument("--audio-csv", help="monolithic labelled audio CSV (early fusion)")
+    pt.add_argument("--audio-dir", help="per-file audio CSV dir (late fusion)")
+    pt.add_argument("--from-scratch", action="store_true",
+                    help="late fusion: start from random encoders, not the workdir's "
+                         "trained speech and skeletal ones")
+    _add_common_train_flags(pt)
     pt.set_defaults(fn=cmd_train)
+
+    pc = sub.add_parser("curriculum", help="3-stage speech -> skeletal -> late fusion")
+    pc.add_argument("--audio-dir", required=True)
+    pc.add_argument("--audio-labels", required=True)
+    pc.add_argument("--skeletal-csv", required=True)
+    pc.add_argument("--labels", required=True)
+    _add_common_train_flags(pc)
+    pc.set_defaults(fn=cmd_curriculum)
 
     pd = sub.add_parser("decode", help="decode a trained pipeline to MLF")
     pd.add_argument("pipeline", choices=PIPELINES)

@@ -16,8 +16,8 @@ alone, written before the slot's ``params.pt``: a save killed between the
 two leaves a slot that resumes wholly from the new save and a complete
 ``params.pt`` of the one before (decode and evaluate read ``params.pt``),
 so preemption mid-save never mixes two saves. Reading the JAX package's
-msgpack checkpoints is not ported yet (ROADMAP.md 'Modules to port',
-item 3); until then, the weight bridge (``mgr_tpu_torch.bridge``) moves
+msgpack checkpoints is not ported yet (ROADMAP.md 'Modules to port', 'A
+msgpack reader for JAX checkpoints'); until then, the weight bridge (``mgr_tpu_torch.bridge``) moves
 weights across from numpy.
 """
 
@@ -64,12 +64,16 @@ def save_params(workdir: str, stamp: str, model: nn.Module, *,
     return _atomic_save(state, params_path(workdir, stamp, slot))
 
 
+def read_params(workdir: str, stamp: str, *, slot: str = "best") -> dict:
+    """A slot's parameters as a state dict on the CPU."""
+    return torch.load(params_path(workdir, stamp, slot), map_location="cpu",
+                      weights_only=True)
+
+
 def load_params(workdir: str, stamp: str, model: nn.Module, *,
                 slot: str = "best") -> nn.Module:
     """Load a slot into ``model`` (same config: keys and shapes match)."""
-    state = torch.load(params_path(workdir, stamp, slot),
-                       map_location="cpu", weights_only=True)
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(read_params(workdir, stamp, slot=slot), strict=True)
     return model
 
 

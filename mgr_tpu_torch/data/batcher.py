@@ -62,11 +62,13 @@ def prepare_labels(
 
 class Batcher:
     """Slices padded (N, T, F) features and their labels into batches of
-    the train or validation split."""
+    the train or validation split. ``features`` may be a pair of such
+    arrays (the fusion families' two streams): a batch then carries the
+    second as ``inputs2``."""
 
     def __init__(
         self,
-        features: np.ndarray,
+        features: np.ndarray | Tuple[np.ndarray, np.ndarray],
         labels: np.ndarray,
         label_lengths: np.ndarray,
         input_lengths: np.ndarray,
@@ -98,9 +100,14 @@ class Batcher:
         for i in range(0, len(ids) - batch_size + 1, batch_size):
             chunk = ids[i : i + batch_size]
             rows = [self._row_of[f] for f in chunk]
-            yield chunk, {
-                "inputs": self.features[rows],
+            batch = {
                 "labels": self.labels[rows],
                 "input_length": self.input_lengths[rows],
                 "label_length": self.label_lengths[rows],
             }
+            if isinstance(self.features, tuple):
+                batch["inputs"] = self.features[0][rows]
+                batch["inputs2"] = self.features[1][rows]
+            else:
+                batch["inputs"] = self.features[rows]
+            yield chunk, batch

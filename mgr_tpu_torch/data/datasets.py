@@ -1,5 +1,7 @@
 """Corpus builders: on-disk corpus -> padded arrays in a ``Batcher``
-(``mgr_tpu/data/datasets.py``), for the speech and skeletal pipelines.
+(``mgr_tpu/data/datasets.py``), for the speech, skeletal, early-fusion and
+late-fusion pipelines. A fusion corpus holds two streams, audio then
+skeletal, padded to the same length.
 
 Modes: ``train`` splits into train/val with the seeded reference split;
 ``val`` puts every file in the validation list; ``final`` is ``val``
@@ -9,7 +11,7 @@ for unlabelled data (blank labels).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,10 +49,18 @@ def _assemble(
     *,
     expand_words: bool,
     mode: str,
+    second_feats_of: Optional[Dict[int, np.ndarray]] = None,
 ) -> Batcher:
+    """Pads every file into (N, maxlen, F) arrays; ``second_feats_of`` adds
+    a second stream, padded alike (never downsampled). The input length
+    comes from the first stream's true length."""
     N = len(ids)
     F = next(iter(feats_of.values())).shape[-1]
     X = np.zeros((N, cfg.maxlen, F), np.float32)
+    X2 = None
+    if second_feats_of is not None:
+        F2 = next(iter(second_feats_of.values())).shape[-1]
+        X2 = np.zeros((N, cfg.maxlen, F2), np.float32)
     labels = np.zeros((N, cfg.max_label_len), np.int32)
     lab_len = np.zeros((N,), np.int32)
     in_len = np.zeros((N,), np.int32)
@@ -60,13 +70,16 @@ def _assemble(
         if cfg.downsample > 1:
             x = x[:: cfg.downsample]
         X[i], true_len = pad_or_truncate(x, cfg.maxlen)
+        if X2 is not None:
+            X2[i], _ = pad_or_truncate(second_feats_of[fid], cfg.maxlen)
         seq = [] if mode == "final" else labels_map.get(fid, [])
         labels[i], lab_len[i] = prepare_labels(
             seq, cfg.max_label_len, blank, expand_words=expand_words
         )
         in_len[i] = _input_length(cfg, true_len)
     train_ids, val_ids = _split_ids(ids, cfg, mode)
-    return Batcher(X, labels, lab_len, in_len, ids, train_ids, val_ids)
+    features = (X, X2) if X2 is not None else X
+    return Batcher(features, labels, lab_len, in_len, ids, train_ids, val_ids)
 
 
 def build_audio_dataset(
@@ -91,3 +104,47 @@ def build_skeletal_dataset(
     feats = formats.load_skeletal_csv(skeletal_csv, normalize=True)
     labels_map = formats.load_label_csv(label_file) if mode != "final" else {}
     return _assemble(cfg, list(feats), feats, labels_map, expand_words=False, mode=mode)
+
+
+def build_early_fusion_dataset(
+    audio_csv: str, skeletal_csv: str, cfg: PipelineConfig, mode: str = "train",
+) -> Batcher:
+    """Early fusion: the monolithic labelled audio CSV (z-scored,
+    downsampled by ``cfg.downsample``) and the z-scored skeletal CSV, over
+    the files both hold, in the audio CSV's order. A file's labels are its
+    non-zero frame labels, each once, in order of first appearance."""
+    audio = formats.load_monolithic_audio_csv(audio_csv, normalize=True)
+    skel = formats.load_skeletal_csv(skeletal_csv, normalize=True)
+    ids = [fid for fid in audio if fid in skel]
+    labels_map = {
+        fid: list(dict.fromkeys(int(v) for v in audio[fid][1] if v != 0)) for fid in ids
+    }
+    return _fusion(cfg, ids, {fid: audio[fid][0] for fid in ids}, skel, labels_map, mode)
+
+
+def build_late_fusion_dataset(
+    audio_dir: str, skeletal_csv: str, label_file: str, cfg: PipelineConfig,
+    mode: str = "train",
+) -> Batcher:
+    """Late fusion: the per-file audio CSVs (downsampled by
+    ``cfg.downsample``, NOT normalized) and the z-scored skeletal CSV, over
+    the files both hold, in sorted audio id order; class-id labels."""
+    skel = formats.load_skeletal_csv(skeletal_csv, normalize=True)
+    ids = [fid for fid in formats.list_audio_files(audio_dir) if fid in skel]
+    feats = {
+        fid: formats.load_audio_file_csv(os.path.join(audio_dir, f"audio_{fid}.csv"))
+        for fid in ids
+    }
+    labels_map = formats.load_label_csv(label_file) if mode != "final" else {}
+    return _fusion(cfg, ids, feats, skel, labels_map, mode)
+
+
+def _fusion(cfg: PipelineConfig, ids: List[int], audio: Dict[int, np.ndarray],
+            skel: Dict[int, np.ndarray], labels_map: Dict[int, List[int]],
+            mode: str) -> Batcher:
+    """The two streams assembled: the audio downsampled here, then
+    ``_assemble`` with ``downsample=1`` so that the skeletal stream (already
+    at the audio's downsampled rate) is left as it is."""
+    audio = {fid: x[:: cfg.downsample] for fid, x in audio.items()}
+    return _assemble(cfg.replace(downsample=1), ids, audio, labels_map,
+                     expand_words=False, mode=mode, second_feats_of=skel)

@@ -4,6 +4,8 @@ with the standard ``csv`` module and numpy in place of pandas:
   * per-file audio CSVs ``audio_<id>.csv``: a header row; 39 MFCC
     columns, plus ``file_number`` and optionally '39'/'40', which are
     dropped.
+  * the monolithic labelled audio CSV (early fusion): no header; columns
+    0-38 the features, 39 the file number, 40 the frame's label.
   * the monolithic skeletal CSV: a header; the 20 kinematic feature
     columns by name and ``file_number``.
   * label CSVs: header ``Id,Sequence``, Sequence a space-separated
@@ -77,6 +79,29 @@ def load_audio_file_csv(path: str | os.PathLike) -> np.ndarray:
     return x
 
 
+def _by_file(file_nums: np.ndarray) -> List[int]:
+    """File numbers in order of first appearance, once each."""
+    return [int(fid) for fid in dict.fromkeys(file_nums.tolist())]
+
+
+def load_monolithic_audio_csv(
+    path: str | os.PathLike, normalize: bool = True
+) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    """Headerless labelled audio CSV -> {file_id: (feats (T, 39) float32,
+    frame labels (T,) int32)} in order of first appearance, the features
+    z-scored over the whole corpus before the split by file."""
+    table = np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
+    # Column-major, as a pandas frame's block: the z-score then sums each
+    # column in the same order.
+    feats = np.asfortranarray(table[:, :NUM_AUDIO_FEATS], dtype=np.float32)
+    if normalize:
+        feats = zscore(feats)
+    file_nums = table[:, NUM_AUDIO_FEATS].astype(np.int64)
+    frame_labels = table[:, NUM_AUDIO_FEATS + 1].astype(np.int32)
+    return {fid: (feats[file_nums == fid], frame_labels[file_nums == fid])
+            for fid in _by_file(file_nums)}
+
+
 def load_skeletal_csv(
     path: str | os.PathLike, normalize: bool = True
 ) -> Dict[int, np.ndarray]:
@@ -90,5 +115,4 @@ def load_skeletal_csv(
     if normalize:
         feats = zscore(feats)
     file_nums = table[:, -1].astype(np.int64)
-    return {int(fid): feats[file_nums == fid]
-            for fid in dict.fromkeys(file_nums.tolist())}
+    return {fid: feats[file_nums == fid] for fid in _by_file(file_nums)}

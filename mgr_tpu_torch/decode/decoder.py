@@ -22,7 +22,7 @@ import torch
 from mgr_tpu_torch.data import vocab as vocab_lib
 from mgr_tpu_torch.decode import mlf as mlf_lib
 from mgr_tpu_torch.ops.decoding import best_path_decode, emitted_sequences
-from mgr_tpu_torch.train.step import make_decode_step
+from mgr_tpu_torch.train.step import batch_inputs, make_decode_step
 
 
 @dataclass(frozen=True)
@@ -97,13 +97,14 @@ class Decoder:
         *,
         use_lengths: bool = False,
     ) -> List[Tuple[int, List[str]]]:
-        """batches: iterable of (file_ids, batch_dict). Returns
+        """batches: iterable of (file_ids, batch_dict); a batch with
+        ``inputs2`` hands the pair to the decode step. Returns
         [(file_id, tokens)] in input order. ``use_lengths`` masks decoding
         to the true sequence lengths instead of the padded length."""
         results: List[Tuple[int, List[str]]] = []
         for file_ids, batch in batches:
             lengths = np.asarray(batch["input_length"]) if use_lengths else None
-            best, emit = self.decode_fn(batch["inputs"], lengths)
+            best, emit = self.decode_fn(batch_inputs(batch), lengths)
             seqs = [
                 vocab_lib.ids_to_tokens(s, self.spec.vocab)
                 for s in emitted_sequences(best, emit)

@@ -1,51 +1,95 @@
 """The pipeline model families (``mgr_tpu/models/zoo.py``).
 
-Ported so far: the uni-modal family, speech and skeletal
-(``_build_unimodal``): encoder, then the dense head. ``apply_tm`` maps
-(B, T, F) inputs to (T, B, C) logits, keeping every large tensor
-time-major as the kernels want; ``forward`` is its transpose, the (B, T,
-C) logits of the JAX ``ModelDef.apply``; with ``train=True`` and a
-``core.prng`` key they draw noise and dropout on the JAX package's fold
-paths. Parameters are trainable and registered so that ``state_dict()``
-keys are the JAX pytree paths joined with dots.
+Ported: the uni-modal family, speech and skeletal (``_build_unimodal``):
+encoder, then the dense head; early fusion (``_build_early_fusion``):
+noise on each stream, a channel concat, the encoder, the head; late
+fusion (``_build_late_fusion``): two encoders built from the source
+pipelines' configs, re-applied to their streams, a concat, a BiLSTM of
+width ``fusion_hidden`` and the head. ``apply_tm`` maps (B, T, F) inputs
+(a pair of them for the fusion families) to (T, B, C) logits, keeping
+every large tensor time-major as the kernels want; ``forward`` is its
+transpose, the (B, T, C) logits of the JAX ``ModelDef.apply``; with
+``train=True`` and a ``core.prng`` key they draw noise and dropout on the
+JAX package's fold paths. Parameters are registered so that
+``state_dict()`` keys are the JAX pytree paths joined with dots.
+
+``trainable()`` marks what the optimizer updates. Late fusion freezes its
+grafted encoders unless ``finetune_encoders``; a frozen encoder runs
+outside autograd, so a train step computes no backward through it, as
+XLA compiles the JAX step whose frozen gradients are replaced by zeros.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from mgr_tpu_torch.core import prng
-from mgr_tpu_torch.core.config import PipelineConfig
+from mgr_tpu_torch.core.config import PipelineConfig, get_preset
 from mgr_tpu_torch.models import layers
-from mgr_tpu_torch.models.encoder import Encoder
+from mgr_tpu_torch.models.encoder import BiLSTM, Encoder
+from mgr_tpu_torch.ops import lstm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 _NOT_PORTED = {
     "rgb": "the rgb family (CNN frontend) is not ported yet: ROADMAP.md "
-           "'Modules to port', item 10",
-    "early_fusion": "the early-fusion family is not ported yet: ROADMAP.md "
-                    "'Modules to port', item 10",
-    "late_fusion": "the late-fusion family is not ported yet: ROADMAP.md "
-                   "'Modules to port', item 10",
+           "'Modules to port', 'The rgb family'",
 }
 
+Inputs = torch.Tensor | Tuple[torch.Tensor, torch.Tensor]
 
-class UnimodalModel(nn.Module):
-    """Speech / skeletal: residual BLSTM encoder -> Dense(nb_classes)."""
 
-    def __init__(self, cfg: PipelineConfig, generator: torch.Generator):
+def _head(generator: torch.Generator, in_dim: int, cfg: PipelineConfig) -> layers.Dense:
+    head = layers.init_dense(generator, in_dim, cfg.nb_classes)
+    if cfg.head_blank_bias:
+        head["b"][cfg.nb_classes - 1] = cfg.head_blank_bias
+    return layers.Dense(head)
+
+
+def _sub(rng: Optional[prng.Key], name: str) -> Optional[prng.Key]:
+    return None if rng is None else prng.fold_name(rng, name)
+
+
+class _Model(nn.Module):
+    """What every family shares: the config, the compute dtype, the head
+    with its dropout, ``forward`` and ``trainable``."""
+
+    two_streams = False
+
+    def __init__(self, cfg: PipelineConfig):
         super().__init__()
         self.config = cfg
         self.compute_dtype = DTYPES[cfg.compute_dtype]
+
+    def _head_apply(self, h: torch.Tensor, rate: float, *, train: bool,
+                    rng: Optional[prng.Key]) -> torch.Tensor:
+        """Dropout from ``fold_name(rng, "head_drop")``, then the head: f32
+        logits (``mgr_tpu/models/zoo.py:65-70``)."""
+        h = layers.dropout(h, rate, _sub(rng, "head_drop"), train)
+        return self.head(h, self.compute_dtype)
+
+    def forward(self, x: Inputs, *, train: bool = False,
+                rng: Optional[prng.Key] = None) -> torch.Tensor:
+        """(B, T, F) inputs -> (B, T, C) f32 logits (``ModelDef.apply``)."""
+        return self.apply_tm(x, train=train, rng=rng).transpose(0, 1)
+
+    def trainable(self) -> Dict[str, bool]:
+        """Which parameters the optimizer updates, by ``state_dict`` key
+        (``_all_trainable``: every leaf)."""
+        return {name: True for name, _ in self.named_parameters()}
+
+
+class UnimodalModel(_Model):
+    """Speech / skeletal: residual BLSTM encoder -> Dense(nb_classes)."""
+
+    def __init__(self, cfg: PipelineConfig, generator: torch.Generator):
+        super().__init__(cfg)
         self.encoder = Encoder(cfg.num_feats, cfg.encoder, generator)
-        head = layers.init_dense(generator, 2 * cfg.encoder.hidden, cfg.nb_classes)
-        if cfg.head_blank_bias:
-            head["b"][cfg.nb_classes - 1] = cfg.head_blank_bias
-        self.head = layers.Dense(head)
+        self.head = _head(generator, 2 * cfg.encoder.hidden, cfg)
 
     def apply_tm(self, x: torch.Tensor, *, train: bool = False,
                  rng: Optional[prng.Key] = None) -> torch.Tensor:
@@ -56,43 +100,120 @@ class UnimodalModel(nn.Module):
             x.transpose(0, 1), train=train, rng=rng,
             compute_dtype=self.compute_dtype,
         )
-        h = layers.dropout(
-            h, self.config.encoder.output_dropout,
-            None if rng is None else prng.fold_name(rng, "head_drop"), train,
-        )
-        return self.head(h, self.compute_dtype)
+        return self._head_apply(h, self.config.encoder.output_dropout, train=train, rng=rng)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                rng: Optional[prng.Key] = None) -> torch.Tensor:
-        """(B, T, F) inputs -> (B, T, C) f32 logits (``ModelDef.apply``)."""
-        return self.apply_tm(x, train=train, rng=rng).transpose(0, 1)
+
+class EarlyFusionModel(_Model):
+    """Early fusion: noise on each stream, a channel concat (39 + 20), the
+    residual BLSTM encoder, Dense(nb_classes) (``_build_early_fusion``,
+    ``mgr_tpu/models/zoo.py:157-198``)."""
+
+    two_streams = True
+
+    def __init__(self, cfg: PipelineConfig, generator: torch.Generator):
+        super().__init__(cfg)
+        self.encoder = Encoder(cfg.num_feats + cfg.second_stream_feats, cfg.encoder, generator)
+        self.head = _head(generator, 2 * cfg.encoder.hidden, cfg)
+
+    def apply_tm(self, inputs: Tuple[torch.Tensor, torch.Tensor], *, train: bool = False,
+                 rng: Optional[prng.Key] = None) -> torch.Tensor:
+        """(B, T, F_a) and (B, T, F_s) inputs -> (T, B, C) f32 logits. Each
+        stream gets its own noise (the config's ``encoder.input_noise`` from
+        ``"noise_a"``, ``second_stream_noise`` from ``"noise_s"``) BEFORE the
+        concat, and the encoder adds none of its own."""
+        cfg = self.config
+        x_a, x_s = inputs
+        x_a = layers.gaussian_noise(x_a, cfg.encoder.input_noise, _sub(rng, "noise_a"), train)
+        x_s = layers.gaussian_noise(x_s, cfg.second_stream_noise, _sub(rng, "noise_s"), train)
+        x = torch.cat([x_a, x_s], dim=2)
+        h = self.encoder.apply_tm(
+            x.transpose(0, 1), train=train, rng=rng,
+            compute_dtype=self.compute_dtype, noise_override=0.0,
+        )
+        return self._head_apply(h, cfg.encoder.output_dropout, train=train, rng=rng)
+
+
+class LateFusionModel(_Model):
+    """Late fusion: submodules ``speech`` and ``skeletal`` (encoders built
+    from the source pipelines' configs, each keeping its own dropout
+    rates), ``fusion`` (one BiLSTM of width ``fusion_hidden`` over the
+    concat of their residual streams) and ``head``: the JAX pytree's keys
+    (``_build_late_fusion``, ``mgr_tpu/models/zoo.py:208-285``)."""
+
+    two_streams = True
+
+    def __init__(self, cfg: PipelineConfig, generator: torch.Generator,
+                 source_configs: Dict[str, PipelineConfig]):
+        super().__init__(cfg)
+        sp, sk = source_configs["speech"], source_configs["skeletal"]
+        self.source_configs = {"speech": sp, "skeletal": sk}
+        self.speech = Encoder(sp.num_feats, sp.encoder, generator)
+        self.skeletal = Encoder(sk.num_feats, sk.encoder, generator)
+        concat = 2 * sp.encoder.hidden + 2 * sk.encoder.hidden
+        self.fusion = BiLSTM(lstm.init_bilstm_params(generator, concat, cfg.fusion_hidden))
+        self.head = _head(generator, 2 * cfg.fusion_hidden, cfg)
+
+    def _encode(self, name: str, x: torch.Tensor, noise: float, *, train: bool,
+                rng: Optional[prng.Key]) -> torch.Tensor:
+        """Encoder ``name`` re-applied time-major under ``noise``; a frozen
+        encoder outside autograd (no c streams stored, no backward)."""
+        frozen = not self.config.finetune_encoders
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            return getattr(self, name).apply_tm(
+                x.transpose(0, 1), train=train, rng=rng,
+                compute_dtype=self.compute_dtype, noise_override=noise,
+            )
+
+    def apply_tm(self, inputs: Tuple[torch.Tensor, torch.Tensor], *, train: bool = False,
+                 rng: Optional[prng.Key] = None) -> torch.Tensor:
+        """(B, T, 39) audio and (B, T, 20) skeletal inputs -> (T, B, C) f32
+        logits. The speech encoder under the config's ``encoder.input_noise``
+        with ``fold_name(rng, "enc_a")``, the skeletal one under
+        ``second_stream_noise`` with ``"enc_s"``; the fusion layer's input
+        dropout ``fusion_dropout`` from ``"fusion_drop"``; the head's
+        ``fusion_output_dropout``."""
+        cfg = self.config
+        x_a, x_s = inputs
+        res_a = self._encode("speech", x_a, cfg.encoder.input_noise, train=train,
+                             rng=_sub(rng, "enc_a"))
+        res_s = self._encode("skeletal", x_s, cfg.second_stream_noise, train=train,
+                             rng=_sub(rng, "enc_s"))
+        h = self.fusion(torch.cat([res_a, res_s], dim=-1), rng=_sub(rng, "fusion_drop"),
+                        dropout=cfg.fusion_dropout, train=train,
+                        compute_dtype=self.compute_dtype)
+        return self._head_apply(h, cfg.fusion_output_dropout, train=train, rng=rng)
 
     def trainable(self) -> Dict[str, bool]:
-        """Which parameters the optimizer updates, by ``state_dict`` key
-        (``_all_trainable``: every leaf of the uni-modal family)."""
-        return {name: True for name, _ in self.named_parameters()}
-
-
-def _build_unimodal(cfg: PipelineConfig, gen: torch.Generator) -> UnimodalModel:
-    return UnimodalModel(cfg, gen)
-
-
-_FAMILIES = {"speech": _build_unimodal, "skeletal": _build_unimodal}
+        """The grafted encoders train only with ``finetune_encoders``; the
+        fusion layer and the head always."""
+        enc = bool(self.config.finetune_encoders)
+        return {name: enc if name.split(".")[0] in ("speech", "skeletal") else True
+                for name, _ in self.named_parameters()}
 
 
 def build_model(
     cfg: PipelineConfig,
+    source_configs: Optional[Dict[str, PipelineConfig]] = None,
     *,
     seed: Optional[int] = None,
     device: torch.device | str = "cpu",
-) -> UnimodalModel:
+) -> _Model:
     """Model for ``cfg`` with weights drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` (default ``cfg.seed``), then
     moved to ``device``. The draws differ from JAX's for the same seed;
-    load weights with ``bridge.params_from_numpy`` to match a JAX model."""
+    load weights with ``bridge.load_params`` to match a JAX model. Late
+    fusion builds its encoders from ``source_configs`` (default: the
+    presets named in ``cfg.fusion_sources``)."""
     if cfg.name in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[cfg.name])
-    if cfg.name not in _FAMILIES:
-        raise KeyError(f"unknown model family {cfg.name!r}")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    return _FAMILIES[cfg.name](cfg, gen).to(device).eval()
+    if cfg.name in ("speech", "skeletal"):
+        model = UnimodalModel(cfg, gen)
+    elif cfg.name == "early_fusion":
+        model = EarlyFusionModel(cfg, gen)
+    elif cfg.name == "late_fusion":
+        sources = source_configs or {name: get_preset(name) for name in cfg.fusion_sources}
+        model = LateFusionModel(cfg, gen, sources)
+    else:
+        raise KeyError(f"unknown model family {cfg.name!r}")
+    return model.to(device).eval()

@@ -21,7 +21,8 @@ broadcast, so that early stopping and the plateau controller decide the
 same on every rank (a rank that stopped alone would hang the others at
 their next collective).
 
-Not ported yet (ROADMAP.md item 8): ``sync_every`` > 1, asynchronous
+Not ported yet (ROADMAP.md 'Modules to port', "fit's remaining knobs and
+the train CLI's flags"): ``sync_every`` > 1, asynchronous
 checkpoints, ``keep_best_state``, ``stop_below`` and the device-resident
 dataset path. fit builds its plateau controller from the config and
 restores the state on disk into that one only: a caller cannot hand in a

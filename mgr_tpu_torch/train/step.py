@@ -12,9 +12,12 @@ updated in place (one copy of the weights on the card, where JAX makes a
 new tree each step). Inputs may be numpy arrays or tensors; they are
 moved to the model's device.
 
-Batch contract (as in the JAX package): ``inputs`` (B, T, F),
-``labels`` (B, N) int -1 padded, ``input_length`` (B,) valid frames
-AFTER the CTC trim, ``label_length`` (B,).
+Batch contract (as in the JAX package): ``inputs`` (B, T, F), and for
+the fusion families the second stream ``inputs2`` (B, T, F2) (the model
+then takes the pair), ``labels`` (B, N) int -1 padded, ``input_length``
+(B,) valid frames AFTER the CTC trim, ``label_length`` (B,). The mesh
+steps take one stream only (ROADMAP.md 'Modules to port', 'The mesh path's
+remainder').
 """
 
 from __future__ import annotations
@@ -43,17 +46,43 @@ def model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def to_device(x: Any, device: torch.device) -> torch.Tensor:
+def to_device(x: Any, device: torch.device) -> Any:
+    """An array or tensor, or a tuple of them (a fusion model's two
+    streams), on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(to_device(a, device) for a in x)
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's ``BATCH_KEYS`` and, when present, ``inputs2`` on
+    ``device``."""
+    keys = BATCH_KEYS + (("inputs2",) if "inputs2" in batch else ())
+    return {k: to_device(batch[k], device) for k in keys}
+
+
+def batch_inputs(batch: Dict[str, Any]) -> Any:
+    """What the model takes: ``inputs``, or the pair (``inputs``,
+    ``inputs2``) (``_batch_inputs``, ``mgr_tpu/train/step.py:52-55``)."""
+    if "inputs2" in batch:
+        return (batch["inputs"], batch["inputs2"])
+    return batch["inputs"]
+
+
+def _refuse_two_streams_on_a_mesh(model: nn.Module, mesh) -> None:
+    if mesh is not None and getattr(model, "two_streams", False):
+        raise NotImplementedError(
+            f"{model.config.name}: the fusion families do not run on a mesh yet "
+            f"(ROADMAP.md 'Modules to port', 'The mesh path's remainder')")
 
 
 def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
                      train: bool, rng: Optional[prng.Key]) -> torch.Tensor:
     """Mean CTC loss on the time-major path: (T, B, C) logits go straight
     to the CTC kernel (``mgr_tpu/train/step.py:58-80``)."""
-    logits = model.apply_tm(batch["inputs"], train=train, rng=rng)
+    logits = model.apply_tm(batch_inputs(batch), train=train, rng=rng)
     losses = ctc_loss_from_logits(
         logits, batch["labels"], batch["input_length"], batch["label_length"],
         trim_frames=model.config.ctc.trim_frames, time_major=True,
@@ -80,11 +109,12 @@ def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], to
     (``mgr_tpu/train/step.py:323-358``); every rank returns the same
     value."""
     dev = model_device(model)
+    _refuse_two_streams_on_a_mesh(model, mesh)
 
     @torch.inference_mode()
     def step(batch: Dict[str, Any]) -> torch.Tensor:
         if mesh is None:
-            batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+            batch = batch_to_device(batch, dev)
             return _loss_from_batch(model, batch, train=False, rng=None)
         local = shard_lib.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
         local = {k: to_device(v, dev) for k, v in local.items()}
@@ -225,13 +255,14 @@ def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainSta
     replica. A mesh with a model axis above 2 or a time axis raises."""
     tx = opt_lib.keras_adam(model.config.optimizer)
     dev = model_device(model)
+    _refuse_two_streams_on_a_mesh(model, mesh)
     if mesh is not None:
         shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
 
     def step(state: TrainState, batch: Dict[str, Any], rng: Optional[prng.Key],
              lr_scale: float = 1.0):
         if mesh is None:
-            batch = {k: to_device(batch[k], dev) for k in BATCH_KEYS}
+            batch = batch_to_device(batch, dev)
             loss, grads = _loss_and_grads(model, state.params, batch, rng)
         else:
             loss, grads = mesh_loss_and_grads(model, mesh, state.params, batch, rng)
@@ -241,7 +272,8 @@ def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainSta
 
 
 def make_predict_step(model: nn.Module) -> Callable[[Any], torch.Tensor]:
-    """Returns step(inputs) -> (B, T, C) softmax probabilities."""
+    """Returns step(inputs) -> (B, T, C) softmax probabilities; ``inputs``
+    as the model takes them (the pair for a fusion model)."""
     dev = model_device(model)
 
     @torch.inference_mode()

@@ -588,3 +588,109 @@ def test_k1_k5a_k1_on_one_stream(cuda):
         assert max(float((g.float() - w).abs().max()) for g, w in zip(got, want)) <= TOL_K1
     assert float((one[0].float() - want[1]).abs().max()) <= TOL_K1
     assert torch.equal(one[0], first[1]) and all(torch.equal(a, b) for a, b in zip(first, last))
+
+
+# ---------------------------------------------------------------- fusion
+# The shapes the fusion families give the kernels: K1/K2 at H=100 (the
+# late-fusion BiLSTM: 13 eight-unit slices, the last one half empty), K3/K4
+# at the fusion presets' K=22, N=35; the frozen encoders' K1 without the c
+# store; each fusion model's train step against the plain path on the card.
+
+
+@pytest.mark.parametrize("T,B", [(40, 32), (40, 1), (40, 33)])
+def test_k1_k2_at_the_fusion_width(cuda, T, B):
+    (xp, U, _), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, 100, seed=B)
+    assert streams[0].shape == (T, B, 100) and dz[0].shape == (T, B, 4, 100)
+    assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
+        (err_h, err_dz, err_dU)
+    no_c = k1.bilstm_tm_streams(xp[0], xp[1], U)  # the frozen encoders' launch
+    assert all(torch.equal(a, b) for a, b in zip(no_c, streams[:2]))
+
+
+def test_k3_k4_at_the_fusion_classes(cuda):
+    T, K, N = 400, 22, 35
+    lp, args = _ctc_edge(np.random.default_rng(22), T, 7, K, N,
+                         [400, 390, 350, 1, 0, 400, 120], [35, 35, 20, 1, 0, 12, 35])
+    lp, args = lp.to(cuda), [a.to(cuda) for a in args]
+    got = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    want = tctc.ctc_alpha_loss_plain(lp, *args, K - 1, store_alphas=True)
+    for g, w in zip(got, want):
+        assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_K3_REL
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)))
+    rows, L = torch.arange(7, device=cuda), args[2].long()
+    g_phi = -torch.exp(want[1][-1][rows, L] + want[0])
+    g_emit = torch.where(L > 0, -torch.exp(want[2][-1][rows, (L - 1).clamp_min(0)] + want[0]),
+                         0.0)
+    seeded = (lp, *args, K - 1, want[1], want[2], g_phi, g_emit)  # as the loss seeds K4
+    d_got = k3.ctc_alpha_bwd(*seeded)
+    assert float((d_got - tctc.ctc_alpha_bwd_plain(*seeded)).abs().max()) <= TOL_K4
+    own = (lp, *args, K - 1, got[1], got[2], g_phi, g_emit)  # K3's own alphas
+    assert torch.equal(k3.ctc_alpha_bwd(*own), k3.ctc_alpha_bwd(*own))
+
+
+def _fusion_model(name, cuda, finetune=False):
+    """A fusion model at test size (T=32, encoder H=16, fusion H=100 for
+    late fusion) and a batch of both streams."""
+    enc = EncoderConfig(hidden=16)
+    if name == "early_fusion":
+        cfg = get_preset(name).replace(maxlen=32, batch_size=3, max_label_len=4, encoder=enc)
+        sources = None
+    else:
+        cfg = get_preset(name).replace(maxlen=32, batch_size=3, max_label_len=4,
+                                       finetune_encoders=finetune)
+        sources = {s: get_preset(s).replace(maxlen=32, encoder=EncoderConfig(hidden=h))
+                   for s, h in (("speech", 16), ("skeletal", 12))}
+    rng = np.random.default_rng(5)
+    batch = {
+        "inputs": rng.standard_normal((3, 32, 39)).astype(np.float32),
+        "inputs2": rng.standard_normal((3, 32, 20)).astype(np.float32),
+        "labels": np.array([[1, 2, -1, -1], [3, 3, 3, -1], [-1, -1, -1, -1]], np.int32),
+        "input_length": np.array([30, 20, 25], np.int32),
+        "label_length": np.array([2, 3, 0], np.int32),
+    }
+    model = build_model(cfg, sources, seed=2, device=cuda)
+    return model, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", ["early_fusion", "late_fusion"])
+def test_fusion_train_step_on_the_card_matches_the_plain_path(cuda, name, monkeypatch):
+    """Loss and gradients of a train-mode step through K1-K4 against the
+    same step with the plain versions on the card (same masks): loss 1e-3
+    relative, gradients 5e-2 relative Frobenius."""
+    model, batch = _fusion_model(name, cuda)
+    key = prng.fold_name(prng.root_key(3), "dropout")
+    loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), batch, key)
+    grads = {k: g.clone() for k, g in grads.items()}
+    monkeypatch.setattr(k1, "bilstm_tm_streams", lambda xp0, xp1, U, store_c=False:
+                        tlstm.bilstm_scan_tm_plain(xp0, xp1, U, store_c=store_c,
+                                                   out_dtype=torch.bfloat16))
+    monkeypatch.setattr(k1, "bilstm_tm_bwd", lambda *a: tlstm.bilstm_scan_tm_bwd_plain(*a)[:2])
+    monkeypatch.setattr(k3, "ctc_alpha_loss", tctc.ctc_alpha_loss_plain)
+    monkeypatch.setattr(k3, "ctc_alpha_bwd", tctc.ctc_alpha_bwd_plain)
+    before = dispatch.launch_counts()
+    p_loss, p_grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), batch, key)
+    assert dispatch.launch_counts() == before  # the plain path launched nothing
+    assert abs(float(loss) - float(p_loss)) <= 1e-3 * abs(float(p_loss))
+    for k, want in p_grads.items():
+        rel = float((grads[k] - want).norm() / want.norm().clamp_min(1e-12))
+        assert rel <= 5e-2, (k, rel)
+
+
+@pytest.mark.parametrize("finetune", [False, True])
+def test_late_fusion_step_launch_counts(cuda, finetune):
+    """Frozen encoders: K1 5 (4 without the c store), K2 once (the fusion
+    layer), K3 1, K4 1; the encoders' weights bit-unchanged. With
+    finetune_encoders K2 runs for every layer and the encoders train."""
+    model, batch = _fusion_model("late_fusion", cuda, finetune=finetune)
+    state = step_lib.create_train_state(model)
+    start = {k: v.detach().clone() for k, v in state.params.items()}
+    step = step_lib.make_train_step(model)
+    dispatch.reset_launch_counts()
+    state, m = step(state, batch, prng.root_key(4))
+    counts = dispatch.launch_counts()
+    assert np.isfinite(float(m["loss"]))
+    assert counts == {**{k: 0 for k in counts}, "bilstm_tm_fwd": 5,
+                      "bilstm_tm_bwd": 5 if finetune else 1, "ctc_fwd": 1, "ctc_bwd": 1}
+    enc = [k for k in start if k.split(".")[0] in ("speech", "skeletal")]
+    assert all(torch.equal(state.params[k], start[k]) != finetune for k in enc)

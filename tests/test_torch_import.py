@@ -42,6 +42,13 @@ def test_every_module_imports_with_jax_blocked():
         "from mgr_tpu_torch.train import loop, optimizer, step\n"
         "from mgr_tpu_torch.parallel import collectives, mesh, multihost, sharding, spawn\n"
         "build_parser().parse_args(['train', 'speech', '--mesh', '2x2', '--device', 'cpu'])\n"
+        "build_parser().parse_args(['train', 'late_fusion', '--from-scratch', '--audio-dir', 'a'])\n"
+        "build_parser().parse_args(['curriculum', '--audio-dir', 'a', '--audio-labels', 'b',\n"
+        "                           '--skeletal-csv', 'c', '--labels', 'd'])\n"
+        "from mgr_tpu_torch.train import curriculum\n"
+        "from mgr_tpu_torch.data.datasets import build_early_fusion_dataset\n"
+        "from mgr_tpu_torch.data.formats import load_monolithic_audio_csv\n"
+        "from mgr_tpu_torch.models.zoo import EarlyFusionModel, LateFusionModel\n"
         "from mgr_tpu_torch.core import metrics, prng\n"
         "from mgr_tpu_torch.kernels import lstm_scan\n"
         "print('ok')\n"
