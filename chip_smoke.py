@@ -3,7 +3,8 @@ holds each against its plain PyTorch version at the speech shapes, then
 serves and trains the speech BLSTM+CTC pipeline end to end through the
 kernels, on one process and over meshes of ranks that share the card,
 then trains and serves the two fusion families (early fusion, and late
-fusion over frozen grafted encoders).
+fusion over frozen grafted encoders) and the rgb family (the CNN frontend
+on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H).
 
     python3 chip_smoke.py [--profile]
 
@@ -24,14 +25,20 @@ timed), the fusion slice (early fusion trained by ``fit`` and decoded;
 speech and skeletal donors trained, grafted into late fusion, ``fit``
 over the frozen encoders, decode and evaluate; each family's step
 launches and wall, its kernel step against the plain one, a learning
-check), the mesh slice (a mesh train and eval step at full speech width
-on 2x1, 1x2 and 2x2 meshes of gloo ranks that time-share the one card,
-against the single-process step, and ``fit`` over the 2x2 mesh), with
-``--profile`` a per-layer breakdown of a decode step at B=1, 32 and 128
-and of a train step at B=32 (speech and late fusion), a JSON line of the
-kernels (each with its bound and, for K3/K4, the time of
+check), the rgb kernels (K1/K2 at H=512, T=1900, B=8 and 256, K3/K4 at
+K=22, N=28, against their plain versions and timed), the rgb slice (40
+seeded videos on disk, ``fit`` at full width with remat, decode to MLF,
+evaluate, B=1 ``infer rgb``; the step's launches, wall and peak memory,
+its kernel step against the plain one, a learning check), the mesh slice
+(a mesh train and eval step at full speech width on 2x1, 1x2 and 2x2
+meshes of gloo ranks that time-share the one card, against the
+single-process step, and ``fit`` over the 2x2 mesh), with ``--profile`` a
+per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
+step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
+remat recompute and backward named apart), a JSON line of the kernels
+(each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
-path and their times at its shapes), and last ``{"ok": true, "device":
+and rgb paths and their times at those shapes), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -90,6 +97,10 @@ MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
 N_FUS_TRAIN, N_FUS_VAL, FUS_EPOCHS = 64, 32, 2  # the fusion slice: 2 train + 1 val batch
 H_FUS = 100            # the late-fusion BiLSTM over the 1600-wide encoder concat
 K_FUS, N_FUS = 22, 35  # the fusion presets' gesture classes and label cap
+H_RGB, B_RGB = 512, 8  # the rgb preset's BiLSTM width (MAX_H) and train batch
+B_RGB_EDGE = 256       # K2's largest launch: 230,400 bytes of shared memory at H=512
+K_RGB, N_RGB = 22, 28  # the rgb preset's gesture classes and label cap
+N_RGB_FILES, RGB_EPOCHS = 40, 2  # the rgb slice: the 80/20 split gives 4 train + 1 val batch
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
@@ -881,6 +892,209 @@ def fusion_phase(dev) -> dict:
     return launches
 
 
+def _video_corpus(root, cfg, n, seed):
+    """n seeded videos ``Sample#####_color.npy`` of 1400-2099 uint8 frames
+    of D x D pixels under ``root``/videos (most padded to T, some cut to
+    it) and their labels CSV (1..N gestures of classes 1..20)."""
+    rng = np.random.default_rng(seed)
+    data_dir = os.path.join(root, "videos")
+    os.makedirs(data_dir)
+    D = cfg.cnn.img_dim
+    rows = ["Id,Sequence"]
+    for fid in range(1, n + 1):
+        frames = int(rng.integers(1400, 2100))
+        np.save(os.path.join(data_dir, f"Sample{fid:05d}_color.npy"),
+                rng.integers(0, 256, (frames, D, D), dtype=np.uint8))
+        k = int(rng.integers(1, cfg.max_label_len + 1))
+        rows.append(f"{fid}," + " ".join(str(c) for c in rng.integers(1, cfg.nb_classes - 1,
+                                                                       size=k)))
+    labels = os.path.join(root, "rgb_labels.csv")
+    with open(labels, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return data_dir, labels
+
+
+def rgb_phase(dev) -> dict:
+    """The rgb family at full width (60x60x1 frames, T=1900, CNN 16/32/48,
+    BiLSTM(512)x2, Dense(22), B=8, remat on), trained and served through the
+    kernels, the file count cut to 40 seeded videos on disk (32 train + 8
+    val by the preset's split): ``fit`` for 2 epochs on ``build_rgb_dataset``,
+    the best slot reloaded, decoded to MLF and evaluated, and one video
+    through ``infer rgb`` (uint8 frames through the normalisation); the
+    launch counts of that run are the rgb path's. Then one step's launches
+    (K1 2, K2 2, K3 1, K4 1), its wall median and peak memory, the kernel
+    step against the plain one (``cnn.*`` included), the B=1 infer latency
+    and a learning check."""
+    import io
+
+    from mgr_tpu_torch.cli.main import main as cli_main
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.data import formats
+    from mgr_tpu_torch.data.batcher import pad_or_truncate
+    from mgr_tpu_torch.data.datasets import build_rgb_dataset
+    from mgr_tpu_torch.data.vocab import DECODE_IGNORE_LIST
+    from mgr_tpu_torch.decode.decoder import MLF_FILENAMES, Decoder
+    from mgr_tpu_torch.decode.evaluate import evaluate_accuracy
+    from mgr_tpu_torch.decode.mlf import read_mlf
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.loop import fit
+
+    cfg = get_preset("rgb")
+    B, T, trim = cfg.batch_size, cfg.maxlen, cfg.ctc.trim_frames
+    with tempfile.TemporaryDirectory() as root:
+        data_dir, labels = _video_corpus(root, cfg, N_RGB_FILES, SEED + 42)
+        data = build_rgb_dataset(data_dir, labels, cfg)
+        if (len(data.train_ids), len(data.val_ids)) != (32, 8):
+            raise AssertionError(f"rgb split {len(data.train_ids)} / {len(data.val_ids)}")
+        model = build_model(cfg, seed=SEED, device=dev)
+        workdir = os.path.join(root, "runs")
+        torch.cuda.reset_peak_memory_stats(dev)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(model, data, workdir=workdir, epochs=RGB_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        best = build_model(cfg, seed=SEED + 99, device=dev)
+        ckpt_lib.load_params(workdir, "rgb", best, slot="best")
+        dec = Decoder.for_model(best, "rgb")
+        results = dec.decode_batches(data.epoch(B, train=False))
+        mlf_path = os.path.join(root, MLF_FILENAMES["rgb"])
+        dec.write_mlf(mlf_path, results)
+        n_mlf = len(read_mlf(mlf_path))
+        metrics = evaluate_accuracy(best, data)
+        video = os.path.join(data_dir, "Sample00001_color.npy")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli_main(["infer", "rgb", video, "--workdir", workdir])
+        infer_tokens = json.loads(out.getvalue().strip().splitlines()[-1])["tokens"]
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        val_ids, batch = next(iter(data.epoch(B, train=False)))
+        x1, true_len = pad_or_truncate((formats.load_video_npy(video) - 128.0) / 255.0, T)
+    path = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
+    if min(launches[k] for k in path) <= 0 or any(v for k, v in launches.items()
+                                                  if k not in path):
+        raise AssertionError(f"the rgb path took the wrong kernels: {launches}")
+    if res.epochs_run != RGB_EPOCHS or not all(
+            np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in res.history):
+        raise AssertionError(f"rgb: fit ran {res.epochs_run} epochs: {res.history}")
+    kept = [fid for fid, _ in results if fid not in DECODE_IGNORE_LIST]
+    if len(results) != 8 or n_mlf != len(kept) or metrics["N"] <= 0 or rc != 0:
+        raise AssertionError(f"rgb: decoded {len(results)}, MLF {n_mlf}, evaluate {metrics}")
+
+    # B=1 serving: the same video as infer, through the same decode step.
+    one = {"inputs": x1[None], "input_length": np.asarray([true_len - trim], np.int32)}
+    if dec.decode_batches([((1,), one)])[0][1] != infer_tokens:
+        raise AssertionError("rgb: infer's tokens differ from the decode step's")
+    infer_ms, decode_ms = [], []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        dec.decode_batches([((1,), one)])
+        infer_ms.append(1e3 * (time.perf_counter() - t1))
+    for _ in range(3):  # a corpus decode's batch: B=8, the 219 MB batch copied to the card
+        t1 = time.perf_counter()
+        dec.decode_batches([(val_ids, batch)])
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+    with torch.inference_mode():
+        logits = best(torch.from_numpy(batch["inputs"]).to(dev))
+    if logits.shape != (B, T, cfg.nb_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"rgb: bad logits {tuple(logits.shape)}")
+    del best, logits
+
+    key = prng.fold_name(prng.root_key(SEED), "dropout")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, per_step, step_s = _step_launches_and_wall(model, batch, key)
+    step_peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = {k: 0 for k in KERNELS}
+    want.update(bilstm_tm_fwd=2, bilstm_tm_bwd=2, ctc_fwd=1, ctc_bwd=1)
+    if per_step != want:
+        raise AssertionError(f"rgb: one train step launched {per_step}, want {want}")
+    check = _kernel_vs_plain_step(model, batch, prng.fold_in(key, 1000), dev)
+    if not any(k.startswith("cnn.conv_") for k in check["grad_rel_err"]):
+        raise AssertionError("rgb: the step's gradients lack the conv kernels")
+    eval_step = step_lib.make_eval_step(model)
+    state = step_lib.create_train_state(model)
+    train_step = step_lib.make_train_step(model)
+    before = float(eval_step(batch))
+    for i in range(LEARN_STEPS):
+        state, _ = train_step(state, batch, prng.fold_in(key, 2000 + i))
+    after = float(eval_step(batch))
+    if not after < before:
+        raise AssertionError(f"rgb: no learning: eval loss {before} -> {after}")
+    phase("rgb", B=B, T=T, img=cfg.cnn.img_dim, channels=list(cfg.cnn.channels),
+          H=cfg.encoder.hidden, remat=cfg.cnn.remat, files_train=len(data.train_ids),
+          files_val=len(data.val_ids), epochs=RGB_EPOCHS, fit_s=fit_s, launches=launches,
+          epoch_train_loss=[h["train_loss"] for h in res.history],
+          epoch_val_loss=[h["val_loss"] for h in res.history],
+          epoch_seq_per_s=[h["seqs_per_sec"] for h in res.history],
+          mlf_entries=n_mlf, evaluate={k: metrics[k] for k in ("accuracy", "N")},
+          infer_tokens=len(infer_tokens), infer_b1_ms_median=float(np.median(infer_ms)),
+          decode_b8_ms_median=float(np.median(decode_ms)),
+          step_launches=per_step, step_wall_ms_median=1e3 * step_s, step_seq_per_s=B / step_s,
+          fit_peak_mem_gb=fit_peak_gb, step_peak_mem_gb=step_peak_gb, **check,
+          tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
+          learning_check={"eval_loss_before": before, "eval_loss_after": after,
+                          "steps": LEARN_STEPS})
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ctc_at_shape(dev, rng, B, K, N) -> dict:
+    """K3 (with its alpha store) and K4 at T'=1898, B rows, K classes and N
+    labels, seeded as the loss seeds them: against their plain versions,
+    two launches of each bit-identical, timed beside their plain versions
+    and ``ctc_loss``, with their bounds."""
+    from mgr_tpu_torch.kernels.ctc import (
+        BWD_NAME, NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape)
+    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
+
+    T = T_K3
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T, B, K), dtype=np.float32)).to(dev), dim=-1)
+    blank = K - 1
+    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B, T, K, N)]
+    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
+    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
+    k3_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) for g, w in zip(got, want))
+    loss, a_phi, a_emit = want
+    rows, L = torch.arange(B, device=dev), args[2].long()
+    g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
+    g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
+    d_got = ctc_alpha_bwd(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    d_want = ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    k4_err = float((d_got - d_want).abs().max())
+    if k3_err > TOL_K3_REL or k4_err > TOL_K4 or not torch.isfinite(d_got).all():
+        raise AssertionError(f"K3/K4 at K={K}, N={N} disagree with their plain versions: K3 "
+                             f"{k3_err} (tol {TOL_K3_REL}), K4 {k4_err} (tol {TOL_K4})")
+    own = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
+    if not (all(torch.equal(a, b) for a, b in zip(
+            got, ctc_alpha_loss(lp, *args, blank, store_alphas=True)))
+            and torch.equal(ctc_alpha_bwd(*own), ctc_alpha_bwd(*own))):
+        raise AssertionError(f"K3/K4 at K={K}, N={N}: two launches differ")
+    return {
+        "ctc_fwd": {
+            "max_abs_err": k3_err, "launch": launch_shape(NAME, N, K),
+            "ms": cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True),
+                               reps=20),
+            "plain_ms": _timed(lambda: ctc_alpha_loss_plain(lp, *args, blank,
+                                                            store_alphas=True))[1],
+            "library_ms": library_ctc_ms(lp, *args, blank, backward=False),
+            **ctc_bound(lp, args[1], args[2], N, backward=False, store=True)},
+        "ctc_bwd": {
+            "max_abs_err": k4_err, "launch": launch_shape(BWD_NAME, N, K),
+            "ms": cuda_time_ms(lambda: ctc_alpha_bwd(*own), reps=20),
+            "plain_ms": _timed(lambda: ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit,
+                                                           g_phi, g_emit))[1],
+            "library_ms": library_ctc_ms(lp, *args, blank, backward=True),
+            **ctc_bound(lp, args[1], args[2], N, backward=True)},
+    }
+
+
 def fusion_kernels_phase(dev) -> dict:
     """K1-K4 at the shapes the fusion path gives them and no other phase
     does: K1/K2 at H=100 (13 eight-unit slices, the last half empty), T=1900,
@@ -889,9 +1103,6 @@ def fusion_kernels_phase(dev) -> dict:
     it; K3/K4 at K=22, N=35 (T'=1898, B=32), timed, against their plain
     versions; two launches of each bit-identical."""
     from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
-    from mgr_tpu_torch.kernels.ctc import (
-        BWD_NAME, NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape)
-    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
     from mgr_tpu_torch.ops.lstm import (
         bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, init_bilstm_params)
 
@@ -940,42 +1151,7 @@ def fusion_kernels_phase(dev) -> dict:
     out["bilstm_tm_fwd"]["max_abs_err"] = worst["h"]
     out["bilstm_tm_bwd"]["max_abs_err"] = worst["dz"]
 
-    T, B = T_K3, B_K2
-    lp = torch.log_softmax(torch.from_numpy(
-        rng.standard_normal((T, B, K_FUS), dtype=np.float32)).to(dev), dim=-1)
-    blank = K_FUS - 1
-    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B, T, K_FUS, N_FUS)]
-    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
-    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
-    k3_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) for g, w in zip(got, want))
-    loss, a_phi, a_emit = want
-    rows, L = torch.arange(B, device=dev), args[2].long()
-    g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
-    g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
-    d_got = ctc_alpha_bwd(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
-    d_want = ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
-    k4_err = float((d_got - d_want).abs().max())
-    if k3_err > TOL_K3_REL or k4_err > TOL_K4 or not torch.isfinite(d_got).all():
-        raise AssertionError(f"K3/K4 at K=22, N=35 disagree with their plain versions: K3 "
-                             f"{k3_err} (tol {TOL_K3_REL}), K4 {k4_err} (tol {TOL_K4})")
-    own = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
-    if not (all(torch.equal(a, b) for a, b in zip(
-            got, ctc_alpha_loss(lp, *args, blank, store_alphas=True)))
-            and torch.equal(ctc_alpha_bwd(*own), ctc_alpha_bwd(*own))):
-        raise AssertionError("K3/K4 at K=22, N=35: two launches differ")
-    out["ctc_fwd"] = {
-        "max_abs_err": k3_err, "launch": launch_shape(NAME, N_FUS, K_FUS),
-        "ms": cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True), reps=20),
-        "plain_ms": _timed(lambda: ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True))[1],
-        "library_ms": library_ctc_ms(lp, *args, blank, backward=False),
-        **ctc_bound(lp, args[1], args[2], N_FUS, backward=False, store=True)}
-    out["ctc_bwd"] = {
-        "max_abs_err": k4_err, "launch": launch_shape(BWD_NAME, N_FUS, K_FUS),
-        "ms": cuda_time_ms(lambda: ctc_alpha_bwd(*own), reps=20),
-        "plain_ms": _timed(lambda: ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi,
-                                                       g_emit))[1],
-        "library_ms": library_ctc_ms(lp, *args, blank, backward=True),
-        **ctc_bound(lp, args[1], args[2], N_FUS, backward=True)}
+    out.update(_ctc_at_shape(dev, rng, B_K2, K_FUS, N_FUS))
     for v in out.values():
         v["share"] = v["bound_ms"] / v["ms"]
     phase("fusion_kernels", T=T_K1, B=B_K2, H=H_FUS, K=K_FUS, N=N_FUS, tol_h=TOL_K1_H,
@@ -992,6 +1168,80 @@ def _timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def rgb_kernels_phase(dev) -> dict:
+    """K1-K4 at the shapes the rgb family gives them: K1/K2 at H=512 (MAX_H:
+    64 eight-unit slices a direction, 128 cooperative blocks, every warp's K
+    slice full), T=1900, at the preset's B=8 and at B=256 (K2's 230,400-byte
+    shared-memory opt-in), against their plain versions, two launches of
+    each bit-identical, timed; K3/K4 at K=22, N=28 (T'=1898, B=8), alike."""
+    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
+    from mgr_tpu_torch.ops.lstm import (
+        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, init_bilstm_params,
+        recurrent_weight_grad)
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    dgen = torch.Generator(dev).manual_seed(SEED + 40)
+    bf = torch.bfloat16
+    T, H = T_K1, H_RGB
+    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
+    out, per_b = {}, {}
+    for B in (B_RGB, B_RGB_EDGE):
+        xp = 0.5 * torch.randn((2, T, B, 4, H), generator=dgen, device=dev)
+        xp[:, :, :, 1, :] += 1.0
+        xp = xp.to(bf)
+        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
+        dhs = (1e-2 * torch.randn((2, T, B, H), generator=dgen, device=dev)).to(bf)
+        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+        want, fwd_plain_ms = _timed(lambda: bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=True))
+        dz = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+        dz_w, bwd_plain_ms = _timed(
+            lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]))
+        dU = recurrent_weight_grad(streams[0], streams[1], *dz)
+        for g in (*streams, *dz):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"K1/K2 at H=512, B={B} gave non-finite values")
+        worst["h"] = max(worst["h"], *(float((g.float() - w).abs().max())
+                                        for g, w in zip(streams, want)))
+        worst["dz"] = max(worst["dz"], *(float((g.float() - w.float()).abs().max()
+                                               / w.float().abs().max())
+                                         for g, w in zip(dz, dz_w[:2])))
+        worst["dU"] = max(worst["dU"], float((dU - dz_w[2]).norm() / dz_w[2].norm()))
+        if not (all(torch.equal(a, b) for a, b in zip(
+                streams, bilstm_tm_streams(xp[0], xp[1], U, store_c=True))) and all(
+                torch.equal(a, b) for a, b in zip(
+                    dz, bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])))):
+            raise AssertionError(f"K1/K2 at H=512, B={B}: two launches differ")
+        per_b[B] = {
+            "bilstm_tm_fwd": {
+                # the train step's launch: the c streams stored
+                "ms": cuda_time_ms(lambda: bilstm_tm_streams(xp[0], xp[1], U, store_c=True),
+                                   reps=5),
+                "plain_ms": fwd_plain_ms,
+                **lstm_bound(T, B, H, dirs=2, backward=False, store_c=True)},
+            "bilstm_tm_bwd": {
+                "ms": cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0],
+                                                         dhs[1]), reps=5),
+                "plain_ms": bwd_plain_ms,
+                **lstm_bound(T, B, H, dirs=2, backward=True, store_c=False)}}
+        del xp, dhs, streams, want, dz, dz_w
+        torch.cuda.empty_cache()
+    if not worst["h"] <= TOL_K1_H or not max(worst["dz"], worst["dU"]) <= TOL_K2_REL:
+        raise AssertionError(f"K1/K2 at H=512 disagree with their plain versions: {worst} "
+                             f"(tol h {TOL_K1_H}, dz/dU {TOL_K2_REL})")
+    out.update(per_b[B_RGB])
+    out["bilstm_tm_fwd"]["max_abs_err"] = worst["h"]
+    out["bilstm_tm_bwd"]["max_abs_err"] = worst["dz"]
+
+    out.update(_ctc_at_shape(dev, np.random.default_rng(SEED + 41), B_RGB, K_RGB, N_RGB))
+    for v in [*out.values(), *per_b[B_RGB_EDGE].values()]:
+        v["share"] = v["bound_ms"] / v["ms"]
+    phase("rgb_kernels", T=T_K1, H=H_RGB, B=B_RGB, K=K_RGB, N=N_RGB, tol_h=TOL_K1_H,
+          tol_dz_rel=TOL_K2_REL, tol_k3_rel=TOL_K3_REL, tol_k4=TOL_K4,
+          max_rel_err_dU=worst["dU"], bit_identical_launches=True, kernels=out,
+          at_B256=per_b[B_RGB_EDGE])
+    return out
 
 
 def k5_phase(dev) -> dict:
@@ -1538,8 +1788,11 @@ def timed_calls(marks: list, head_width: int = 44):
     """Wrap the train step's kernels and GEMMs so each call records a pair
     of CUDA events under a label (profiling only: the package has no such
     hook). Labels: K1 / K2 per layer (layer 0 is the first K1 of a step,
-    the second K2), K3, K4, dU GEMM, projection and head GEMMs."""
+    the second K2), K3, K4, dU GEMM, projection GEMMs (with their widths)
+    and head GEMMs; for rgb the CNN frontend (its first call is the
+    forward, the second the remat recompute) and its cuDNN convs."""
     from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3
+    from mgr_tpu_torch.models import layers
     from mgr_tpu_torch.ops import lstm as lstm_lib
 
     counts = {}
@@ -1551,20 +1804,24 @@ def timed_calls(marks: list, head_width: int = 44):
             counts[label] = n + 1
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*a, **kw)
-            end.record()
-            marks.append((label, n, start, end))
-            return out
+            try:
+                return fn(*a, **kw)
+            finally:  # a checkpoint's recompute stops by raising once it has what it needs
+                end.record()
+                marks.append((label, n, start, end))
         return inner
 
-    mm = lstm_lib._MatmulF32
+    mm, conv = lstm_lib._MatmulF32, layers._ConvValid
     saved = (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
-             lstm_lib.recurrent_weight_grad, mm.forward, mm.backward)
+             lstm_lib.recurrent_weight_grad, mm.forward, mm.backward, layers.CNN.forward,
+             conv.forward, conv.backward)
 
     def gemm(kind):
         def label(ctx, *a):
             w = a[1] if kind == "forward" else ctx.saved_tensors[1]
-            return f"{'head' if w.shape[-1] == head_width else 'projection'} GEMM {kind}"
+            if w.shape[-1] == head_width:
+                return f"head GEMM {kind}"
+            return f"projection GEMM {kind} ({w.shape[0]} -> {w.shape[-1]})"
         return label
 
     k1.bilstm_tm_streams = wrap(saved[0], lambda *a, **k: "K1")
@@ -1574,31 +1831,59 @@ def timed_calls(marks: list, head_width: int = 44):
     lstm_lib.recurrent_weight_grad = wrap(saved[4], lambda *a, **k: "dU GEMM")
     mm.forward = staticmethod(wrap(saved[5], gemm("forward")))
     mm.backward = staticmethod(wrap(saved[6], gemm("backward")))
+    layers.CNN.forward = wrap(saved[7], lambda *a, **k: "CNN frontend")
+    conv.forward = staticmethod(wrap(saved[8], lambda *a, **k: "cuDNN conv forward (3 convs)"))
+    conv.backward = staticmethod(wrap(saved[9], lambda *a, **k: "cuDNN conv backward (3 convs)"))
     try:
         yield
     finally:
         (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
          lstm_lib.recurrent_weight_grad) = saved[:5]
         mm.forward, mm.backward = staticmethod(saved[5]), staticmethod(saved[6])
+        layers.CNN.forward = saved[7]
+        conv.forward, conv.backward = staticmethod(saved[8]), staticmethod(saved[9])
 
 
 # The K1 / K2 calls of one train step, in call order, by pipeline.
-K1_LAYERS = {"speech": ("layer 0", "layer 1"),
+K1_LAYERS = {"speech": ("layer 0", "layer 1"), "rgb": ("layer 0, H=512", "layer 1, H=512"),
              "late_fusion": ("speech layer 0 (frozen)", "speech layer 1 (frozen)",
                              "skeletal layer 0 (frozen)", "skeletal layer 1 (frozen)",
                              "fusion layer")}
-K2_LAYERS = {"speech": ("layer 1", "layer 0"), "late_fusion": ("fusion layer",)}
+K2_LAYERS = {"speech": ("layer 1", "layer 0"), "rgb": ("layer 1, H=512", "layer 0, H=512"),
+             "late_fusion": ("fusion layer",)}
+# The CNN frontend's calls in one rgb train step: the forward (under the
+# checkpoint: nothing stored), then the recompute in the backward.
+CNN_CALLS = ("forward (convs + bias/relu/pool)", "remat recompute (convs + bias/relu/pool)")
+
+
+def _video_batch(cfg, B, seed):
+    """A batch of B seeded videos as ``LazyVideoBatcher`` gives it: (B, T,
+    D, D, 1) f32 pixels through ``(x - 128) / 255``, 1..N labels each."""
+    rng = np.random.default_rng(seed)
+    T, D = cfg.maxlen, cfg.cnn.img_dim
+    x = rng.integers(0, 256, (B, T, D, D, 1), dtype=np.uint8).astype(np.float32)
+    x -= 128.0
+    x /= 255.0
+    lab_len = rng.integers(1, cfg.max_label_len + 1, size=B).astype(np.int32)
+    labels = np.full((B, cfg.max_label_len), -1, np.int32)
+    for i, k in enumerate(lab_len):
+        labels[i, :k] = rng.integers(0, cfg.nb_classes - 1, size=k)
+    return {"inputs": x, "labels": labels, "label_length": lab_len,
+            "input_length": np.full((B,), T - cfg.ctc.trim_frames, np.int32)}
 
 
 def profile_train_phase(dev, pipeline: str = "speech") -> None:
-    """Where a train step's time goes at B=32, T=1900: CUDA-event times of
-    the forward, the backward and the optimizer tail of one step (the
-    step's own functions, called in its order), and within them of each
-    kernel and GEMM; the log-softmax backward at the step's shape on its
-    own; the host-clock wall of the real step; the device's idle share of
-    a profiled step (device rows only). ``pipeline``: speech, or late
-    fusion (its frozen encoders' K1 in the forward, K2 for the fusion
-    layer alone)."""
+    """Where a train step's time goes at the preset's batch (B=32; rgb B=8),
+    T=1900: CUDA-event times of the input's copy to the card, the forward,
+    the backward and the optimizer tail of one step (the step's own
+    functions, called in its order), and within them of each kernel and
+    GEMM; the log-softmax backward at the step's shape on its own; the
+    host-clock wall and the peak memory of the real step; the device's idle
+    share of a profiled step (device rows only). ``pipeline``: speech; late
+    fusion (its frozen encoders' K1 in the forward, K2 for the fusion layer
+    alone); or rgb (the CNN frontend's forward, remat recompute and
+    backward named apart, and the step's wall and peak memory without
+    remat beside them)."""
     from mgr_tpu_torch.core import prng
     from mgr_tpu_torch.core.config import get_preset
     from mgr_tpu_torch.models.zoo import build_model
@@ -1607,11 +1892,14 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
 
     cfg = get_preset(pipeline)
     B = cfg.batch_size
-    corpus = _speech_corpus if pipeline == "speech" else _two_stream_corpus
-    feats, labels, lab_len, in_len = corpus(cfg, B, SEED + 8)
-    batch = {"labels": labels, "input_length": in_len, "label_length": lab_len,
-             **({"inputs": feats} if pipeline == "speech" else
-                {"inputs": feats[0], "inputs2": feats[1]})}
+    if pipeline == "rgb":
+        batch = _video_batch(cfg, B, SEED + 8)
+    else:
+        corpus = _speech_corpus if pipeline == "speech" else _two_stream_corpus
+        feats, labels, lab_len, in_len = corpus(cfg, B, SEED + 8)
+        batch = {"labels": labels, "input_length": in_len, "label_length": lab_len,
+                 **({"inputs": feats} if pipeline == "speech" else
+                    {"inputs": feats[0], "inputs2": feats[1]})}
     model = build_model(cfg, seed=SEED, device=dev)
     state = step_lib.create_train_state(model)
     tx = opt_lib.keras_adam(cfg.optimizer)
@@ -1623,8 +1911,9 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
 
     def one_step(i):
         marks = []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[4].record()
         tb = step_lib.batch_to_device(batch, dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         with timed_calls(marks, cfg.nb_classes):
             for p in state.params.values():
                 p.grad = None
@@ -1640,13 +1929,19 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
             step_lib._apply_updates(model, state, tx, loss.detach(), grads, 1.0)
             ev[3].record()
         torch.cuda.synchronize()
-        out = {"forward (total)": ev[0].elapsed_time(ev[1]),
+        out = {"input copy to the card (H2D)": ev[4].elapsed_time(ev[0]),
+               "forward (total)": ev[0].elapsed_time(ev[1]),
                "backward (total)": ev[1].elapsed_time(ev[2]),
                "optimizer tail (clip, Adam, maxnorm, grad norm)": ev[2].elapsed_time(ev[3])}
         for label, n, start, end in marks:
-            layers = {"K1": K1_LAYERS, "K2": K2_LAYERS}.get(label)
+            layers = {"K1": K1_LAYERS, "K2": K2_LAYERS, "CNN frontend": {pipeline: CNN_CALLS}
+                      }.get(label)
             name = f"{label}, {layers[pipeline][n]}" if layers else label
+            if label.startswith("cuDNN conv forward"):
+                name = f"{label}, {'forward' if n < 3 else 'remat recompute'}"
             out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+            if label == "CNN frontend" and n == 1:  # the backward's last part: the CNN's
+                out["CNN backward (convs + bias/relu/pool)"] = end.elapsed_time(ev[2])
         return out
 
     steps = [one_step(i) for i in range(3)]
@@ -1658,13 +1953,21 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
     g = torch.randn_like(lsm)
     layers_ms["log-softmax backward (alone, same shape)"] = cuda_time_ms(
         lambda: torch.autograd.grad(lsm, logits, g, retain_graph=True), reps=20)
-    walls = []
-    for i in range(5):
+    def walls_and_peak(model, state, n):
+        """Host-clock walls (ms) of n real steps and their peak memory (GB)."""
+        train_step = step_lib.make_train_step(model)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch, prng.fold_in(key, 200 + i))
-        float(m["loss"])
-        walls.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch, prng.fold_in(key, 200 + i))
+            float(m["loss"])
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return state, walls, torch.cuda.max_memory_allocated(dev) / 2**30
+
+    state, walls, peak_gb = walls_and_peak(model, state, 5)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1673,17 +1976,27 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
         torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
     dev_us = _device_us(prof)
+    extra = {}
+    if pipeline == "rgb":  # the same step with the frontend's activations stored
+        plain_cfg = cfg.replace(cnn=dataclasses.replace(cfg.cnn, remat=False))
+        stored = build_model(plain_cfg, seed=SEED, device=dev)
+        stored.load_state_dict(model.state_dict())
+        del model, state
+        torch.cuda.empty_cache()
+        _, nr_walls, nr_peak = walls_and_peak(stored, step_lib.create_train_state(stored), 4)
+        extra["without_remat"] = {"step_wall_ms_median": float(np.median(nr_walls[1:])),
+                                  "peak_mem_gb": nr_peak}
     phase("profile_train", pipeline=pipeline, B=B, T=cfg.maxlen,
-          step_wall_ms_median=float(np.median(walls)), n=len(walls), layers_ms=layers_ms,
-          profiled_wall_ms=prof_wall_us / 1e3, device_ms=dev_us / 1e3,
-          idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None)
+          step_wall_ms_median=float(np.median(walls)), n=len(walls), peak_mem_gb=peak_gb,
+          layers_ms=layers_ms, profiled_wall_ms=prof_wall_us / 1e3, device_ms=dev_us / 1e3,
+          idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None, **extra)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print where a decode step's time goes (B=1, 32, 128) "
-                             "and a train step's (B=32; speech and late fusion)")
+                             "and a train step's (speech, late fusion and rgb)")
     args = parser.parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
@@ -1696,22 +2009,26 @@ def main() -> int:
     training = train_phase(dev)
     fusion_shapes = fusion_kernels_phase(dev)
     fusion = fusion_phase(dev)
+    rgb_shapes = rgb_kernels_phase(dev)
+    rgb = rgb_phase(dev)
     mesh = mesh_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
         profile_train_phase(dev, "late_fusion")
+        profile_train_phase(dev, "rgb")
     from mgr_tpu_torch.ops import dispatch
 
     replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,
                 "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151, "lstm_scan_fwd": 67,
                 "lstm_scan_bwd": 164}
     # launches: K1-K4 from the training path (the one-process main path),
-    # with the serving path's counts of K1 and K3 and the fusion path's
-    # (both families' fit, decode and evaluate) beside them, and each
-    # one's measurements at the fusion shapes; K5a/K5b from
-    # rank 0 of the 2x2 mesh's train and eval step (the mesh path); K6a/K6b
-    # from the batch-major layer path.
+    # with the serving path's counts of K1 and K3, the fusion path's (both
+    # families' fit, decode and evaluate) and the rgb path's (fit, decode,
+    # evaluate, infer) beside them, and each one's measurements at the
+    # fusion and the rgb shapes; K5a/K5b from rank 0 of the 2x2 mesh's
+    # train and eval step (the mesh path); K6a/K6b from the batch-major
+    # layer path.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     kernels = [
         {"name": name, "route": "cuda",
@@ -1721,6 +2038,8 @@ def main() -> int:
          **({"launches_serving": serving[name]} if name in serving else {}),
          **({"launches_fusion": fusion[name], "at_fusion_shape": fusion_shapes[name]}
             if name in fusion_shapes else {}),
+         **({"launches_rgb": rgb[name], "at_rgb_shape": rgb_shapes[name]}
+            if name in rgb_shapes else {}),
          **measured[name]}
         for name in KERNELS
     ]

@@ -1,13 +1,15 @@
 """CLI of the port: the train, curriculum and serving commands of
-``mgr_tpu/cli/main.py`` (``:101-344``), with the same flags, for the
-speech, skeletal, early-fusion and late-fusion families.
+``mgr_tpu/cli/main.py`` (``:101-344``), with the same flags, for the five
+families: speech, skeletal, rgb, early fusion and late fusion.
 
     python -m mgr_tpu_torch.cli.main train speech --data-dir ... --labels ... --workdir runs
+    python -m mgr_tpu_torch.cli.main train rgb --data-dir <Sample#####_color.npy dir> --labels ...
     python -m mgr_tpu_torch.cli.main train early_fusion --audio-csv ... --skeletal-csv ...
     python -m mgr_tpu_torch.cli.main train late_fusion --audio-dir ... --skeletal-csv ... --labels ...
     python -m mgr_tpu_torch.cli.main curriculum --audio-dir ... --audio-labels ... \
         --skeletal-csv ... --labels ... --workdir runs
     python -m mgr_tpu_torch.cli.main infer speech utt.csv --workdir runs
+    python -m mgr_tpu_torch.cli.main infer rgb Sample00001_color.npy --workdir runs
     python -m mgr_tpu_torch.cli.main decode speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main evaluate speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main score refs.mlf hyps.mlf
@@ -18,7 +20,9 @@ A workdir holds ``<pipeline>_config.json`` and
 skeletal slots of its workdir into the fusion model's frozen encoders
 (unless ``--from-scratch``), and ``decode``/``evaluate late_fusion``
 build the model through that graft, as the JAX CLI does; ``curriculum``
-trains the three stages in one workdir. The model runs on ``--device``:
+trains the three stages in one workdir. The rgb commands read a directory
+of per-video frames (``--data-dir``), normalised as ``(x - 128) / 255``,
+as ``infer rgb`` normalises its one video. The model runs on ``--device``:
 ``cuda`` (the default: the first card, through the kernels) or ``cpu``
 (through their plain versions), and a command asked for ``cuda`` on a
 host without a card fails; it never carries on on the CPU.
@@ -31,11 +35,11 @@ with MODEL = 2), one process per rank, started by torchrun:
 
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
 on the CPU over gloo; rank 0 writes the workdir and prints the result.
-The rgb family is not ported. Not ported yet either (ROADMAP.md 'Modules
-to port'): the fusion families and ``curriculum`` under ``--mesh`` and
-``decode``/``evaluate --mesh`` ('The mesh path's remainder');
-``--async-checkpoints``, ``--trace-dir``, ``--debug-nans`` and
-``--cache-dir`` ('fit's remaining knobs and the train CLI's flags').
+Not ported yet (ROADMAP.md 'Modules to port'): rgb, the fusion families
+and ``curriculum`` under ``--mesh`` and ``decode``/``evaluate --mesh``
+('The mesh path's remainder'); ``--async-checkpoints``, ``--trace-dir``,
+``--debug-nans`` and ``--cache-dir`` ('fit's remaining knobs and the train
+CLI's flags').
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from typing import Optional
 
 PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
 FUSION = ("early_fusion", "late_fusion")
+NO_MESH = FUSION + ("rgb",)  # families the mesh steps do not take yet
 MESH_ITEM = "ROADMAP.md 'Modules to port', 'The mesh path's remainder'"
 
 
@@ -124,7 +129,7 @@ def _mesh_for(cfg, args, dev):
     n = cfg.mesh.num_devices
     if n <= 1:
         return None
-    if cfg.name in FUSION:
+    if cfg.name in NO_MESH:
         raise SystemExit(f"--mesh {args.mesh}: {cfg.name} does not run on a mesh yet "
                          f"({MESH_ITEM})")
     sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
@@ -198,14 +203,15 @@ def _build_dataset(name: str, cfg, args, mode: str):
         return datasets.build_audio_dataset(args.data_dir, args.labels, cfg, mode=mode)
     if name == "skeletal":
         return datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfg, mode=mode)
+    if name == "rgb":
+        return datasets.build_rgb_dataset(args.data_dir, args.labels, cfg, mode=mode)
     if name == "early_fusion":
         return datasets.build_early_fusion_dataset(args.audio_csv, args.skeletal_csv, cfg,
                                                    mode=mode)
     if name == "late_fusion":
         return datasets.build_late_fusion_dataset(args.audio_dir, args.skeletal_csv,
                                                   args.labels, cfg, mode=mode)
-    raise SystemExit(f"{name}: the rgb family is not ported yet (ROADMAP.md 'Modules to "
-                     f"port', 'The rgb family')")
+    raise KeyError(name)
 
 
 def cmd_decode(args) -> int:
@@ -251,8 +257,10 @@ def cmd_infer(args) -> int:
             x = x[:: cfg.downsample]
     elif args.pipeline == "skeletal":
         x = next(iter(formats.load_skeletal_csv(args.input, normalize=True).values()))
+    elif args.pipeline == "rgb":
+        x = (formats.load_video_npy(args.input) - 128.0) / 255.0
     else:
-        raise SystemExit("infer supports speech/skeletal inputs")
+        raise SystemExit("infer supports speech/skeletal/rgb inputs")
     padded, true_len = pad_or_truncate(x.astype(np.float32), cfg.maxlen)
     batch = {
         "inputs": padded[None],
@@ -334,7 +342,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     pt = sub.add_parser("train", help="train one pipeline")
     pt.add_argument("pipeline", choices=PIPELINES)
-    pt.add_argument("--data-dir", help="per-file audio CSV dir")
+    pt.add_argument("--data-dir", help="per-file audio CSV dir / video dir")
     pt.add_argument("--labels", help="Id,Sequence label CSV")
     pt.add_argument("--skeletal-csv", help="monolithic skeletal CSV")
     pt.add_argument("--audio-csv", help="monolithic labelled audio CSV (early fusion)")

@@ -1,7 +1,9 @@
 """Corpus builders: on-disk corpus -> padded arrays in a ``Batcher``
 (``mgr_tpu/data/datasets.py``), for the speech, skeletal, early-fusion and
 late-fusion pipelines. A fusion corpus holds two streams, audio then
-skeletal, padded to the same length.
+skeletal, padded to the same length. The rgb corpus is too large to hold
+(27 MB a video at T=1900): its ``LazyVideoBatcher`` loads each batch's
+videos when the batch is due, on a worker thread.
 
 Modes: ``train`` splits into train/val with the seeded reference split;
 ``val`` puts every file in the validation list; ``final`` is ``val``
@@ -11,7 +13,9 @@ for unlabelled data (blank labels).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import random
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -148,3 +152,95 @@ def _fusion(cfg: PipelineConfig, ids: List[int], audio: Dict[int, np.ndarray],
     audio = {fid: x[:: cfg.downsample] for fid, x in audio.items()}
     return _assemble(cfg.replace(downsample=1), ids, audio, labels_map,
                      expand_words=False, mode=mode, second_feats_of=skel)
+
+
+PREFETCH = 2  # video batches loaded ahead of the one in use
+
+
+class LazyVideoBatcher(Batcher):
+    """Batches of per-video ``.npy`` frames, loaded and padded when due
+    (``mgr_tpu/data/datasets.py:229-293``): the labels and lengths are held,
+    the frames are not. A batch's inputs are (B, maxlen, D, D, 1) f32,
+    normalised as ``(x - 128) / 255`` after the padding, so a padded frame
+    is -128/255 as in JAX."""
+
+    def __init__(self, data_dir: str, names: List[str], cfg: PipelineConfig,
+                 labels: np.ndarray, lab_len: np.ndarray, in_len: np.ndarray,
+                 ids: Sequence[int], train_ids: Sequence[int], val_ids: Sequence[int]):
+        super().__init__(None, labels, lab_len, in_len, ids, train_ids, val_ids)
+        self.data_dir = data_dir
+        self.cfg = cfg
+        self._name_of = dict(zip(ids, names))
+
+    def _load_batch(self, chunk: List[int]) -> Tuple[List[int], Dict[str, np.ndarray]]:
+        cfg = self.cfg
+        D = cfg.cnn.img_dim
+        X = np.zeros((len(chunk), cfg.maxlen, D, D, 1), np.float32)
+        for j, fid in enumerate(chunk):
+            x = formats.load_video_npy(os.path.join(self.data_dir, self._name_of[fid]))
+            X[j, : min(len(x), cfg.maxlen)] = x[: cfg.maxlen]
+        # In place, with the same f32 operations as JAX's (X - 128.0) / 255.0.
+        X -= 128.0
+        X /= 255.0
+        rows = [self._row_of[f] for f in chunk]
+        return chunk, {
+            "inputs": X,
+            "labels": self.labels[rows],
+            "input_length": self.input_lengths[rows],
+            "label_length": self.label_lengths[rows],
+        }
+
+    def epoch(
+        self, batch_size: int, *, train: bool = True, shuffle_seed: Optional[int] = None,
+        process_index: int = 0, process_count: int = 1,
+    ) -> Iterator[Tuple[List[int], Dict[str, np.ndarray]]]:
+        """Yields (file_ids, batch) over the split once (a last partial
+        batch dropped); process ``process_index`` of ``process_count`` takes
+        every ``process_count``-th batch. One worker thread loads up to
+        ``PREFETCH`` batches ahead of the one being used."""
+        ids = list(self.train_ids if train else self.val_ids)
+        if shuffle_seed is not None:
+            random.Random(shuffle_seed).shuffle(ids)
+        chunks = [ids[i : i + batch_size]
+                  for j, i in enumerate(range(0, len(ids) - batch_size + 1, batch_size))
+                  if j % process_count == process_index]
+        if not chunks:
+            return
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            futures = [pool.submit(self._load_batch, c) for c in chunks[:PREFETCH]]
+            next_submit = len(futures)
+            for _ in range(len(chunks)):
+                result = futures.pop(0).result()
+                if next_submit < len(chunks):
+                    futures.append(pool.submit(self._load_batch, chunks[next_submit]))
+                    next_submit += 1
+                yield result
+
+
+def build_rgb_dataset(
+    data_dir: str, label_file: str, cfg: PipelineConfig, mode: str = "train",
+) -> LazyVideoBatcher:
+    """RGB: per-video ``Sample#####_color.npy`` frames and class-id labels;
+    CTC sees the padded length less the trim. The train split shuffles the
+    sorted file NAMES, as the JAX package does (``datasets.py:296-326``)."""
+    names = formats.list_video_files(data_dir)
+    ids = [formats.video_file_id(n) for n in names]
+    labels_map = formats.load_label_csv(label_file) if mode != "final" else {}
+    N = len(ids)
+    labels = np.zeros((N, cfg.max_label_len), np.int32)
+    lab_len = np.zeros((N,), np.int32)
+    in_len = np.full((N,), cfg.maxlen - cfg.ctc.trim_frames, np.int32)
+    blank = cfg.nb_classes - 1
+    for i, fid in enumerate(ids):
+        seq = [] if mode == "final" else labels_map.get(fid, [])
+        labels[i], lab_len[i] = prepare_labels(seq, cfg.max_label_len, blank,
+                                               expand_words=False)
+    if mode == "train":
+        train_names, val_names = reference_split(names, cfg.val_split, cfg.batch_size,
+                                                 seed=cfg.split_seed)
+        train_ids = [formats.video_file_id(n) for n in train_names]
+        val_ids = [formats.video_file_id(n) for n in val_names]
+    else:
+        train_ids, val_ids = [], ids
+    return LazyVideoBatcher(data_dir, names, cfg, labels, lab_len, in_len, ids, train_ids,
+                            val_ids)

@@ -10,6 +10,8 @@ with the standard ``csv`` module and numpy in place of pandas:
     columns by name and ``file_number``.
   * label CSVs: header ``Id,Sequence``, Sequence a space-separated
     class-id string.
+  * per-video frames ``Sample#####_color.npy``: (T, H, W) or (T, H, W, 1)
+    pixels.
 """
 
 from __future__ import annotations
@@ -116,3 +118,22 @@ def load_skeletal_csv(
         feats = zscore(feats)
     file_nums = table[:, -1].astype(np.int64)
     return {fid: feats[file_nums == fid] for fid in _by_file(file_nums)}
+
+
+def list_video_files(data_dir: str | os.PathLike) -> List[str]:
+    """The ``.npy`` file names of ``data_dir``, string-sorted."""
+    return sorted(n for n in os.listdir(data_dir) if n.endswith(".npy"))
+
+
+def video_file_id(name: str) -> int:
+    """``Sample00007_color.npy`` -> 7 (characters 6-10 of the name)."""
+    return int(name[6:11])
+
+
+def load_video_npy(path: str | os.PathLike) -> np.ndarray:
+    """One video -> (T, H, W, 1) float32 frames (a 3-D array gets the
+    channel axis)."""
+    x = np.load(path).astype(np.float32)
+    if x.ndim == 3:
+        x = x[..., None]
+    return x

@@ -1,12 +1,15 @@
 """The pipeline model families (``mgr_tpu/models/zoo.py``).
 
-Ported: the uni-modal family, speech and skeletal (``_build_unimodal``):
-encoder, then the dense head; early fusion (``_build_early_fusion``):
+All five families: the uni-modal family, speech and skeletal
+(``_build_unimodal``): encoder, then the dense head; rgb (``_build_rgb``):
+the CNN frontend over every frame, the encoder on its 768 features a
+frame, the head; early fusion (``_build_early_fusion``):
 noise on each stream, a channel concat, the encoder, the head; late
 fusion (``_build_late_fusion``): two encoders built from the source
 pipelines' configs, re-applied to their streams, a concat, a BiLSTM of
 width ``fusion_hidden`` and the head. ``apply_tm`` maps (B, T, F) inputs
-(a pair of them for the fusion families) to (T, B, C) logits, keeping
+(a pair of them for the fusion families, (B, T, D, D, 1) video for rgb)
+to (T, B, C) logits, keeping
 every large tensor time-major as the kernels want; ``forward`` is its
 transpose, the (B, T, C) logits of the JAX ``ModelDef.apply``; with
 ``train=True`` and a ``core.prng`` key they draw noise and dropout on the
@@ -25,6 +28,7 @@ import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from mgr_tpu_torch.core import prng
@@ -34,11 +38,6 @@ from mgr_tpu_torch.models.encoder import BiLSTM, Encoder
 from mgr_tpu_torch.ops import lstm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-_NOT_PORTED = {
-    "rgb": "the rgb family (CNN frontend) is not ported yet: ROADMAP.md "
-           "'Modules to port', 'The rgb family'",
-}
 
 Inputs = torch.Tensor | Tuple[torch.Tensor, torch.Tensor]
 
@@ -101,6 +100,37 @@ class UnimodalModel(_Model):
             compute_dtype=self.compute_dtype,
         )
         return self._head_apply(h, self.config.encoder.output_dropout, train=train, rng=rng)
+
+
+class RGBModel(_Model):
+    """RGB: submodules ``cnn`` (the conv frontend), ``encoder`` (a residual
+    BLSTM on the frontend's ``cnn_output_dim`` features, not the preset's
+    ``num_feats``) and ``head`` (``_build_rgb``, ``mgr_tpu/models/zoo.py:
+    110-149``)."""
+
+    def __init__(self, cfg: PipelineConfig, generator: torch.Generator):
+        super().__init__(cfg)
+        self.cnn = layers.CNN(layers.init_cnn(generator, cfg.cnn), cfg.cnn)
+        self.encoder = Encoder(layers.cnn_output_dim(cfg.cnn), cfg.encoder, generator)
+        self.head = _head(generator, 2 * cfg.encoder.hidden, cfg)
+
+    def apply_tm(self, x: torch.Tensor, *, train: bool = False,
+                 rng: Optional[prng.Key] = None) -> torch.Tensor:
+        """(B, T, D, D, 1) video -> (T, B, C) f32 logits. With
+        ``cfg.cnn.remat`` and grad enabled the frontend runs under
+        ``torch.utils.checkpoint`` (``jax.checkpoint`` in JAX): its
+        activations, the largest tensors of the step, are recomputed in
+        the backward instead of stored."""
+        cfg = self.config
+        if cfg.cnn.remat and torch.is_grad_enabled():
+            feats = torch.utils.checkpoint.checkpoint(
+                self.cnn, x, self.compute_dtype, use_reentrant=False)
+        else:
+            feats = self.cnn(x, self.compute_dtype)
+        h = self.encoder.apply_tm(
+            feats.transpose(0, 1), train=train, rng=rng, compute_dtype=self.compute_dtype,
+        )
+        return self._head_apply(h, cfg.encoder.output_dropout, train=train, rng=rng)
 
 
 class EarlyFusionModel(_Model):
@@ -204,11 +234,11 @@ def build_model(
     load weights with ``bridge.load_params`` to match a JAX model. Late
     fusion builds its encoders from ``source_configs`` (default: the
     presets named in ``cfg.fusion_sources``)."""
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[cfg.name])
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     if cfg.name in ("speech", "skeletal"):
         model = UnimodalModel(cfg, gen)
+    elif cfg.name == "rgb":
+        model = RGBModel(cfg, gen)
     elif cfg.name == "early_fusion":
         model = EarlyFusionModel(cfg, gen)
     elif cfg.name == "late_fusion":

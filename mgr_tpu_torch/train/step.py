@@ -12,7 +12,8 @@ updated in place (one copy of the weights on the card, where JAX makes a
 new tree each step). Inputs may be numpy arrays or tensors; they are
 moved to the model's device.
 
-Batch contract (as in the JAX package): ``inputs`` (B, T, F), and for
+Batch contract (as in the JAX package): ``inputs`` (B, T, F) (rgb: the
+(B, T, D, D, 1) video), and for
 the fusion families the second stream ``inputs2`` (B, T, F2) (the model
 then takes the pair), ``labels`` (B, N) int -1 padded, ``input_length``
 (B,) valid frames AFTER the CTC trim, ``label_length`` (B,). The mesh

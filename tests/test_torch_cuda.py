@@ -32,7 +32,11 @@ H=504 (h rows 8- and 16-byte aligned); B = 1, 16, 17, 64 and 256 (m16 and
 32-row tile edges, one full launch); two launches bit-identical (the
 reduction order depends only on H); and K1, K5a, K1 again on one stream
 (each call's barrier counters are fresh). K2's dz there is held relative
-to the largest |dz|, as in ``test_k2_matches_plain_version``.
+to the largest |dz|, as in ``test_k2_matches_plain_version``. At H=512
+(``MAX_H``, the rgb family's width) the same, at B = 1, 8, 32 and 256. The
+rgb frontend in f32 on the card against the CPU: features 1e-5, conv
+gradients 1e-4 relative Frobenius (f32 sums in another order; TF32 would
+be ~1e-3 off).
 """
 
 import numpy as np
@@ -694,3 +698,91 @@ def test_late_fusion_step_launch_counts(cuda, finetune):
                       "bilstm_tm_bwd": 5 if finetune else 1, "ctc_fwd": 1, "ctc_bwd": 1}
     enc = [k for k in start if k.split(".")[0] in ("speech", "skeletal")]
     assert all(torch.equal(state.params[k], start[k]) != finetune for k in enc)
+
+
+# -------------------------------------------------------------------- rgb
+# The rgb family runs K1/K2 at H=512, MAX_H: 64 eight-unit slices a
+# direction, 128 cooperative blocks, every warp's K slice full; K2 opts in
+# to 230,400 bytes of shared memory at B=256. Its frontend's convs are
+# cuDNN's, f32 ones with TF32 off whatever the global flag says.
+
+
+@pytest.mark.parametrize("B", [1, 8, 32, 256])
+def test_k1_k2_at_max_h(cuda, B):
+    (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, 12, B, 512, seed=B)
+    assert streams[0].shape == (12, B, 512) and dz[0].shape == (12, B, 4, 512)
+    assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
+        (err_h, err_dz, err_dU)
+    again = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    assert all(torch.equal(a, b) for a, b in zip(streams, again))
+    dz_again = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    assert all(torch.equal(a, b) for a, b in zip(dz, dz_again))
+
+
+def test_cnn_frontend_f32_on_the_card_matches_the_cpu(cuda):
+    """The preset's frontend (60x60 frames, 16/32/48 channels) in f32 with
+    the global cuDNN TF32 flag ON: features within 1e-5 and the conv
+    kernels' gradients within 1e-4 relative Frobenius of the CPU's, which
+    TF32 (10 mantissa bits) would miss by orders of magnitude."""
+    from mgr_tpu_torch.models import layers
+
+    cnn = get_preset("rgb").cnn
+    gen = torch.Generator().manual_seed(8)
+    params = layers.init_cnn(gen, cnn)
+    for i, c in enumerate(cnn.channels):
+        params[f"bias_{i}"] = 0.1 * torch.randn((c,), generator=gen)
+    x = (torch.randint(0, 256, (2, 8, 60, 60, 1), generator=gen) - 128.0) / 255.0
+    tangent = torch.randn((2, 8, layers.cnn_output_dim(cnn)), generator=gen)
+    out = {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+            feats = layers.cnn_frontend(p, x.to(dev), cnn, torch.float32)
+            grads = torch.autograd.grad((feats * tangent.to(dev)).sum(), list(p.values()))
+            out[dev.type] = (feats.detach().cpu(), [g.cpu() for g in grads])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert torch.backends.cudnn.allow_tf32 == saved
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-5
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - w).norm() / w.norm()) <= 1e-4
+
+
+def test_rgb_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch):
+    """The rgb preset at T=40, B=2 (the full CNN, BiLSTM(512)x2, remat on):
+    one step launches K1 2, K2 2, K3 1, K4 1; its loss and gradients
+    (cnn.* included) through K1-K4 against the same step with the plain
+    versions on the card: loss 1e-3 relative, gradients 5e-2 relative
+    Frobenius."""
+    cfg = get_preset("rgb").replace(maxlen=40, batch_size=2)
+    model = build_model(cfg, seed=3, device=cuda)
+    rng = np.random.default_rng(6)
+    batch = {
+        "inputs": ((rng.integers(0, 256, (2, 40, 60, 60, 1)) - 128.0) / 255.0).astype(
+            np.float32),
+        "labels": np.array([[1, 2] + [-1] * 26, [3, 3, 3] + [-1] * 25], np.int32),
+        "input_length": np.array([38, 38], np.int32),
+        "label_length": np.array([2, 3], np.int32),
+    }
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    dispatch.reset_launch_counts()
+    loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), batch, None)
+    counts = dispatch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "bilstm_tm_fwd": 2, "bilstm_tm_bwd": 2,
+                      "ctc_fwd": 1, "ctc_bwd": 1}
+    grads = {k: g.clone() for k, g in grads.items()}
+    monkeypatch.setattr(k1, "bilstm_tm_streams", lambda xp0, xp1, U, store_c=False:
+                        tlstm.bilstm_scan_tm_plain(xp0, xp1, U, store_c=store_c,
+                                                   out_dtype=torch.bfloat16))
+    monkeypatch.setattr(k1, "bilstm_tm_bwd", lambda *a: tlstm.bilstm_scan_tm_bwd_plain(*a)[:2])
+    monkeypatch.setattr(k3, "ctc_alpha_loss", tctc.ctc_alpha_loss_plain)
+    monkeypatch.setattr(k3, "ctc_alpha_bwd", tctc.ctc_alpha_bwd_plain)
+    p_loss, p_grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), batch, None)
+    assert dispatch.launch_counts() == counts  # the plain path launched nothing
+    assert abs(float(loss) - float(p_loss)) <= 1e-3 * abs(float(p_loss))
+    assert {f"cnn.conv_{i}" for i in range(3)} <= set(p_grads)
+    for k, want in p_grads.items():
+        rel = float((grads[k] - want).norm() / want.norm().clamp_min(1e-12))
+        assert rel <= 5e-2, (k, rel)

@@ -48,7 +48,12 @@ def test_every_module_imports_with_jax_blocked():
         "from mgr_tpu_torch.train import curriculum\n"
         "from mgr_tpu_torch.data.datasets import build_early_fusion_dataset\n"
         "from mgr_tpu_torch.data.formats import load_monolithic_audio_csv\n"
-        "from mgr_tpu_torch.models.zoo import EarlyFusionModel, LateFusionModel\n"
+        "from mgr_tpu_torch.models.zoo import EarlyFusionModel, LateFusionModel, RGBModel\n"
+        "from mgr_tpu_torch.models.layers import CNN, cnn_frontend, cnn_output_dim, init_cnn\n"
+        "from mgr_tpu_torch.data.datasets import LazyVideoBatcher, build_rgb_dataset\n"
+        "from mgr_tpu_torch.data.formats import list_video_files, load_video_npy\n"
+        "build_parser().parse_args(['train', 'rgb', '--data-dir', 'v', '--labels', 'l'])\n"
+        "build_parser().parse_args(['infer', 'rgb', 'Sample00001_color.npy'])\n"
         "from mgr_tpu_torch.core import metrics, prng\n"
         "from mgr_tpu_torch.kernels import lstm_scan\n"
         "print('ok')\n"

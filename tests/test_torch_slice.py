@@ -147,7 +147,7 @@ def test_bridge_round_trip_is_bit_exact():
         assert torch.equal(again[k], v)
 
 
-@pytest.mark.parametrize("name", ["speech", "skeletal", "early_fusion", "late_fusion"])
+@pytest.mark.parametrize("name", ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"])
 def test_full_width_state_dict_mirrors_jax_pytree(name):
     cfg = cfglib.get_preset(name)
     shapes = jax.eval_shape(jbuild(cfg).init, prng.root_key(0))
@@ -158,14 +158,11 @@ def test_full_width_state_dict_mirrors_jax_pytree(name):
         assert got["fusion.W"] == (2, 1600, 4, 100) and got["head.W"] == (200, 22)
         assert got["speech.blstm_0.U"] == (2, 500, 4, 500)
         return
+    if name == "rgb":  # HWIO conv kernels; the encoder on the CNN's 4 x 4 x 48 features
+        assert got["cnn.conv_0"] == (5, 5, 1, 16) and got["cnn.conv_2"] == (4, 4, 32, 48)
+        assert got["encoder.blstm_0.W"] == (2, 768, 4, 512)
     H = cfg.encoder.hidden
     assert got["encoder.blstm_0.U"] == (2, H, 4, H) and got["head.W"] == (2 * H, cfg.nb_classes)
-
-
-@pytest.mark.parametrize("name", ["rgb"])
-def test_unported_families_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tconfig.get_preset(name))
 
 
 def test_checkpoint_round_trip(tmp_path):
