@@ -4,7 +4,9 @@ serves and trains the speech BLSTM+CTC pipeline end to end through the
 kernels, on one process and over meshes of ranks that share the card,
 then trains and serves the two fusion families (early fusion, and late
 fusion over frozen grafted encoders) and the rgb family (the CNN frontend
-on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H).
+on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H), and prepares a
+corpus from raw recordings (WAVs, Kinect CSVs, videos) with the
+featurizers on the card, then trains and decodes it.
 
     python3 chip_smoke.py [--profile]
 
@@ -29,7 +31,14 @@ check), the rgb kernels (K1/K2 at H=512, T=1900, B=8 and 256, K3/K4 at
 K=22, N=28, against their plain versions and timed), the rgb slice (40
 seeded videos on disk, ``fit`` at full width with remat, decode to MLF,
 evaluate, B=1 ``infer rgb``; the step's launches, wall and peak memory,
-its kernel step against the plain one, a learning check), the mesh slice
+its kernel step against the plain one, a learning check), the prepare
+slice (seeded raw recordings at the reference's sizes: 8 WAVs of 95 s, 8
+Kinect CSVs of 1,900 frames, 8 annotation files, 2 videos of 1,900 480x640
+frames; ``prepare-audio``, ``prepare-skeletal --split-at``, ``prepare-rgb``
+and ``mix`` through the port's CLI, each command's host and device seconds
+per file; each featurizer's card output against its CPU output on one
+full-size file; ``train speech`` for one epoch and ``decode speech`` on the
+prepared corpus through the kernels), the mesh slice
 (a mesh train and eval step at full speech width on 2x1, 1x2 and 2x2
 meshes of gloo ranks that time-share the one card, against the
 single-process step, and ``fit`` over the 2x2 mesh), with ``--profile`` a
@@ -38,7 +47,8 @@ step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
 remat recompute and backward named apart), a JSON line of the kernels
 (each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
-and rgb paths and their times at those shapes), and last ``{"ok": true, "device":
+and rgb paths and their times at those shapes, and their launches on the
+prepare path), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -101,6 +111,17 @@ H_RGB, B_RGB = 512, 8  # the rgb preset's BiLSTM width (MAX_H) and train batch
 B_RGB_EDGE = 256       # K2's largest launch: 230,400 bytes of shared memory at H=512
 K_RGB, N_RGB = 22, 28  # the rgb preset's gesture classes and label cap
 N_RGB_FILES, RGB_EPOCHS = 40, 2  # the rgb slice: the 80/20 split gives 4 train + 1 val batch
+# The prepare slice, at the reference's sizes: 95 s WAVs (9,498 MFCC frames,
+# T=1900 after the speech preset's x5), 1,900-frame Kinect CSVs and 480x640
+# videos; only the file counts are cut. Ids below PREP_SPLIT_AT are train.
+PREP_TRAIN_IDS, PREP_VAL_IDS, PREP_SPLIT_AT = (1, 2, 3, 4), (403, 404, 405, 406), 403
+PREP_VIDEO_IDS = (1, 2)
+PREP_WAV_S, PREP_RATE, PREP_FRAMES = 95, 16000, 1900
+PREP_MOVED = 2         # mix: val files moved into train
+PREP_BATCH = 2         # the speech fit on 8 files: the 80/20 split gives 3 train + 1 val batch
+TOL_MFCC_RTOL, TOL_MFCC_ATOL = 1e-4, 1e-3  # card vs CPU: cuFFT against the CPU's FFT
+TOL_KIN = 1e-5         # kinematics' non-integer columns (atan2); integer columns exact
+TOL_ROI = 1e-3         # ROI crops on the 0-255 scale (f32 products in another order)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
@@ -178,14 +199,18 @@ def library_ctc_ms(lp, labels, in_len, lab_len, blank, *, backward: bool) -> flo
     return cuda_time_ms(lambda: torch.autograd.grad(loss, x, retain_graph=True), reps=20)
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port has no CPU fallback here")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    print(smi.stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -1041,6 +1066,224 @@ def rgb_phase(dev) -> dict:
                           "steps": LEARN_STEPS})
     del model, state
     torch.cuda.empty_cache()
+    return launches
+
+
+def _write_raw_recordings(root, seed):
+    """Seeded raw inputs of the prepare slice under ``root``: WAVs (16 kHz,
+    16-bit mono: noise under a few tones), Kinect CSVs (a random walk of
+    integer joints, some past the frame), annotation files (1-8 gestures
+    a file), and uint8 gray videos with a Kinect CSV each."""
+    import wave
+
+    from mgr_tpu_torch.data.skeletal_pipeline import KINECT_COLUMNS
+    from mgr_tpu_torch.data.vocab import GESTURE_NAME_TO_ID
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("wavs", "kinect", "labels", "videos")}
+    for d in dirs.values():
+        os.makedirs(d)
+    t = np.arange(PREP_WAV_S * PREP_RATE) / PREP_RATE
+    names = sorted(GESTURE_NAME_TO_ID)
+    for fid in PREP_TRAIN_IDS + PREP_VAL_IDS:
+        tones = sum(np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 4000, size=3))
+        wav = (2000 * tones + 500 * rng.standard_normal(t.size)).astype("<i2")
+        with wave.open(os.path.join(dirs["wavs"], f"Sample{fid:05d}_audio.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(PREP_RATE)
+            w.writeframes(wav.tobytes())
+        tracks = []
+        for _ in KINECT_COLUMNS:
+            start = rng.integers(150, 450, size=2)
+            steps = rng.integers(-8, 9, size=(PREP_FRAMES, 2)) * (rng.random((PREP_FRAMES, 1)) < 0.5)
+            tracks.append(np.clip(start + np.cumsum(steps, axis=0), 0, 700))
+        with open(os.path.join(dirs["kinect"], f"Sample{fid:05d}_skeleton.csv"), "w") as f:
+            f.write(",".join(["frame"] + list(KINECT_COLUMNS)) + "\n")
+            for i in range(PREP_FRAMES):
+                f.write(",".join([str(i)] + [f"[{tr[i, 0]} {tr[i, 1]}]" for tr in tracks]) + "\n")
+        ends = np.sort(rng.choice(np.arange(20, PREP_FRAMES, 20), size=int(rng.integers(1, 9)),
+                                  replace=False))
+        with open(os.path.join(dirs["labels"], f"Sample{fid:05d}_data_labels.csv"), "w") as f:
+            for end in ends:
+                f.write(f"{names[int(rng.integers(len(names)))]},0,{end - 19},0,{end}\n")
+    for fid in PREP_VIDEO_IDS:
+        np.save(os.path.join(dirs["videos"], f"Sample{fid:05d}_color.npy"),
+                rng.integers(0, 256, (PREP_FRAMES, 480, 640), dtype=np.uint8))
+    return dirs
+
+
+def _cli(argv):
+    """One command of the port's CLI: its printed JSON line and its wall
+    seconds (host clock, ending in a synchronize)."""
+    import io
+
+    from mgr_tpu_torch.cli.main import main as cli_main
+
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def _cli_timed(argv, n_files):
+    """:func:`_cli` under torch.profiler: seconds per file of the wall, of
+    the device's busy time (the kernel and copy rows), and of the host
+    (wall - device)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        line, wall = _cli(argv)
+    device_s = _device_us(prof) / 1e6
+    return line, {"files": n_files, "wall_s": wall, "s_per_file": wall / n_files,
+                  "device_s_per_file": device_s / n_files,
+                  "host_s_per_file": (wall - device_s) / n_files}
+
+
+def _concat_audio_csvs(audio_dir, ids, out):
+    """Per-file audio CSVs -> one monolithic CSV (the header once)."""
+    with open(out, "w") as f:
+        for i, fid in enumerate(ids):
+            with open(os.path.join(audio_dir, f"audio_{fid}.csv")) as src:
+                lines = src.readlines()
+            f.writelines(lines if i == 0 else lines[1:])
+
+
+def _mfcc_err(got, want):
+    """Max |got - want| and the largest excess over rtol |want| + atol."""
+    diff = (got - want).abs()
+    excess = diff - (TOL_MFCC_RTOL * want.abs() + TOL_MFCC_ATOL)
+    return float(diff.max()), float(excess.max())
+
+
+def prepare_phase(dev) -> dict:
+    """The data-preparation slice at the reference's sizes, on seeded raw
+    recordings in a temp dir: ``prepare-audio`` (8 WAVs of 95 s),
+    ``prepare-skeletal --split-at`` (8 Kinect CSVs of 1,900 frames),
+    ``prepare-rgb`` (2 videos of 1,900 480x640 frames) on the card and
+    ``mix`` through the port's CLI, ``build_label_csv`` on 8 annotation
+    files; each featurizer's card output against the port's CPU output on
+    one full-size file; then ``train speech`` (1 epoch, full width, the
+    batch cut to 2 for 8 files) and ``decode speech`` through the CLI on the
+    prepared corpus: that run's K1-K4 launches are the prepare path's."""
+    from mgr_tpu_torch.data import audio_pipeline, rgb_pipeline, skeletal_pipeline
+    from mgr_tpu_torch.data.formats import list_audio_files, load_label_csv, write_label_csv
+    from mgr_tpu_torch.data.labels_pipeline import build_label_csv
+    from mgr_tpu_torch.decode.mlf import read_mlf
+    from mgr_tpu_torch.ops import dispatch
+
+    cpu = torch.device("cpu")
+    all_ids = PREP_TRAIN_IDS + PREP_VAL_IDS
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        raw = _write_raw_recordings(root, SEED + 55)
+        gen_s = time.perf_counter() - t0
+        out = {k: os.path.join(root, k) for k in ("audio", "rois", "mixed", "runs")}
+        sk_train, sk_val = os.path.join(root, "sk_train.csv"), os.path.join(root, "sk_val.csv")
+        times = {}
+        line, times["prepare-audio"] = _cli_timed(
+            ["prepare-audio", "--wav-dir", raw["wavs"], "--out-dir", out["audio"]], len(all_ids))
+        if line != {"files": len(all_ids)} or list_audio_files(out["audio"]) != sorted(all_ids):
+            raise AssertionError(f"prepare-audio: {line}")
+        line, times["prepare-skeletal"] = _cli_timed(
+            ["prepare-skeletal", "--raw-dir", raw["kinect"], "--out-csv", sk_train,
+             "--val-csv", sk_val, "--split-at", str(PREP_SPLIT_AT)], len(all_ids))
+        if line != {"videos": len(all_ids)}:
+            raise AssertionError(f"prepare-skeletal: {line}")
+        line, times["prepare-rgb"] = _cli_timed(
+            ["prepare-rgb", "--video-dir", raw["videos"], "--skeletal-dir", raw["kinect"],
+             "--out-dir", out["rois"]], len(PREP_VIDEO_IDS))
+        if line != {"videos": len(PREP_VIDEO_IDS)}:
+            raise AssertionError(f"prepare-rgb: {line}")
+
+        # Labels: one CSV for all files (the speech fit), one per side for mix.
+        t0 = time.perf_counter()
+        labels_all = os.path.join(root, "labels.csv")
+        labels = build_label_csv(raw["labels"], labels_all)
+        lt, lv = os.path.join(root, "labels_train.csv"), os.path.join(root, "labels_val.csv")
+        write_label_csv(lt, {k: labels[k] for k in PREP_TRAIN_IDS})
+        write_label_csv(lv, {k: labels[k] for k in PREP_VAL_IDS})
+        label_s = time.perf_counter() - t0
+        if load_label_csv(labels_all) != labels or sorted(labels) != sorted(all_ids):
+            raise AssertionError(f"build_label_csv: {labels}")
+        at, av = os.path.join(root, "audio_train.csv"), os.path.join(root, "audio_val.csv")
+        _concat_audio_csvs(out["audio"], PREP_TRAIN_IDS, at)
+        _concat_audio_csvs(out["audio"], PREP_VAL_IDS, av)
+        line, times["mix"] = _cli_timed(
+            ["mix", "--audio-train", at, "--audio-val", av, "--skeletal-train", sk_train,
+             "--skeletal-val", sk_val, "--train-labels", lt, "--val-labels", lv,
+             "--out-root", out["mixed"], "--n-moved", str(PREP_MOVED)], len(all_ids))
+        moved = len(list_audio_files(os.path.join(out["mixed"], "train_audio")))
+        if line != {"moved": PREP_MOVED, "kept": len(PREP_VAL_IDS) - PREP_MOVED} or \
+                moved != len(PREP_TRAIN_IDS) + PREP_MOVED:
+            raise AssertionError(f"mix: {line}, {moved} train audio files")
+
+        # Card against CPU, one full-size file of each featurizer.
+        wav = os.path.join(raw["wavs"], "Sample00001_audio.wav")
+        on = (("card", dev), ("cpu", cpu))
+        feats = {k: torch.from_numpy(audio_pipeline.featurize_wav(wav, device=d)) for k, d in on}
+        mfcc_abs, mfcc_excess = _mfcc_err(feats["card"], feats["cpu"])
+        n_mfcc = 1 + (PREP_WAV_S * PREP_RATE - 400) // 160
+        if feats["card"].shape != (n_mfcc, 39) or mfcc_excess > 0:
+            raise AssertionError(f"MFCC card vs CPU: {tuple(feats['card'].shape)}, {mfcc_abs}")
+        joints = skeletal_pipeline.parse_kinect_csv(
+            os.path.join(raw["kinect"], "Sample00001_skeleton.csv"))
+        kin = {k: skeletal_pipeline.video_features(joints, device=d) for k, d in on}
+        kin_int_equal = bool((kin["card"][:, 4:6] == kin["cpu"][:, 4:6]).all())
+        kin_err = float(np.abs(kin["card"] - kin["cpu"]).max())
+        if kin["card"].shape != (PREP_FRAMES, 20) or not kin_int_equal or kin_err > TOL_KIN:
+            raise AssertionError(f"kinematics card vs CPU: {kin_int_equal}, {kin_err}")
+        video = os.path.join(raw["videos"], "Sample00001_color.npy")
+        roi, roi_s = {}, {}
+        for k, d in on:
+            t1 = time.perf_counter()
+            roi[k] = rgb_pipeline.extract_video(video, joints["hip"], joints["shc"], device=d)
+            roi_s[k] = time.perf_counter() - t1
+        roi_err = float(np.abs(roi["card"] - roi["cpu"]).max())
+        written = np.load(os.path.join(out["rois"], "Sample00001_color.npy"))
+        near_int = np.abs(roi["cpu"] - np.round(roi["cpu"])) < TOL_ROI
+        if roi["card"].shape != (PREP_FRAMES, 60, 60, 1) or roi_err > TOL_ROI or \
+                ((written != roi["cpu"].astype(np.uint8)) & ~near_int).any():
+            raise AssertionError(f"ROI card vs CPU: {roi_err}")
+        del roi
+
+        # The prepared corpus trained and decoded through the kernels.
+        dispatch.reset_launch_counts()
+        line, train_s = _cli(
+            ["train", "speech", "--data-dir", out["audio"], "--labels", labels_all,
+             "--workdir", out["runs"], "--epochs", "1", "--batch-size", str(PREP_BATCH)])
+        if not np.isfinite(line["best_val_loss"]) or line["epochs_run"] != 1:
+            raise AssertionError(f"train speech on the prepared corpus: {line}")
+        mlf = os.path.join(root, "speech.mlf")
+        line, decode_s = _cli(
+            ["decode", "speech", "--workdir", out["runs"], "--data-dir", out["audio"],
+             "--labels", labels_all, "--out", mlf])
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        if line["decoded"] != len(all_ids) or len(read_mlf(mlf)) != len(all_ids):
+            raise AssertionError(f"decode speech on the prepared corpus: {line}")
+    path = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
+    if min(launches[k] for k in path) <= 0 or any(v for k, v in launches.items()
+                                                  if k not in path):
+        raise AssertionError(f"the prepare path took the wrong kernels: {launches}")
+    phase("prepare", card=_smi(), wavs=len(all_ids), wav_s=PREP_WAV_S, kinect_csvs=len(all_ids),
+          videos=len(PREP_VIDEO_IDS), frames=PREP_FRAMES, raw_inputs_s=gen_s,
+          commands=times, build_label_csv_s=label_s,
+          card_vs_cpu={
+              "mfcc": {"shape": list(feats["card"].shape), "max_abs_err": mfcc_abs,
+                       "max_excess_over_tol": mfcc_excess, "rtol": TOL_MFCC_RTOL,
+                       "atol": TOL_MFCC_ATOL},
+              "kinematics": {"integer_columns_equal": kin_int_equal, "max_abs_err": kin_err,
+                             "tol": TOL_KIN},
+              "roi": {"max_abs_err": roi_err, "tol": TOL_ROI, "card_s": roi_s["card"],
+                      "cpu_s": roi_s["cpu"]}},
+          train={"wall_s": train_s, "batch": PREP_BATCH, "epochs": 1},
+          decode={"wall_s": decode_s, "files": len(all_ids)},
+          launches=launches)
     return launches
 
 
@@ -2011,6 +2254,7 @@ def main() -> int:
     fusion = fusion_phase(dev)
     rgb_shapes = rgb_kernels_phase(dev)
     rgb = rgb_phase(dev)
+    prepare = prepare_phase(dev)
     mesh = mesh_phase(dev)
     if args.profile:
         profile_phase(dev)
@@ -2026,7 +2270,8 @@ def main() -> int:
     # with the serving path's counts of K1 and K3, the fusion path's (both
     # families' fit, decode and evaluate) and the rgb path's (fit, decode,
     # evaluate, infer) beside them, and each one's measurements at the
-    # fusion and the rgb shapes; K5a/K5b from rank 0 of the 2x2 mesh's
+    # fusion and the rgb shapes, and the prepare path's (the prepared
+    # speech corpus trained and decoded); K5a/K5b from rank 0 of the 2x2 mesh's
     # train and eval step (the mesh path); K6a/K6b from the batch-major
     # layer path.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
@@ -2040,6 +2285,7 @@ def main() -> int:
             if name in fusion_shapes else {}),
          **({"launches_rgb": rgb[name], "at_rgb_shape": rgb_shapes[name]}
             if name in rgb_shapes else {}),
+         **({"launches_prepare": prepare[name]} if name in KERNELS[:4] else {}),
          **measured[name]}
         for name in KERNELS
     ]

@@ -6,16 +6,19 @@ counterpart of the same name:
 
   core      pipeline config and presets; named random streams (prng);
             checkpoints in the port's own format (``.pt``); JSONL metrics
-  data      vocabularies, batch assembly, speech and skeletal corpus
-            readers (numpy, no pandas)
+  data      vocabularies, batch assembly, the corpus readers (numpy, no
+            pandas); data preparation: the audio, skeletal, rgb and label
+            pipelines and the mixer
   ops       dispatch rule, BiLSTM recurrence, CTC loss (each with its
-            adjoint), best-path decode
+            adjoint), best-path decode; the featurizers (HTK MFCC,
+            skeletal kinematics, ROI crop and resize)
   kernels   wrappers around the hand-written CUDA kernels (``csrc/``) and
             the autograd Functions that pair them
   models    dense head, residual BLSTM encoder, model zoo (train mode)
   train     train / eval / predict / decode steps, Keras-parity Adam, fit
   decode    MLF writer, scorer, decoder, in-framework evaluation
-  cli       ``train`` / ``infer`` / ``decode`` / ``evaluate`` / ``score``
+  cli       ``train`` / ``curriculum`` / ``infer`` / ``decode`` /
+            ``evaluate`` / ``score`` / ``prepare-*`` / ``mix``
 
 The port imports ``torch`` and never ``jax``, and nothing of ``mgr_tpu``:
 it stands alone on a machine that has only this package.

@@ -1,6 +1,9 @@
 """CLI of the port: the train, curriculum and serving commands of
 ``mgr_tpu/cli/main.py`` (``:101-344``), with the same flags, for the five
-families: speech, skeletal, rgb, early fusion and late fusion.
+families: speech, skeletal, rgb, early fusion and late fusion; and the
+data-preparation commands (``:347-391``): ``prepare-audio``,
+``prepare-skeletal``, ``prepare-rgb`` (featurizers on ``--device``) and
+``mix`` (host only).
 
     python -m mgr_tpu_torch.cli.main train speech --data-dir ... --labels ... --workdir runs
     python -m mgr_tpu_torch.cli.main train rgb --data-dir <Sample#####_color.npy dir> --labels ...
@@ -13,6 +16,13 @@ families: speech, skeletal, rgb, early fusion and late fusion.
     python -m mgr_tpu_torch.cli.main decode speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main evaluate speech --workdir runs --data-dir ... --labels ...
     python -m mgr_tpu_torch.cli.main score refs.mlf hyps.mlf
+    python -m mgr_tpu_torch.cli.main prepare-audio --wav-dir wavs --out-dir audio
+    python -m mgr_tpu_torch.cli.main prepare-skeletal --raw-dir kinect --out-csv train.csv \
+        --val-csv val.csv --split-at 403
+    python -m mgr_tpu_torch.cli.main prepare-rgb --video-dir videos --skeletal-dir kinect \
+        --out-dir rois
+    python -m mgr_tpu_torch.cli.main mix --audio-train ... --audio-val ... --skeletal-train ... \
+        --skeletal-val ... --train-labels ... --val-labels ... --out-root mixed
 
 A workdir holds ``<pipeline>_config.json`` and
 ``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``);
@@ -22,7 +32,8 @@ skeletal slots of its workdir into the fusion model's frozen encoders
 build the model through that graft, as the JAX CLI does; ``curriculum``
 trains the three stages in one workdir. The rgb commands read a directory
 of per-video frames (``--data-dir``), normalised as ``(x - 128) / 255``,
-as ``infer rgb`` normalises its one video. The model runs on ``--device``:
+as ``infer rgb`` normalises its one video. The model (or a ``prepare-*``
+command's featurizer) runs on ``--device``:
 ``cuda`` (the default: the first card, through the kernels) or ``cpu``
 (through their plain versions), and a command asked for ``cuda`` on a
 host without a card fails; it never carries on on the CPU.
@@ -296,10 +307,49 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_prepare_skeletal(args) -> int:
+    from mgr_tpu_torch.data.skeletal_pipeline import extract_directory
+
+    ids = extract_directory(args.raw_dir, args.out_csv, split_at=args.split_at,
+                            val_csv=args.val_csv, device=_device(args))
+    print(json.dumps({"videos": len(ids)}))
+    return 0
+
+
+def cmd_prepare_audio(args) -> int:
+    from mgr_tpu_torch.data.audio_pipeline import extract_directory
+
+    ids = extract_directory(args.wav_dir, args.out_dir, device=_device(args))
+    print(json.dumps({"files": len(ids)}))
+    return 0
+
+
+def cmd_prepare_rgb(args) -> int:
+    from mgr_tpu_torch.data.rgb_pipeline import extract_directory
+
+    ids = extract_directory(args.video_dir, args.skeletal_dir, args.out_dir,
+                            out_dim=args.img_dim, device=_device(args))
+    print(json.dumps({"videos": len(ids)}))
+    return 0
+
+
+def cmd_mix(args) -> int:
+    from mgr_tpu_torch.data.mixer import mix_all
+
+    info = mix_all(
+        audio_train_csv=args.audio_train, audio_val_csv=args.audio_val,
+        skeletal_train_csv=args.skeletal_train, skeletal_val_csv=args.skeletal_val,
+        train_labels_csv=args.train_labels, val_labels_csv=args.val_labels,
+        out_root=args.out_root, n_moved=args.n_moved,
+    )
+    print(json.dumps({"moved": len(info["moved"]), "kept": len(info["kept"])}))
+    return 0
+
+
 def _add_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
-                   help="where the model runs: cuda (default; fails without a "
-                        "card) or cpu")
+                   help="where the model or featurizer runs: cuda (default; "
+                        "fails without a card) or cpu")
 
 
 def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
@@ -399,6 +449,42 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--partial", action="store_true",
                     help="ignore refs missing from hyps")
     ps.set_defaults(fn=cmd_score)
+
+    pk = sub.add_parser("prepare-skeletal", help="raw Kinect CSVs -> monolithic feature CSV")
+    pk.add_argument("--raw-dir", required=True)
+    pk.add_argument("--out-csv", required=True)
+    pk.add_argument("--val-csv", default=None)
+    pk.add_argument("--split-at", type=int, default=None,
+                    help="file id boundary (reference uses 403)")
+    _add_device_flag(pk)
+    pk.set_defaults(fn=cmd_prepare_skeletal)
+
+    pa = sub.add_parser("prepare-audio",
+                        help="WAVs -> 39-d MFCC per-file CSVs (replaces HTK HCopy)")
+    pa.add_argument("--wav-dir", required=True)
+    pa.add_argument("--out-dir", required=True)
+    _add_device_flag(pa)
+    pa.set_defaults(fn=cmd_prepare_audio)
+
+    pr = sub.add_parser("prepare-rgb",
+                        help="videos + raw Kinect CSVs -> cropped upper-body (T,60,60,1) .npy")
+    pr.add_argument("--video-dir", required=True)
+    pr.add_argument("--skeletal-dir", required=True)
+    pr.add_argument("--out-dir", required=True)
+    pr.add_argument("--img-dim", type=int, default=60)
+    _add_device_flag(pr)
+    pr.set_defaults(fn=cmd_prepare_rgb)
+
+    pm = sub.add_parser("mix", help="move N val files into training across all streams")
+    pm.add_argument("--audio-train", required=True)
+    pm.add_argument("--audio-val", required=True)
+    pm.add_argument("--skeletal-train", required=True)
+    pm.add_argument("--skeletal-val", required=True)
+    pm.add_argument("--train-labels", required=True)
+    pm.add_argument("--val-labels", required=True)
+    pm.add_argument("--out-root", required=True)
+    pm.add_argument("--n-moved", type=int, default=95)
+    pm.set_defaults(fn=cmd_mix)
     return p
 
 

@@ -58,6 +58,15 @@ def load_label_csv(path: str | os.PathLike) -> Dict[int, List[int]]:
         }
 
 
+def write_label_csv(path: str | os.PathLike, labels: Dict[int, List[int]]) -> None:
+    """{file_id: [class ids]} -> ``Id,Sequence`` in the dict's order (a copy
+    of ``mgr_tpu/data/synthetic.py::write_label_csv``)."""
+    with open(path, "w") as f:
+        f.write("Id,Sequence\n")
+        for fid, seq in labels.items():
+            f.write(f"{fid},{' '.join(str(x) for x in seq)}\n")
+
+
 def list_audio_files(data_dir: str | os.PathLike) -> List[int]:
     """Sorted numeric ids of the ``audio_<id>.csv`` files."""
     ids = []

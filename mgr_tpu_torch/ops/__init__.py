@@ -1,1 +1,2 @@
-"""Dispatch rule, BiLSTM recurrence, CTC loss, best-path decoding."""
+"""Dispatch rule, BiLSTM recurrence, CTC loss, best-path decoding, and the
+featurizers (MFCC, kinematics, ROI crop and resize)."""

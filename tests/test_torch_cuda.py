@@ -36,8 +36,13 @@ to the largest |dz|, as in ``test_k2_matches_plain_version``. At H=512
 (``MAX_H``, the rgb family's width) the same, at B = 1, 8, 32 and 256. The
 rgb frontend in f32 on the card against the CPU: features 1e-5, conv
 gradients 1e-4 relative Frobenius (f32 sums in another order; TF32 would
-be ~1e-3 off).
+be ~1e-3 off). The featurizers on the card against the CPU, with the global
+TF32 flag on during their products: MFCC rtol 1e-4 / atol 1e-3 (cuFFT
+against the CPU's FFT), kinematics' floored and truncated columns exactly
+and the rest 1e-5, ROI crops 1e-3 on the 0-255 scale.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -786,3 +791,76 @@ def test_rgb_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch):
     for k, want in p_grads.items():
         rel = float((grads[k] - want).norm() / want.norm().clamp_min(1e-12))
         assert rel <= 5e-2, (k, rel)
+
+
+@contextlib.contextmanager
+def _global_tf32_on():
+    """cuBLAS's global TF32 flag on for the block, restored after it: the
+    featurizers' f32 products must not take it."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = saved
+    assert flags.allow_tf32 == saved
+
+
+def test_mfcc_on_the_card_matches_the_cpu(cuda):
+    """A 95 s, 16 kHz waveform (9,498 frames) and a batch of short ones,
+    with the global TF32 flag on: within the MFCC tolerance (rtol 1e-4,
+    atol 1e-3; cuFFT against the CPU's FFT) of the CPU's features."""
+    from mgr_tpu_torch.ops import mfcc
+
+    rng = np.random.default_rng(11)
+    sig = torch.from_numpy((3000 * rng.standard_normal(95 * 16000)).astype(np.float32))
+    sigs = torch.from_numpy((3000 * rng.standard_normal((3, 4000))).astype(np.float32))
+    with _global_tf32_on():
+        got = mfcc.mfcc_39(sig.to(cuda)).cpu()
+        got_b = mfcc.batch_mfcc_39(sigs.to(cuda)).cpu()
+    assert got.shape == (9498, 39)
+    torch.testing.assert_close(got, mfcc.mfcc_39(sig), rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got_b, mfcc.batch_mfcc_39(sigs), rtol=1e-4, atol=1e-3)
+
+
+def test_kinematics_on_the_card_match_the_cpu(cuda):
+    """1,900 frames of integer Kinect tracks: the floored and truncated
+    columns exactly, the rest within 1e-5, the extra columns too."""
+    from mgr_tpu_torch.ops import kinematics
+
+    rng = np.random.default_rng(12)
+    joints = {}
+    for name in ("lh", "rh", "le", "re", "hip", "shc"):
+        steps = rng.integers(-6, 7, size=(1900, 2)) * (rng.random((1900, 1)) < 0.5)
+        joints[name] = torch.from_numpy(
+            np.clip(rng.integers(100, 400, size=2) + np.cumsum(steps, 0), 0, 479).astype(np.float32))
+    on_card = {k: v.to(cuda) for k, v in joints.items()}
+    got, want = kinematics.skeletal_features(on_card).cpu(), kinematics.skeletal_features(joints)
+    assert torch.equal(got[:, 4:6], want[:, 4:6])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    extra_got, extra_want = kinematics.extra_features(on_card), kinematics.extra_features(joints)
+    for k, w in extra_want.items():
+        torch.testing.assert_close(extra_got[k].cpu(), w, rtol=0, atol=1e-5)
+
+
+def test_roi_crop_resize_on_the_card_matches_the_cpu(cuda):
+    """300 uint8 frames of 480 x 640 (more than one chunk) with boxes that
+    shrink, grow and fall back, the global TF32 flag on: within 1e-3 of the
+    CPU on the 0-255 scale (TF32 would be ~0.1 off)."""
+    from mgr_tpu_torch.ops import image
+
+    rng = np.random.default_rng(13)
+    T = 300
+    video = torch.from_numpy(rng.integers(0, 256, size=(T, 480, 640)).astype(np.uint8))
+    hip = torch.from_numpy(np.stack([rng.integers(0, 640, T), rng.integers(200, 480, T)],
+                                    1).astype(np.float32))
+    shc = torch.from_numpy(np.stack([hip[:, 0].numpy(), hip[:, 1].numpy()
+                                     - rng.integers(50, 250, T)], 1).astype(np.float32))
+    valid = torch.from_numpy(rng.random(T) < 0.8)
+    with _global_tf32_on():
+        got = image.extract_upper_body_video(video.to(cuda), hip.to(cuda), shc.to(cuda), 60,
+                                             valid.to(cuda)).cpu()
+    want = image.extract_upper_body_video(video, hip, shc, 60, valid)
+    assert got.shape == (T, 60, 60, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

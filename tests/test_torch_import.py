@@ -56,6 +56,20 @@ def test_every_module_imports_with_jax_blocked():
         "build_parser().parse_args(['infer', 'rgb', 'Sample00001_color.npy'])\n"
         "from mgr_tpu_torch.core import metrics, prng\n"
         "from mgr_tpu_torch.kernels import lstm_scan\n"
+        "from mgr_tpu_torch.ops import image, kinematics, mfcc\n"
+        "from mgr_tpu_torch.data import (audio_pipeline, labels_pipeline, mixer,\n"
+        "                                rgb_pipeline, skeletal_pipeline)\n"
+        "build_parser().parse_args(['prepare-audio', '--wav-dir', 'w', '--out-dir', 'o',\n"
+        "                           '--device', 'cpu'])\n"
+        "build_parser().parse_args(['prepare-skeletal', '--raw-dir', 'r', '--out-csv', 'o',\n"
+        "                           '--val-csv', 'v', '--split-at', '403'])\n"
+        "build_parser().parse_args(['prepare-rgb', '--video-dir', 'v', '--skeletal-dir', 's',\n"
+        "                           '--out-dir', 'o', '--img-dim', '60'])\n"
+        "build_parser().parse_args(['mix', '--audio-train', 'a', '--audio-val', 'b',\n"
+        "                           '--skeletal-train', 'c', '--skeletal-val', 'd',\n"
+        "                           '--train-labels', 'e', '--val-labels', 'f',\n"
+        "                           '--out-root', 'g', '--n-moved', '5'])\n"
+        "assert 'pandas' not in sys.modules, 'pandas imported by the data preparation'\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
