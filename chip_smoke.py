@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
 holds each against its plain PyTorch version at the speech shapes, then
 serves and trains the speech BLSTM+CTC pipeline end to end through the
-kernels, on one process and over meshes of ranks that share the card,
+kernels (``fit`` on the device-resident corpus and on host batches, its
+knobs, and the ``train``/``decode`` CLI on a JAX-format workdir), on one
+process and over meshes of ranks that share the card,
 then trains and serves the two fusion families (early fusion, and late
 fusion over frozen grafted encoders) and the rgb family (the CNN frontend
 on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H), and prepares a
@@ -21,7 +23,14 @@ batch-major layer API (a train-mode ``bilstm_layer`` stack and an
 serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer), the
 training slice (``fit`` at full speech width, a train step through the
 kernels against the same step through the plain versions, a learning
-check), the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
+check), the fit path (``fit``'s host and device-resident data paths at
+full width, bit-identical, with their input copy and gather timed; epoch
+walls with synchronous and asynchronous checkpoints, the slots' bytes
+equal; ``sync_every=2``; then ``train speech --cache-dir --trace-dir
+--async-checkpoints`` through the CLI, the trace holding K1-K4, a decode
+of a msgpack slot written in the JAX package's layout against the
+``.pt`` slot's MLF, and ``--debug-nans`` raising on a corpus with NaNs),
+the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
 at the fusion presets' K=22, N=35, against their plain versions and
 timed), the fusion slice (early fusion trained by ``fit`` and decoded;
 speech and skeletal donors trained, grafted into late fusion, ``fit``
@@ -69,8 +78,8 @@ import time
 
 # The port must need neither JAX nor the JAX package: make any import of
 # them fail loudly.
-sys.modules["jax"] = None
-sys.modules["mgr_tpu"] = None
+for _name in ("jax", "flax", "msgpack", "mgr_tpu"):
+    sys.modules[_name] = None
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -99,6 +108,11 @@ TOL_GRAD_REL = 5e-2    # train-step gradients, kernel path vs plain path, relati
 N_FILES, B_SLICE = 128, 32  # 4 batches at the preset's batch size
 N_TRAIN, N_VAL, EPOCHS = 64, 32, 3  # the training slice: 2 train + 1 val batch per epoch
 LEARN_STEPS = 10
+FIT_EPOCHS = 2         # fit_path: 2 epochs of the training slice's 64 + 32 files a run
+N_CLI_FILES = 80       # `train speech` on disk: the 80/20 split gives 2 train batches of 32
+N_NAN_FILES = 5        # `train --debug-nans` at B=2: 2 train batches, every file holds a NaN
+FIT_KERNELS = {"bilstm_tm_fwd": "lstm_fwd_kernel", "bilstm_tm_bwd": "lstm_bwd_kernel",
+               "ctc_fwd": "ctc_fwd_kernel", "ctc_bwd": "ctc_bwd_kernel"}
 B_K5 = (32, 128)       # K5 at the preset's batch (a 1x2 mesh rank) and at B=128
 K6_CASES = ((2, 32), (2, 128), (1, 32))  # (directions, B) of K6 at T=1900, H=500
 MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
@@ -718,6 +732,266 @@ def train_phase(dev) -> dict:
           **check, tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
           learning_check={"eval_loss_before": before, "eval_loss_after": after,
                           "steps": LEARN_STEPS})
+    return launches
+
+
+def _write_audio_corpus(root, feats, labels, nan=False):
+    """Per-file audio CSVs (39 features + file_number, the reference's
+    layout) and an Id,Sequence label file of gesture classes."""
+    from mgr_tpu_torch.data.formats import write_label_csv
+
+    data_dir = os.path.join(root, "audio")
+    os.makedirs(data_dir, exist_ok=True)
+    header = ",".join(str(i) for i in range(39)) + ",file_number\n"
+    row = ",".join(["%.6f"] * 40) + "\n"
+    for fid, x in enumerate(feats, 1):
+        x = np.concatenate([x, np.full((len(x), 1), fid, np.float32)], axis=1)
+        if nan:
+            x[5, 0] = np.nan
+        with open(os.path.join(data_dir, f"audio_{fid}.csv"), "w") as f:
+            f.write(header + (row * len(x)) % tuple(x.ravel().tolist()))
+    label_file = os.path.join(root, "labels.csv")
+    write_label_csv(label_file, {fid: seq for fid, seq in enumerate(labels, 1)})
+    return data_dir, label_file
+
+
+def _msgpack(x) -> bytes:
+    """A small msgpack packer of flax's layout (maps, str, bin, arrays,
+    ints; an ndarray as ext 1 of [shape, dtype name, C-order bytes]), to
+    write a JAX-format slot on a host without flax."""
+    def head(n, fix, fix_max, wide):
+        if n <= fix_max:
+            return bytes([fix | n])
+        for code, width in wide:
+            if n < 1 << (8 * width):
+                return bytes([code]) + n.to_bytes(width, "big")
+        raise ValueError(n)
+
+    if isinstance(x, dict):
+        return head(len(x), 0x80, 15, ((0xDE, 2), (0xDF, 4))) + b"".join(
+            _msgpack(k) + _msgpack(v) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return head(len(x), 0x90, 15, ((0xDC, 2), (0xDD, 4))) + b"".join(map(_msgpack, x))
+    if isinstance(x, str):
+        b = x.encode()
+        return head(len(b), 0xA0, 31, ((0xD9, 1), (0xDA, 2), (0xDB, 4))) + b
+    if isinstance(x, bytes):
+        return head(len(x), 0, -1, ((0xC4, 1), (0xC5, 2), (0xC6, 4))) + x
+    if isinstance(x, int) and x >= 0:
+        return head(x, 0, 127, ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)))
+    if isinstance(x, np.ndarray):
+        payload = _msgpack([list(x.shape), x.dtype.name, np.ascontiguousarray(x).tobytes()])
+        return head(len(payload), 0, -1, ((0xC7, 1), (0xC8, 2), (0xC9, 4))) + b"\x01" + payload
+    raise TypeError(type(x))
+
+
+def _jax_slot(state_pt: str) -> bytes:
+    """The JAX package's TrainState layout of a port ``state.pt``: step,
+    params, and optax's chain (clip, scale_by_adam, scale_by_schedule)."""
+    from mgr_tpu_torch.bridge import unflatten
+
+    saved = torch.load(state_pt, map_location="cpu", weights_only=True)
+    opt = saved["opt_state"]
+
+    def tree(d):
+        return unflatten({k: v.numpy() for k, v in d.items()})
+
+    return _msgpack({
+        "step": np.asarray(saved["step"], np.int32),
+        "params": tree(saved["params"]),
+        "opt_state": {"0": {}, "1": {"count": opt["count"].numpy(), "mu": tree(opt["mu"]),
+                                     "nu": tree(opt["nu"])},
+                      "2": {"count": opt["schedule_count"].numpy()}},
+    })
+
+
+def _trace_kernels(trace_dir):
+    """The names of the device kernels in the torch.profiler trace(s)."""
+    names = set()
+    for f in os.listdir(trace_dir):
+        if f.endswith(".pt.trace.json"):
+            with open(os.path.join(trace_dir, f)) as fh:
+                events = json.load(fh).get("traceEvents", [])
+            names |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    return names
+
+
+def fit_path_phase(dev) -> dict:
+    """``fit``'s device-resident corpus path and its knobs at the full
+    speech width, then the slice's main path through the CLI.
+
+    In memory (the training slice's 64 + 32 files, 2 epochs a run, from
+    the same weights): the host path against the device path (parameters
+    bit-identical, the same launches), the device path with synchronous
+    and asynchronous checkpoints (epoch walls; the slots' bytes equal),
+    sync_every 1 against 2 without a workdir (bit-identical); the input
+    copy (host) and the row gather (device) timed with CUDA events, and
+    each path's step wall. Then, on disk (80 seeded files): ``train
+    speech --cache-dir --trace-dir --async-checkpoints`` (the trace must
+    hold K1-K4's kernels; a second corpus build from the cache equals a
+    build from the CSVs), ``decode speech`` of a workdir of a msgpack slot
+    in the JAX package's layout (counted: the main path's launches) and
+    of the ``.pt`` workdir (the same MLF), and ``train speech
+    --debug-nans`` on a corpus with NaNs, which must raise."""
+    import shutil
+
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.data import datasets
+    from mgr_tpu_torch.data.batcher import Batcher
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.loop import fit
+
+    cfg = get_preset("speech")
+    B = cfg.batch_size
+    feats, labels, lab_len, in_len = _speech_corpus(cfg, N_TRAIN + N_VAL, SEED + 7)
+    ids = list(range(1, N_TRAIN + N_VAL + 1))
+    data = Batcher(feats, labels, lab_len, in_len, ids,
+                   train_ids=ids[:N_TRAIN], val_ids=ids[N_TRAIN:])
+    model = build_model(cfg, seed=SEED, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    runs, params = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for tag, kw in (("host", dict(device_data=False)), ("device", dict(device_data=True)),
+                        ("device_async", dict(device_data=True, async_checkpoints=True)),
+                        ("device_sync_every_1", dict(device_data=True, workdir=None)),
+                        ("device_sync_every_2", dict(device_data=True, workdir=None,
+                                                     sync_every=2))):
+            kw.setdefault("workdir", os.path.join(root, tag))
+            model.load_state_dict(init)
+            dispatch.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(model, data, epochs=FIT_EPOCHS, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            params[tag] = {k: v.detach().clone() for k, v in res.state.params.items()}
+            runs[tag] = {"fit_s": wall, "epoch_s": wall / FIT_EPOCHS,
+                         "record_wall_s": [h["wall_s"] for h in res.history],
+                         "train_loss": [h["train_loss"] for h in res.history],
+                         "launches": dispatch.launch_counts()}
+        for a, b in (("host", "device"), ("device", "device_async"),
+                     ("device", "device_sync_every_1"),
+                     ("device_sync_every_1", "device_sync_every_2")):
+            if not all(torch.equal(params[a][k], params[b][k]) for k in params[a]):
+                raise AssertionError(f"fit's parameters differ between the {a} and {b} runs")
+        if runs["host"]["launches"] != runs["device"]["launches"]:
+            raise AssertionError(f"launches differ by path: {runs['host']['launches']} vs "
+                                 f"{runs['device']['launches']}")
+        slots = sorted(f for f in os.listdir(os.path.join(root, "device"))
+                       if not f.endswith("metrics.jsonl"))
+        for f in slots:
+            with open(os.path.join(root, "device", f), "rb") as x, \
+                    open(os.path.join(root, "device_async", f), "rb") as y:
+                if x.read() != y.read():
+                    raise AssertionError(f"{f}: the async slot's bytes differ from the sync one's")
+        slot_mb = {f: os.path.getsize(os.path.join(root, "device", f)) / 2**20 for f in slots}
+
+    # The per-step input: the host path's copy of the batch against the
+    # device path's index upload + row gather; each path's step wall.
+    batch = next(iter(data.epoch(B, train=True, shuffle_seed=0)))[1]
+    rows = next(iter(data.epoch_indices(B, train=True, shuffle_seed=0)))[1]
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in data.device_arrays().items()}
+    copy_ms = cuda_time_ms(lambda: step_lib.batch_to_device(batch, dev), reps=20)
+    gather_ms = cuda_time_ms(
+        lambda: step_lib.gather_batch(arrays, torch.from_numpy(rows).to(dev)), reps=20)
+    key = prng.fold_name(prng.root_key(SEED), "dropout")
+    walls = {}
+    for tag, step, args in (
+            ("host", step_lib.make_train_step(model), (batch,)),
+            ("device", step_lib.make_indexed_train_step(model),
+             (arrays, torch.from_numpy(rows).to(dev)))):
+        state = step_lib.create_train_state(model)
+        w = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, *args, prng.fold_in(key, i))
+            float(m["loss"])
+            w.append(time.perf_counter() - t1)
+        walls[tag] = 1e3 * float(np.median(w[1:]))
+
+    # The main path: train speech through the CLI on files, then decode a
+    # workdir that holds the JAX package's format only.
+    rng = np.random.default_rng(SEED + 13)
+    cli_feats = rng.standard_normal((N_CLI_FILES, cfg.maxlen, cfg.num_feats), dtype=np.float32)
+    seqs = [list(rng.integers(1, 21, size=rng.integers(1, 9))) for _ in range(N_CLI_FILES)]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data_dir, label_file = _write_audio_corpus(root, cli_feats, seqs)
+        write_s = time.perf_counter() - t0
+        wd, mp, cache, trace = (os.path.join(root, d) for d in ("wd", "msgpack", "cache", "trace"))
+        corpus = ["--data-dir", data_dir, "--labels", label_file]
+        dispatch.reset_launch_counts()
+        train_line, train_s = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
+                                    "--cache-dir", cache, "--trace-dir", trace,
+                                    "--async-checkpoints", *corpus])
+        os.makedirs(mp)
+        shutil.copy(os.path.join(wd, "speech_config.json"), mp)
+        with open(os.path.join(mp, "speech_best.msgpack"), "wb") as f:
+            f.write(_jax_slot(ckpt_lib.state_path(wd, "speech", "best")))
+        dec_line, decode_s = _cli(["decode", "speech", "--workdir", mp, "--out",
+                                   os.path.join(root, "msgpack.mlf"), *corpus])
+        launches = dispatch.launch_counts()
+        if min(launches[k] for k in FIT_KERNELS) <= 0:
+            raise AssertionError(f"the main path did not launch K1-K4: {launches}")
+        _cli(["decode", "speech", "--workdir", wd, "--out", os.path.join(root, "pt.mlf"),
+              *corpus])
+        with open(os.path.join(root, "msgpack.mlf")) as a, open(os.path.join(root, "pt.mlf")) as b:
+            if a.read() != b.read():
+                raise AssertionError("the msgpack workdir decodes to another MLF than the .pt one")
+        got = ckpt_lib.read_params(mp, "speech")
+        want = ckpt_lib.read_params(wd, "speech")
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("the msgpack slot's parameters differ from the .pt slot's")
+        if train_line["epochs_run"] != 1 or dec_line["decoded"] != N_CLI_FILES // B * B:
+            raise AssertionError(f"train {train_line}, decode {dec_line}")
+        in_trace = _trace_kernels(trace)
+        missing = [k for k, name in FIT_KERNELS.items() if not any(name in n for n in in_trace)]
+        if missing:
+            raise AssertionError(f"the trace of train speech lacks {missing}: {sorted(in_trace)}")
+        if len(os.listdir(cache)) != 1:
+            raise AssertionError(f"--cache-dir holds {os.listdir(cache)}")
+        t0 = time.perf_counter()
+        cached = datasets.build_audio_dataset(data_dir, label_file, cfg, cache_dir=cache)
+        cache_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = datasets.build_audio_dataset(data_dir, label_file, cfg)
+        parse_s = time.perf_counter() - t0
+        for attr in ("features", "labels", "label_lengths", "input_lengths", "train_ids",
+                     "val_ids"):
+            if not np.array_equal(np.asarray(getattr(cached, attr)),
+                                  np.asarray(getattr(parsed, attr))):
+                raise AssertionError(f"the cached corpus's {attr} differ from the CSVs'")
+
+        nan_root = os.path.join(root, "nan")
+        nan_dir, nan_labels = _write_audio_corpus(nan_root, cli_feats[:N_NAN_FILES],
+                                                  seqs[:N_NAN_FILES], nan=True)
+        try:
+            _cli(["train", "speech", "--workdir", os.path.join(nan_root, "wd"), "--epochs", "1",
+                  "--batch-size", "2", "--debug-nans", "--data-dir", nan_dir,
+                  "--labels", nan_labels])
+        except FloatingPointError as exc:
+            nan_error = str(exc)[:120]
+        else:
+            raise AssertionError("train --debug-nans ran through a corpus of NaNs")
+        if torch.is_anomaly_enabled():
+            raise AssertionError("--debug-nans left autograd's anomaly mode on")
+
+    phase("fit_path", pipeline="speech", B=B, T=cfg.maxlen, H=cfg.encoder.hidden,
+          files_train=N_TRAIN, files_val=N_VAL, epochs=FIT_EPOCHS, runs=runs,
+          slot_mb=slot_mb, input_copy_ms=copy_ms, gather_ms=gather_ms,
+          input_copy_saved_ms=copy_ms - gather_ms, step_wall_ms_median=walls,
+          cli={"files": N_CLI_FILES, "csv_write_s": write_s, "train_s": train_s,
+               "decode_msgpack_s": decode_s, "cache_build_s": cache_s, "csv_build_s": parse_s,
+               "trace_kernels": sorted(n for n in in_trace if any(
+                   k in n for k in FIT_KERNELS.values()))},
+          launches=launches, debug_nans_raised=nan_error)
     return launches
 
 
@@ -2250,6 +2524,7 @@ def main() -> int:
     batch_major = bm_path_phase(dev)
     serving = slice_phase(dev)
     training = train_phase(dev)
+    fit_path = fit_path_phase(dev)
     fusion_shapes = fusion_kernels_phase(dev)
     fusion = fusion_phase(dev)
     rgb_shapes = rgb_kernels_phase(dev)
@@ -2273,7 +2548,9 @@ def main() -> int:
     # fusion and the rgb shapes, and the prepare path's (the prepared
     # speech corpus trained and decoded); K5a/K5b from rank 0 of the 2x2 mesh's
     # train and eval step (the mesh path); K6a/K6b from the batch-major
-    # layer path.
+    # layer path; K1-K4 also from the fit path's main path (train speech
+    # through the CLI on the device-resident corpus, then decode of a
+    # msgpack workdir).
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     kernels = [
         {"name": name, "route": "cuda",
@@ -2285,7 +2562,8 @@ def main() -> int:
             if name in fusion_shapes else {}),
          **({"launches_rgb": rgb[name], "at_rgb_shape": rgb_shapes[name]}
             if name in rgb_shapes else {}),
-         **({"launches_prepare": prepare[name]} if name in KERNELS[:4] else {}),
+         **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name]}
+            if name in KERNELS[:4] else {}),
          **measured[name]}
         for name in KERNELS
     ]

@@ -24,9 +24,12 @@ data-preparation commands (``:347-391``): ``prepare-audio``,
     python -m mgr_tpu_torch.cli.main mix --audio-train ... --audio-val ... --skeletal-train ... \
         --skeletal-val ... --train-labels ... --val-labels ... --out-root mixed
 
-A workdir holds ``<pipeline>_config.json`` and
-``<pipeline>_<slot>.params.pt`` (``mgr_tpu_torch.core.checkpoint``);
-``train`` writes them. ``train late_fusion`` grafts the best speech and
+A workdir holds ``<pipeline>_config.json`` and the slots
+(``mgr_tpu_torch.core.checkpoint``); ``train`` writes them. A workdir the
+JAX package wrote (its config plus ``<pipeline>_<slot>.msgpack`` slots)
+serves as it is: ``decode``, ``evaluate``, ``infer``, ``train --resume``
+and the late-fusion graft read the msgpack slots where the port has no
+``.pt`` of its own. ``train late_fusion`` grafts the best speech and
 skeletal slots of its workdir into the fusion model's frozen encoders
 (unless ``--from-scratch``), and ``decode``/``evaluate late_fusion``
 build the model through that graft, as the JAX CLI does; ``curriculum``
@@ -38,6 +41,13 @@ command's featurizer) runs on ``--device``:
 (through their plain versions), and a command asked for ``cuda`` on a
 host without a card fails; it never carries on on the CPU.
 
+``train`` takes the JAX CLI's ``--trace-dir`` (a ``torch.profiler``
+trace of the run), ``--debug-nans`` (the steps raise
+``FloatingPointError`` on a non-finite loss or gradient norm; autograd's
+anomaly mode on), ``--async-checkpoints`` (slots written by a background
+thread) and ``--cache-dir`` (the speech corpus kept as one ``.npz``, the
+JAX package's cache format).
+
 ``train --mesh DATAxMODEL`` trains over a mesh of ranks (pure data
 parallelism, or data parallelism x direction-sharded tensor parallelism
 with MODEL = 2), one process per rank, started by torchrun:
@@ -46,11 +56,9 @@ with MODEL = 2), one process per rank, started by torchrun:
 
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
 on the CPU over gloo; rank 0 writes the workdir and prints the result.
-Not ported yet (ROADMAP.md 'Modules to port'): rgb, the fusion families
-and ``curriculum`` under ``--mesh`` and ``decode``/``evaluate --mesh``
-('The mesh path's remainder'); ``--async-checkpoints``, ``--trace-dir``,
-``--debug-nans`` and ``--cache-dir`` ('fit's remaining knobs and the train
-CLI's flags').
+Not ported yet (ROADMAP.md 'Modules to port', 'The mesh path's
+remainder'): rgb, the fusion families and ``curriculum`` under ``--mesh``
+and ``decode``/``evaluate --mesh``.
 """
 
 from __future__ import annotations
@@ -143,6 +151,9 @@ def _mesh_for(cfg, args, dev):
     if cfg.name in NO_MESH:
         raise SystemExit(f"--mesh {args.mesh}: {cfg.name} does not run on a mesh yet "
                          f"({MESH_ITEM})")
+    if getattr(args, "debug_nans", False):
+        raise SystemExit(f"--debug-nans --mesh: a rank whose rows hold a NaN would raise "
+                         f"alone and leave the others at a collective ({MESH_ITEM})")
     sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
     world = os.environ.get("WORLD_SIZE")
     if world is None or int(world) != n:
@@ -155,6 +166,7 @@ def _mesh_for(cfg, args, dev):
 
 
 def cmd_train(args) -> int:
+    from mgr_tpu_torch.core import tracing
     from mgr_tpu_torch.models.zoo import build_model
     from mgr_tpu_torch.train.curriculum import build_fusion_with_pretrained
     from mgr_tpu_torch.train.loop import fit
@@ -169,9 +181,17 @@ def cmd_train(args) -> int:
         model = build_fusion_with_pretrained(args.workdir, cfg, device=dev)
     else:
         model = build_model(cfg, device=dev if mesh is None else mesh.device)
-    res = fit(model, data, workdir=args.workdir, resume=args.resume,
-              epochs=args.epochs, checkpoint_every=args.checkpoint_every,
-              monitor=args.monitor, mesh=mesh)
+    if args.debug_nans:
+        tracing.debug_nans(True)
+    try:
+        with tracing.trace(args.trace_dir):
+            res = fit(model, data, workdir=args.workdir, resume=args.resume,
+                      epochs=args.epochs, checkpoint_every=args.checkpoint_every,
+                      monitor=args.monitor, mesh=mesh,
+                      async_checkpoints=args.async_checkpoints)
+    finally:
+        if args.debug_nans:
+            tracing.debug_nans(False)
     if mesh is None or mesh.is_primary:
         print(json.dumps({
             "pipeline": args.pipeline,
@@ -211,7 +231,8 @@ def _build_dataset(name: str, cfg, args, mode: str):
     from mgr_tpu_torch.data import datasets
 
     if name == "speech":
-        return datasets.build_audio_dataset(args.data_dir, args.labels, cfg, mode=mode)
+        return datasets.build_audio_dataset(args.data_dir, args.labels, cfg, mode=mode,
+                                            cache_dir=getattr(args, "cache_dir", None))
     if name == "skeletal":
         return datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfg, mode=mode)
     if name == "rgb":
@@ -400,6 +421,15 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--from-scratch", action="store_true",
                     help="late fusion: start from random encoders, not the workdir's "
                          "trained speech and skeletal ones")
+    pt.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler trace of training to this directory")
+    pt.add_argument("--debug-nans", action="store_true",
+                    help="raise FloatingPointError on a non-finite loss or gradient norm "
+                         "(one host sync a step; autograd anomaly mode)")
+    pt.add_argument("--async-checkpoints", action="store_true",
+                    help="write checkpoints from a background thread")
+    pt.add_argument("--cache-dir", default=None,
+                    help="keep the featurized speech corpus (.npz) across runs")
     _add_common_train_flags(pt)
     pt.set_defaults(fn=cmd_train)
 

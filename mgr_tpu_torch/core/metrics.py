@@ -38,6 +38,12 @@ class MetricsLogger:
         self._epoch_seqs = 0
         self._epoch = epoch
 
+    def note_epoch(self, epoch: int) -> None:
+        """Advance the epoch label without resetting the wall clock or the
+        sequence count: under fit(sync_every>1) one record covers a window
+        of epochs."""
+        self._epoch = epoch
+
     def add_seqs(self, n: int) -> None:
         """Count sequences without a per-step record (the fit loop keeps
         losses on device and logs once per epoch)."""

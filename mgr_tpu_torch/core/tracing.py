@@ -1,0 +1,60 @@
+"""Profiling and numerics debugging (``mgr_tpu/core/tracing.py``), on
+PyTorch's own tools.
+
+  * ``annotate(name)``: a named range (``torch.profiler.record_function``)
+    that shows in a trace.
+  * ``trace(logdir)``: a ``torch.profiler`` trace of a block, the host's
+    ops and, where there is a card, its kernels and copies, written to
+    ``logdir`` by ``tensorboard_trace_handler`` (a ``*.pt.trace.json``
+    that TensorBoard and Perfetto read); nothing when ``logdir`` is empty.
+  * ``debug_nans(enable)``: the numerics check of the train and eval
+    steps. It differs from ``jax_debug_nans``, which re-runs the first
+    primitive that made a NaN and raises there: here the steps raise
+    ``FloatingPointError`` when a loss (before its backward) or a
+    gradient norm is not finite, which costs one host sync per step, and
+    autograd's anomaly mode (``set_detect_anomaly(True, check_nan=True)``)
+    raises naming the backward function that first returned a NaN. A NaN
+    made inside a forward kernel shows at the loss, not at the kernel.
+    One process only: on a mesh, the rank whose rows hold the NaN would
+    raise alone (``train --debug-nans --mesh`` exits).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional
+
+import torch
+
+_debug_nans = False
+
+
+def annotate(name: str):
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    if not logdir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield
+
+
+def debug_nans(enable: bool = True) -> None:
+    global _debug_nans
+    _debug_nans = bool(enable)
+    torch.autograd.set_detect_anomaly(_debug_nans, check_nan=True)
+
+
+def check_finite(value: torch.Tensor, what: str) -> None:
+    """Under :func:`debug_nans`, raise ``FloatingPointError`` when
+    ``value`` holds a NaN or an Inf (a host sync); else nothing."""
+    if _debug_nans and not bool(torch.isfinite(value).all()):
+        raise FloatingPointError(f"debug_nans: the {what} is not finite: {value}")

@@ -88,26 +88,55 @@ class Batcher:
     def num_batches(self, batch_size: int, train: bool = True) -> int:
         return len(self.train_ids if train else self.val_ids) // batch_size
 
-    def epoch(
+    def _batch_from_rows(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = {
+            "labels": self.labels[rows],
+            "input_length": self.input_lengths[rows],
+            "label_length": self.label_lengths[rows],
+        }
+        if isinstance(self.features, tuple):
+            batch["inputs"] = self.features[0][rows]
+            batch["inputs2"] = self.features[1][rows]
+        else:
+            batch["inputs"] = self.features[rows]
+        return batch
+
+    def device_arrays(self) -> Dict[str, np.ndarray]:
+        """The whole corpus as the arrays of a batch (``inputs``, and
+        ``inputs2`` for two streams, ``labels``, ``input_length``,
+        ``label_length``), for ``fit``'s device-resident path: uploaded
+        once, gathered on the device by row index."""
+        out = {
+            "labels": self.labels,
+            "input_length": self.input_lengths,
+            "label_length": self.label_lengths,
+        }
+        if isinstance(self.features, tuple):
+            out["inputs"], out["inputs2"] = self.features
+        else:
+            out["inputs"] = self.features
+        return out
+
+    def epoch_indices(
         self, batch_size: int, *, train: bool = True,
         shuffle_seed: Optional[int] = None,
-    ) -> Iterator[Tuple[List[int], Dict[str, np.ndarray]]]:
-        """Yields (file_ids, batch) over the split once; a last partial
+    ) -> Iterator[Tuple[List[int], np.ndarray]]:
+        """Yields (file_ids, rows) over the split once, rows the (B,) int32
+        row indices of the batch in :meth:`device_arrays`; a last partial
         batch is dropped."""
         ids = list(self.train_ids if train else self.val_ids)
         if shuffle_seed is not None:
             random.Random(shuffle_seed).shuffle(ids)
         for i in range(0, len(ids) - batch_size + 1, batch_size):
             chunk = ids[i : i + batch_size]
-            rows = [self._row_of[f] for f in chunk]
-            batch = {
-                "labels": self.labels[rows],
-                "input_length": self.input_lengths[rows],
-                "label_length": self.label_lengths[rows],
-            }
-            if isinstance(self.features, tuple):
-                batch["inputs"] = self.features[0][rows]
-                batch["inputs2"] = self.features[1][rows]
-            else:
-                batch["inputs"] = self.features[rows]
-            yield chunk, batch
+            yield chunk, np.asarray([self._row_of[f] for f in chunk], np.int32)
+
+    def epoch(
+        self, batch_size: int, *, train: bool = True,
+        shuffle_seed: Optional[int] = None,
+    ) -> Iterator[Tuple[List[int], Dict[str, np.ndarray]]]:
+        """Yields (file_ids, batch) over the split once: the batches of
+        :meth:`epoch_indices`, sliced on the host."""
+        for chunk, rows in self.epoch_indices(batch_size, train=train,
+                                              shuffle_seed=shuffle_seed):
+            yield chunk, self._batch_from_rows(rows)

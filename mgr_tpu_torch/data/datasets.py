@@ -12,6 +12,7 @@ for unlabelled data (blank labels).
 
 from __future__ import annotations
 
+import hashlib
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
@@ -86,18 +87,54 @@ def _assemble(
     return Batcher(features, labels, lab_len, in_len, ids, train_ids, val_ids)
 
 
+def _corpus_cache_key(paths: List[str], cfg: PipelineConfig, mode: str) -> str:
+    """The key of a corpus cache (``mgr_tpu/data/datasets.py``, the same
+    bytes hashed): each file's path, mtime and size, and the geometry
+    that shapes the arrays."""
+    h = hashlib.sha1()
+    for p in sorted(paths):
+        st = os.stat(p)
+        h.update(f"{p}:{st.st_mtime_ns}:{st.st_size};".encode())
+    h.update(
+        f"{cfg.maxlen}:{cfg.downsample}:{cfg.max_label_len}:"
+        f"{cfg.nb_classes}:{cfg.ctc.trim_frames}:"
+        f"{cfg.ctc.padded_length_parity}:{mode}".encode()
+    )
+    return h.hexdigest()[:20]
+
+
 def build_audio_dataset(
     data_dir: str, label_file: str, cfg: PipelineConfig, mode: str = "train",
+    cache_dir: Optional[str] = None,
 ) -> Batcher:
     """Speech: per-file audio CSVs, labels expanded from gesture classes
-    to words."""
+    to words.
+
+    ``cache_dir`` keeps the padded arrays in one ``audio_<key>.npz``
+    (arrays ``X``, ``labels``, ``lab_len``, ``in_len``) keyed by
+    :func:`_corpus_cache_key`, as the JAX package does: a later build of
+    the same files and geometry reads it instead of the CSVs, and either
+    package reads the other's cache."""
     ids = formats.list_audio_files(data_dir)
-    feats = {
-        fid: formats.load_audio_file_csv(os.path.join(data_dir, f"audio_{fid}.csv"))
-        for fid in ids
-    }
+    paths = [os.path.join(data_dir, f"audio_{fid}.csv") for fid in ids]
+    cache_path = None
+    if cache_dir is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        key = _corpus_cache_key(paths + [label_file], cfg, mode)
+        cache_path = os.path.join(cache_dir, f"audio_{key}.npz")
+        if os.path.exists(cache_path):
+            with np.load(cache_path) as z:
+                arrays = z["X"], z["labels"], z["lab_len"], z["in_len"]
+            return Batcher(*arrays, ids, *_split_ids(ids, cfg, mode))
+    feats = {fid: formats.load_audio_file_csv(path) for fid, path in zip(ids, paths)}
     labels_map = formats.load_label_csv(label_file) if mode != "final" else {}
-    return _assemble(cfg, ids, feats, labels_map, expand_words=True, mode=mode)
+    b = _assemble(cfg, ids, feats, labels_map, expand_words=True, mode=mode)
+    if cache_path is not None:
+        tmp = cache_path + ".tmp.npz"
+        np.savez(tmp, X=b.features, labels=b.labels, lab_len=b.label_lengths,
+                 in_len=b.input_lengths)
+        os.replace(tmp, cache_path)
+    return b
 
 
 def build_skeletal_dataset(

@@ -226,14 +226,20 @@ def build_model(
     source_configs: Optional[Dict[str, PipelineConfig]] = None,
     *,
     seed: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> _Model:
     """Model for ``cfg`` with weights drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` (default ``cfg.seed``), then
-    moved to ``device``. The draws differ from JAX's for the same seed;
-    load weights with ``bridge.load_params`` to match a JAX model. Late
-    fusion builds its encoders from ``source_configs`` (default: the
-    presets named in ``cfg.fusion_sources``)."""
+    moved to ``device``: the card by default, as JAX's ``build_model``
+    lands on the accelerator; on a host without one this raises, and
+    ``device="cpu"`` asks for the plain versions. The draws differ from
+    JAX's for the same seed; load weights with ``bridge.load_params`` to
+    match a JAX model. Late fusion builds its encoders from
+    ``source_configs`` (default: the presets named in
+    ``cfg.fusion_sources``)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"build_model(device={device!r}): no CUDA device on this host; "
+                           f"pass device='cpu' for the plain versions")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     if cfg.name in ("speech", "skeletal"):
         model = UnimodalModel(cfg, gen)

@@ -7,7 +7,11 @@ Parameters are state dicts keyed by the JAX pytree paths joined with dots
 and trains it with ``fit`` from those weights, without ``resume``: the
 port's ``fit`` starts from the model's weights, so no ``latest`` slot is
 seeded for it to resume from (a resume would also restore the plateau
-controller's state of whatever ran before in the workdir).
+controller's state of whatever ran before in the workdir). The donors'
+slots may be the port's ``.pt`` or the JAX package's msgpack
+(``core.checkpoint.read_params``), so encoders trained by JAX graft bit
+for bit. Each stage's ``fit`` takes its default data path: the corpus on
+the device, batches gathered there.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ def build_fusion_with_pretrained(
 ) -> zoo.LateFusionModel:
     """The late-fusion model of ``fusion_cfg`` (default: the preset), on
     ``device``, with the ``slot`` parameters of the speech and skeletal
-    pipelines in ``workdir`` grafted into its encoders."""
+    pipelines in ``workdir`` (``.pt`` or JAX msgpack slots) grafted into
+    its encoders."""
     fusion_cfg = fusion_cfg or get_preset("late_fusion")
     sources = source_configs or {name: get_preset(name) for name in ENCODERS}
     model = zoo.build_model(fusion_cfg, sources, device=device)

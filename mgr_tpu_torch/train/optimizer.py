@@ -182,6 +182,14 @@ class ReduceLROnPlateau:
         self.wait = 0
         self.scale = 1.0
 
+    def is_pristine(self) -> bool:
+        """True while the controller has seen no loss: fit(resume=True)
+        restores the state in the fitmeta only into such a controller, so
+        a caller's annealed controller (its state newer than the disk's)
+        is never overwritten."""
+        return (self.scale == 1.0 and self.best == float("inf")
+                and self.wait == 0 and self.cooldown_counter == 0)
+
     def state_dict(self) -> dict:
         """JSON-serializable mutable state (kept in the fitmeta sidecar, so
         a resumed run continues at the annealed rate)."""

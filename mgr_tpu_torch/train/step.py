@@ -19,6 +19,14 @@ then takes the pair), ``labels`` (B, N) int -1 padded, ``input_length``
 (B,) valid frames AFTER the CTC trim, ``label_length`` (B,). The mesh
 steps take one stream only (ROADMAP.md 'Modules to port', 'The mesh path's
 remainder').
+
+The indexed steps (``make_indexed_train_step``, ``make_indexed_eval_step``,
+``mgr_tpu/train/step.py:290-321``) take the whole corpus as tensors on the
+model's device (``Batcher.device_arrays``, uploaded once) and a (B,) row
+index, gather the batch on the device and run the same step; only the
+batch's origin differs. Under ``core.tracing.debug_nans`` every step
+raises ``FloatingPointError`` on a loss or gradient norm that is not
+finite.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.core import prng, tracing
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops.ctc import ctc_loss_from_logits
 from mgr_tpu_torch.ops.decoding import best_path_decode
@@ -64,6 +72,11 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, to
     return {k: to_device(batch[k], device) for k in keys}
 
 
+def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The rows ``idx`` of every corpus tensor, gathered where they lie."""
+    return {k: v.index_select(0, idx) for k, v in arrays.items()}
+
+
 def batch_inputs(batch: Dict[str, Any]) -> Any:
     """What the model takes: ``inputs``, or the pair (``inputs``,
     ``inputs2``) (``_batch_inputs``, ``mgr_tpu/train/step.py:52-55``)."""
@@ -88,7 +101,9 @@ def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
         logits, batch["labels"], batch["input_length"], batch["label_length"],
         trim_frames=model.config.ctc.trim_frames, time_major=True,
     )
-    return losses.mean()
+    loss = losses.mean()
+    tracing.check_finite(loss, "loss")
+    return loss
 
 
 def _shard_context(mesh):
@@ -193,13 +208,15 @@ def _apply_updates(model: nn.Module, state: TrainState, tx: opt_lib.KerasAdam,
     """Freeze mask, Adam, lr scale, maxnorm, and the global norm of the
     masked gradients (``mgr_tpu/train/step.py:128-141``)."""
     grads = opt_lib.freeze_mask_grads(grads, model.trainable())
+    with torch.no_grad():
+        grad_norm = opt_lib.global_norm(grads)
+    tracing.check_finite(grad_norm, "gradient norm")
     updates, opt_state = tx.update(grads, state.opt_state)
     with torch.no_grad():
         new = {k: p + updates[k] * lr_scale for k, p in state.params.items()}
         new = opt_lib.apply_maxnorm(new, model.config.optimizer.maxnorm)
         for k, p in state.params.items():
             p.copy_(new[k])
-        grad_norm = opt_lib.global_norm(grads)
     state.step += 1
     state.opt_state = opt_state
     for p in state.params.values():
@@ -270,6 +287,30 @@ def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainSta
         return _apply_updates(model, state, tx, loss, grads, lr_scale)
 
     return step
+
+
+def make_indexed_train_step(model: nn.Module) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns step(state, arrays, idx, rng, lr_scale=1.0) -> (state,
+    metrics): :func:`make_train_step`'s step on the rows ``idx`` ((B,)
+    int tensor) of ``arrays`` (the corpus on the model's device)."""
+    step = make_train_step(model)
+
+    def indexed(state: TrainState, arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
+                rng: Optional[prng.Key], lr_scale: float = 1.0):
+        return step(state, gather_batch(arrays, idx), rng, lr_scale)
+
+    return indexed
+
+
+def make_indexed_eval_step(model: nn.Module) -> Callable[..., torch.Tensor]:
+    """Returns step(arrays, idx) -> mean CTC loss of the rows ``idx``
+    (:func:`make_eval_step` on the gathered batch)."""
+    step = make_eval_step(model)
+
+    def indexed(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+        return step(gather_batch(arrays, idx))
+
+    return indexed
 
 
 def make_predict_step(model: nn.Module) -> Callable[[Any], torch.Tensor]:

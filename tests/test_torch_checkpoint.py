@@ -70,7 +70,7 @@ def _replace_killed_at(n, monkeypatch):
 
 
 def _slot(workdir, cfg):
-    return ckpt.load_train_state(workdir, STAMP, create_train_state(build_model(cfg, seed=5)))
+    return ckpt.load_train_state(workdir, STAMP, create_train_state(build_model(cfg, seed=5, device="cpu")))
 
 
 @pytest.fixture(scope="module")
@@ -80,11 +80,11 @@ def saves(tmp_path_factory):
     of its first save recorded."""
     cfg, root = _cfg(), tmp_path_factory.mktemp("slots")
     data = _data(cfg)
-    loop.fit(build_model(cfg, seed=0), data, workdir=str(root / "a"), epochs=1)
+    loop.fit(build_model(cfg, seed=0, device="cpu"), data, workdir=str(root / "a"), epochs=1)
     shutil.copytree(root / "a", root / "b")
     with pytest.MonkeyPatch.context() as mp:
         renames = _replace_killed_at(0, mp)
-        loop.fit(build_model(cfg, seed=0), data, workdir=str(root / "b"), epochs=2,
+        loop.fit(build_model(cfg, seed=0, device="cpu"), data, workdir=str(root / "b"), epochs=2,
                  resume=True)
     return cfg, data, root, renames
 
@@ -99,9 +99,9 @@ def _assert_same_save(got, want):
     assert torch.equal(got.opt_state.count, want.opt_state.count)
 
 
-@pytest.mark.parametrize("kill_at", [1, 2, 3])
-def test_save_killed_between_its_writes_leaves_one_whole_save(saves, tmp_path, monkeypatch,
-                                                              kill_at):
+def _kill_a_save(saves, tmp_path, monkeypatch, kill_at, async_checkpoints):
+    """Resume save A's workdir for an epoch, the save killed before its
+    ``kill_at``-th rename; then check what is left, and resume from it."""
     cfg, data, root, renames = saves
     # One save renames exactly these files, in this order: kill_at covers
     # every point between its writes.
@@ -110,7 +110,8 @@ def test_save_killed_between_its_writes_leaves_one_whole_save(saves, tmp_path, m
     shutil.copytree(root / "a", wd)
     _replace_killed_at(kill_at, monkeypatch)
     with pytest.raises(OSError, match="killed"):
-        loop.fit(build_model(cfg, seed=0), data, workdir=wd, epochs=2, resume=True)
+        loop.fit(build_model(cfg, seed=0, device="cpu"), data, workdir=wd, epochs=2, resume=True,
+                 async_checkpoints=async_checkpoints)
     monkeypatch.undo()
 
     a, b = _slot(str(root / "a"), cfg), _slot(str(root / "b"), cfg)
@@ -120,24 +121,38 @@ def test_save_killed_between_its_writes_leaves_one_whole_save(saves, tmp_path, m
     _assert_same_save(_slot(wd, cfg), whole)
     # params.pt is complete either way: the save before (killed before its
     # rename) or this one.
-    decoded = ckpt.load_params(wd, STAMP, build_model(cfg, seed=6), slot="latest")
+    decoded = ckpt.load_params(wd, STAMP, build_model(cfg, seed=6, device="cpu"), slot="latest")
     want = a if kill_at <= 2 else b
     assert all(torch.equal(p, want.params[k]) for k, p in decoded.state_dict().items())
 
     # The resumed run starts at the epoch the slot's parameters finished.
     batches = data.num_batches(cfg.batch_size, train=True)
-    res = loop.fit(build_model(cfg, seed=7), data, workdir=wd, epochs=3, resume=True)
+    res = loop.fit(build_model(cfg, seed=7, device="cpu"), data, workdir=wd, epochs=3, resume=True)
     start = whole.step // batches
     assert start == (1 if kill_at == 1 else 2)
     assert [h["epoch"] for h in res.history] == list(range(start, 3))
     assert res.state.step == 3 * batches
 
 
+@pytest.mark.parametrize("kill_at", [1, 2, 3])
+def test_save_killed_between_its_writes_leaves_one_whole_save(saves, tmp_path, monkeypatch,
+                                                              kill_at):
+    _kill_a_save(saves, tmp_path, monkeypatch, kill_at, async_checkpoints=False)
+
+
+@pytest.mark.parametrize("kill_at", [1, 2, 3])
+def test_async_save_killed_between_its_writes_leaves_one_whole_save(saves, tmp_path,
+                                                                    monkeypatch, kill_at):
+    """The same kill in the background writer: its job writes the slot
+    and then the fitmeta, and the failure reaches fit, which stops."""
+    _kill_a_save(saves, tmp_path, monkeypatch, kill_at, async_checkpoints=True)
+
+
 def test_a_slot_is_its_state_file(tmp_path):
     """A params.pt alone (as decode writes it) is no train-state slot; the
     state file alone is one, and holds the parameters params.pt holds."""
     cfg = _cfg()
-    model = build_model(cfg, seed=1)
+    model = build_model(cfg, seed=1, device="cpu")
     wd = str(tmp_path)
     ckpt.save_params(wd, STAMP, model, slot="latest")
     assert not ckpt.has_checkpoint(wd, STAMP)

@@ -39,7 +39,9 @@ gradients 1e-4 relative Frobenius (f32 sums in another order; TF32 would
 be ~1e-3 off). The featurizers on the card against the CPU, with the global
 TF32 flag on during their products: MFCC rtol 1e-4 / atol 1e-3 (cuFFT
 against the CPU's FFT), kinematics' floored and truncated columns exactly
-and the rest 1e-5, ROI crops 1e-3 on the 0-255 scale.
+and the rest 1e-5, ROI crops 1e-3 on the 0-255 scale. ``fit`` on the
+corpus held on the card against ``fit`` on host batches: the same bits
+and the same launches.
 """
 
 import contextlib
@@ -159,7 +161,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
 def test_model_on_the_card_matches_the_cpu(cuda):
     cfg = get_preset("speech").replace(maxlen=48, encoder=EncoderConfig(hidden=32))
-    cpu_model = build_model(cfg, seed=3)
+    cpu_model = build_model(cfg, seed=3, device="cpu")
     card_model = build_model(cfg, seed=3, device=cuda)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (3, 48, cfg.num_feats)).astype(np.float32))
@@ -864,3 +866,35 @@ def test_roi_crop_resize_on_the_card_matches_the_cpu(cuda):
     want = image.extract_upper_body_video(video, hip, shc, 60, valid)
     assert got.shape == (T, 60, 60, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+def test_fit_device_path_on_the_card_gives_the_host_paths_bits(cuda):
+    """fit on the corpus held on the card (rows gathered there) against
+    fit on host batches, from the same weights, noise and dropout on:
+    the same parameters bit for bit and the same launches of K1-K4."""
+    from mgr_tpu_torch.data.batcher import Batcher
+    from mgr_tpu_torch.train.loop import fit
+
+    cfg = get_preset("speech").replace(maxlen=48, batch_size=4, max_label_len=6,
+                                       encoder=EncoderConfig(hidden=32))
+    rng = np.random.default_rng(9)
+    n = 12
+    feats = rng.standard_normal((n, cfg.maxlen, cfg.num_feats)).astype(np.float32)
+    lab_len = rng.integers(1, cfg.max_label_len + 1, size=n).astype(np.int32)
+    labels = np.full((n, cfg.max_label_len), -1, np.int32)
+    for i, k in enumerate(lab_len):
+        labels[i, :k] = rng.integers(0, cfg.nb_classes - 1, size=k)
+    in_len = np.full((n,), cfg.maxlen - cfg.ctc.trim_frames, np.int32)
+    ids = list(range(n))
+    data = Batcher(feats, labels, lab_len, in_len, ids, train_ids=ids[:8], val_ids=ids[8:])
+    model = build_model(cfg, seed=4, device=cuda)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    got = {}
+    for on in (True, False):
+        model.load_state_dict(init)
+        dispatch.reset_launch_counts()
+        res = fit(model, data, epochs=2, device_data=on)
+        got[on] = ({k: v.detach().clone() for k, v in res.state.params.items()},
+                   dispatch.launch_counts())
+    assert got[True][1] == got[False][1] and got[True][1]["bilstm_tm_bwd"] == 8
+    assert all(torch.equal(got[True][0][k], v) for k, v in got[False][0].items())

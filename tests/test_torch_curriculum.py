@@ -70,7 +70,7 @@ def _weights(cfg, sources=None, seed=0):
     """Seeded weights of ``cfg``'s model as a JAX tree of numpy arrays (the
     port's init through the bridge: no XLA compile)."""
     tsources = None if sources is None else {k: _port(v) for k, v in sources.items()}
-    return bridge.params_to_numpy(tbuild(_port(cfg), tsources, seed=seed))
+    return bridge.params_to_numpy(tbuild(_port(cfg), tsources, seed=seed, device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,7 +128,7 @@ def _donors(cfgs, jdir, tdir):
         state = jstep.TrainState(np.zeros((), np.int32), params,
                                  jopt.keras_adam(cfgs[name].optimizer).init(params))
         jckpt.save_checkpoint(jdir, name, state, slot="best")
-        tmodel = bridge.load_params(tbuild(_port(cfgs[name])), params)
+        tmodel = bridge.load_params(tbuild(_port(cfgs[name]), device="cpu"), params)
         tckpt.save_params(tdir, name, tmodel, slot="best")
         out[name] = params
     return out
@@ -217,7 +217,7 @@ def test_late_fusion_cli_matches_jax_cli(corpus, small_presets, tmp_path, capsys
     _donors(cfgs, str(tmp_path / "unused"), same)
     tckpt.save_config(same, "late_fusion", _port(cfgs["late_fusion"]))
     tckpt.save_params(same, "late_fusion", bridge.load_params(
-        real_build(_port(cfgs["late_fusion"])), trained))
+        real_build(_port(cfgs["late_fusion"]), device="cpu"), trained))
     got = {}
     for tag, main, wd, dev in (("jax", jmain, dirs["jax"], []),
                                ("torch", tmain, same, ["--device", "cpu"])):

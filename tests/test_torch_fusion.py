@@ -100,7 +100,7 @@ def pair(cfg, sources=None, seed=0):
     init, carried to JAX by the bridge (the JAX init costs an XLA compile
     and is not under test here)."""
     tsources = None if sources is None else {k: _port(v) for k, v in sources.items()}
-    tmodel = tbuild(_port(cfg), tsources, seed=seed)
+    tmodel = tbuild(_port(cfg), tsources, seed=seed, device="cpu")
     jparams = jax.tree.map(jnp.asarray, bridge.params_to_numpy(tmodel))
     return jbuild(cfg, sources), jparams, tmodel
 
@@ -249,7 +249,7 @@ def test_apply_tm_matches_jax(family, dtype, train, jax_streams, monkeypatch):
 def test_bridge_loads_a_jax_late_fusion_tree_bit_for_bit():
     cfg, sources = late_cfgs()
     jparams = jax.jit(jbuild(cfg, sources).init)(jprng.root_key(6))
-    tmodel = bridge.load_params(tbuild(_port(cfg), {k: _port(v) for k, v in sources.items()}),
+    tmodel = bridge.load_params(tbuild(_port(cfg), {k: _port(v) for k, v in sources.items()}, device="cpu"),
                                 jax.tree.map(np.array, jparams))
     flat = _flat(jparams)
     assert set(flat) == set(tmodel.state_dict())
@@ -450,7 +450,7 @@ def test_early_fusion_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch)
     same = str(tmp_path / "same")
     tckpt.save_config(same, "early_fusion", _port(cfg))
     tckpt.save_params(same, "early_fusion",
-                      bridge.load_params(real_build(_port(cfg)), jax.tree.map(np.array, trained)))
+                      bridge.load_params(real_build(_port(cfg), device="cpu"), jax.tree.map(np.array, trained)))
     got = {}
     for tag, main, wd, dev in (("jax", jmain, dirs["jax"], []),
                                ("torch", tcli.main, same, ["--device", "cpu"])):

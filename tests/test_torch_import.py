@@ -1,6 +1,6 @@
 """The port stands without JAX: every module (the training and mesh
-paths' included) imports with ``jax``, ``flax``, ``optax`` and the JAX
-package ``mgr_tpu`` blocked, pulls in no pandas, and no source of the package
+paths' included) imports with ``jax``, ``flax``, ``optax``, ``msgpack`` and
+the JAX package ``mgr_tpu`` blocked, pulls in no pandas, and no source of the package
 (nor ``chip_smoke.py``) names JAX, ``mgr_tpu``, a library stand-in for
 the hand-written kernels, or torch's own Adam in place of the Keras-parity
 one."""
@@ -32,7 +32,7 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'mgr_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'flax', 'optax', 'msgpack', 'mgr_tpu'): sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "assert 'pandas' not in sys.modules, 'pandas imported eagerly'\n"
@@ -70,6 +70,16 @@ def test_every_module_imports_with_jax_blocked():
         "                           '--train-labels', 'e', '--val-labels', 'f',\n"
         "                           '--out-root', 'g', '--n-moved', '5'])\n"
         "assert 'pandas' not in sys.modules, 'pandas imported by the data preparation'\n"
+        "from mgr_tpu_torch.core import msgpack, tracing\n"
+        "from mgr_tpu_torch.core.checkpoint import (AsyncCheckpointer, load_jax_train_state,\n"
+        "                                           read_jax_checkpoint)\n"
+        "from mgr_tpu_torch.train.loop import FitResult, fit\n"
+        "from mgr_tpu_torch.train.step import make_indexed_eval_step, make_indexed_train_step\n"
+        "assert msgpack.restore(bytes([0x81, 0xa1, 0x61, 0x01])) == {'a': 1}\n"
+        "a = build_parser().parse_args(['train', 'speech', '--trace-dir', 't', '--debug-nans',\n"
+        "                               '--async-checkpoints', '--cache-dir', 'c'])\n"
+        "assert (a.trace_dir, a.debug_nans, a.async_checkpoints, a.cache_dir) == \\\n"
+        "    ('t', True, True, 'c')\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -83,7 +93,8 @@ def test_every_module_imports_with_jax_blocked():
 @pytest.mark.parametrize(
     "pattern",
     [r"^\s*(import|from)\s+(jax|flax|optax|mgr_tpu)\b", r"torch\.compile",
-     r"nn\.LSTM", r"(F|functional)\.ctc_loss\(", r"optim\.Adam"],
+     r"nn\.LSTM", r"(F|functional)\.ctc_loss\(", r"optim\.Adam",
+     r"^\s*(import|from)\s+msgpack\b"],
 )
 def test_package_sources_avoid(pattern):
     """chip_smoke.py may time ``ctc_loss`` beside K3/K4 as a yardstick,

@@ -303,7 +303,7 @@ def test_pure_dp_mesh_matches_single_process_step():
     cfg = _cfg(batch=4)
     params = jax.tree.map(np.array, jbuild(cfg).init(jprng.root_key(1)))
     batch = _batch(cfg)
-    model = bridge.load_params(tbuild(tconfig.PipelineConfig.from_json(cfg.to_json())), params)
+    model = bridge.load_params(tbuild(tconfig.PipelineConfig.from_json(cfg.to_json()), device="cpu"), params)
     loss, grads = tstep._loss_and_grads(
         model, dict(model.named_parameters()),
         {k: torch.from_numpy(v) for k, v in batch.items()}, None)
@@ -382,7 +382,7 @@ def test_fit_over_a_dp_mesh_writes_on_rank_0_and_ranks_agree(tmp_path):
         "speech_metrics.jsonl"]
     from mgr_tpu_torch.data.batcher import Batcher
 
-    model = bridge.load_params(tbuild(tconfig.PipelineConfig.from_json(cfg.to_json())), params)
+    model = bridge.load_params(tbuild(tconfig.PipelineConfig.from_json(cfg.to_json()), device="cpu"), params)
     single = tloop.fit(model, Batcher(*corpus[:5], train_ids=corpus[5], val_ids=corpus[6]),
                        epochs=2)
     for got, want in zip(out[0]["history"], single.history):

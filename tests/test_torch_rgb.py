@@ -87,7 +87,7 @@ def rgb_cfg(dtype="float32", remat=True, **kw):
 def pair(cfg, seed=0):
     """The JAX model and the port's on the same weights: the port's seeded
     init, carried to JAX by the bridge."""
-    tmodel = tbuild(_port(cfg), seed=seed)
+    tmodel = tbuild(_port(cfg), seed=seed, device="cpu")
     jparams = jax.tree.map(jnp.asarray, bridge.params_to_numpy(tmodel))
     return jbuild(cfg), jparams, tmodel
 
@@ -315,7 +315,7 @@ def test_rgb_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
     monkeypatch.setitem(tconfig.PRESETS, "rgb", lambda: _port(cfg))
     init = jax.tree.map(np.array, jax.jit(jbuild(cfg).init)(jprng.root_key(cfg.seed)))
     real_build = zoo.build_model
-    loaded, flat = bridge.load_params(real_build(_port(cfg)), init).state_dict(), _flat(init)
+    loaded, flat = bridge.load_params(real_build(_port(cfg), device="cpu"), init).state_dict(), _flat(init)
     assert set(flat) == set(loaded) and flat["cnn.conv_1"].shape == (5, 5, 4, 6)
     assert all(np.array_equal(v.numpy(), flat[k]) for k, v in loaded.items())  # bit for bit
     monkeypatch.setattr(zoo, "build_model", lambda c, *a, **kw: bridge.load_params(
@@ -339,7 +339,7 @@ def test_rgb_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
     same = str(tmp_path / "same")
     tckpt.save_config(same, "rgb", _port(cfg))
     tckpt.save_params(same, "rgb",
-                      bridge.load_params(real_build(_port(cfg)), jax.tree.map(np.array, trained)))
+                      bridge.load_params(real_build(_port(cfg), device="cpu"), jax.tree.map(np.array, trained)))
     one = os.path.join(corpus["data_dir"], "Sample00003_color.npy")
     got = {}
     for tag, main, wd, dev in (("jax", jmain, dirs["jax"], []),

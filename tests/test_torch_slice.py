@@ -62,7 +62,7 @@ def _pair(name, seed=0):
     jmodel = jbuild(cfg)
     jparams = jmodel.init(prng.root_key(seed))
     tree = jax.tree.map(np.array, jparams)
-    tmodel = bridge.load_params(tbuild(_port(cfg)), tree)
+    tmodel = bridge.load_params(tbuild(_port(cfg), device="cpu"), tree)
     return cfg, jmodel, jparams, tmodel
 
 
@@ -152,7 +152,7 @@ def test_full_width_state_dict_mirrors_jax_pytree(name):
     cfg = cfglib.get_preset(name)
     shapes = jax.eval_shape(jbuild(cfg).init, prng.root_key(0))
     want = {k: tuple(v.shape) for k, v in bridge.flatten(shapes).items()}
-    got = {k: tuple(v.shape) for k, v in tbuild(tconfig.get_preset(name)).state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in tbuild(tconfig.get_preset(name), device="cpu").state_dict().items()}
     assert got == want
     if name == "late_fusion":  # 2x500 + 2x300 -> BiLSTM(100) -> Dense(22)
         assert got["fusion.W"] == (2, 1600, 4, 100) and got["head.W"] == (200, 22)
@@ -171,7 +171,7 @@ def test_checkpoint_round_trip(tmp_path):
     tckpt.save_config(str(tmp_path), "skeletal", cfg)
     tckpt.save_params(str(tmp_path), "skeletal", tmodel)
     assert tckpt.load_config(str(tmp_path), "skeletal") == cfg
-    fresh = tckpt.load_params(str(tmp_path), "skeletal", tbuild(cfg, seed=99))
+    fresh = tckpt.load_params(str(tmp_path), "skeletal", tbuild(cfg, seed=99, device="cpu"))
     for k, v in tmodel.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v)
     assert not any(p.endswith(".tmp") for p in os.listdir(tmp_path))
@@ -199,7 +199,7 @@ def test_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
     state = jstep.create_train_state(jmodel, prng.root_key(cfg.seed))
     jckpt.save_config(jdir, "skeletal", cfg)
     jckpt.save_checkpoint(jdir, "skeletal", state, slot="best")
-    tmodel = bridge.load_params(tbuild(_port(cfg)), jax.tree.map(np.array, state.params))
+    tmodel = bridge.load_params(tbuild(_port(cfg), device="cpu"), jax.tree.map(np.array, state.params))
     tckpt.save_config(tdir, "skeletal", _port(cfg))
     tckpt.save_params(tdir, "skeletal", tmodel)
 

@@ -104,7 +104,7 @@ def _port(cfg):
 def _pair(cfg, seed=0):
     jmodel = jbuild(cfg)
     jparams = jmodel.init(jprng.root_key(seed))
-    tmodel = bridge.load_params(tbuild(_port(cfg)), jax.tree.map(np.array, jparams))
+    tmodel = bridge.load_params(tbuild(_port(cfg), device="cpu"), jax.tree.map(np.array, jparams))
     return jmodel, jparams, tmodel
 
 
@@ -375,7 +375,7 @@ def test_fit_matches_jax_fit(tmp_path):
 
     # The best slot holds the best epoch's parameters (a fresh model
     # reloads them); the resume geometry guard refuses another corpus.
-    fresh = tckpt.load_params(tdir, "skeletal", tbuild(_port(cfg), seed=9), slot="best")
+    fresh = tckpt.load_params(tdir, "skeletal", tbuild(_port(cfg), seed=9, device="cpu"), slot="best")
     assert all(torch.isfinite(v).all() for v in fresh.state_dict().values())
     _, small = _corpus(cfg, n_files=6)
     small.train_ids = small.train_ids[:4]
@@ -396,17 +396,17 @@ def test_fit_resume_draws_the_masks_of_an_unbroken_run(tmp_path):
     cfg = _fit_cfg(encoder=cfglib.EncoderConfig(hidden=8, depth=2), patience=50,
                    optimizer=cfglib.OptimizerConfig(learning_rate=1e-2))
     _, tdata = _corpus(cfg, seed=1)
-    full = tloop.fit(tbuild(_port(cfg)), tdata, workdir=str(tmp_path / "a"), epochs=4,
+    full = tloop.fit(tbuild(_port(cfg), device="cpu"), tdata, workdir=str(tmp_path / "a"), epochs=4,
                      checkpoint_every=2)
     wd = str(tmp_path / "b")
-    first = tloop.fit(tbuild(_port(cfg)), tdata, workdir=wd, epochs=2, checkpoint_every=2)
-    rest = tloop.fit(tbuild(_port(cfg)), tdata, workdir=wd, epochs=4, resume=True,
+    first = tloop.fit(tbuild(_port(cfg), device="cpu"), tdata, workdir=wd, epochs=2, checkpoint_every=2)
+    rest = tloop.fit(tbuild(_port(cfg), device="cpu"), tdata, workdir=wd, epochs=4, resume=True,
                      checkpoint_every=2)
     assert (first.epochs_run, rest.epochs_run) == (2, 2)
     got = [h["train_loss"] for h in first.history + rest.history]
     np.testing.assert_allclose(got, [h["train_loss"] for h in full.history], rtol=1e-6)
     assert rest.state.step == 12
-    again = tloop.fit(tbuild(_port(cfg)), tdata, workdir=wd, epochs=4, resume=True)
+    again = tloop.fit(tbuild(_port(cfg), device="cpu"), tdata, workdir=wd, epochs=4, resume=True)
     assert again.epochs_run == 0
 
 
@@ -562,7 +562,7 @@ def test_trap_f_draws_follow_the_fold_path(jax_streams):
     "noise", layer i direction d under ("drop_i", d), the head under
     "head_drop"; its own draws depend on the path alone."""
     cfg = _speech_cfg()
-    tmodel = tbuild(_port(cfg))
+    tmodel = tbuild(_port(cfg), device="cpu")
     key = prng.fold_in(prng.root_key(0), 5)
     with torch.no_grad():
         tmodel.apply_tm(torch.zeros((B, T, cfg.num_feats)), train=True, rng=key)

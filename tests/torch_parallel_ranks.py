@@ -73,7 +73,7 @@ def _spy():
 
 def _model(cfg_json, params):
     cfg = PipelineConfig.from_json(cfg_json)
-    return bridge.load_params(build_model(cfg), params)
+    return bridge.load_params(build_model(cfg, device="cpu"), params)
 
 
 def mesh_rank(rank, world, cfg_json, params, batch, shape):
