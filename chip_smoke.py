@@ -30,7 +30,15 @@ equal; ``sync_every=2``; then ``train speech --cache-dir --trace-dir
 --async-checkpoints`` through the CLI, the trace holding K1-K4, a decode
 of a msgpack slot written in the JAX package's layout against the
 ``.pt`` slot's MLF, and ``--debug-nans`` raising on a corpus with NaNs),
-the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
+the synthetic slice (the C++ CSV reader, built by the host compiler beside
+the kernels, bit for bit against libc's ``strtof`` on decimals beside
+float32 rounding midpoints, where ``np.loadtxt``'s misses are counted; the
+ported example ``python -m mgr_tpu_torch.examples.synthetic_end_to_end`` at
+its defaults for 2 epochs; a learning run on the example's corpus and
+widths with noise and dropout 0 that must decode its train split to an
+accuracy of at least 0.9; then a synthetic speech corpus of 80 per-file
+CSVs read by the parser and by ``np.loadtxt``, and ``train speech``,
+``decode speech`` and ``score`` through the CLI at full width), the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
 at the fusion presets' K=22, N=35, against their plain versions and
 timed), the fusion slice (early fusion trained by ``fit`` and decoded;
 speech and skeletal donors trained, grafted into late fusion, ``fit``
@@ -57,7 +65,7 @@ remat recompute and backward named apart), a JSON line of the kernels
 (each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
 and rgb paths and their times at those shapes, and their launches on the
-prepare path), and last ``{"ok": true, "device":
+prepare and synthetic paths), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -78,7 +86,7 @@ import time
 
 # The port must need neither JAX nor the JAX package: make any import of
 # them fail loudly.
-for _name in ("jax", "flax", "msgpack", "mgr_tpu"):
+for _name in ("jax", "flax", "msgpack", "pandas", "mgr_tpu"):
     sys.modules[_name] = None
 
 import numpy as np  # noqa: E402
@@ -136,6 +144,14 @@ PREP_BATCH = 2         # the speech fit on 8 files: the 80/20 split gives 3 trai
 TOL_MFCC_RTOL, TOL_MFCC_ATOL = 1e-4, 1e-3  # card vs CPU: cuFFT against the CPU's FFT
 TOL_KIN = 1e-5         # kinematics' non-integer columns (atan2); integer columns exact
 TOL_ROI = 1e-3         # ROI crops on the 0-255 scale (f32 products in another order)
+# The synthetic slice: the example's corpus and widths (B=2, T=64, BiLSTM(16)x2)
+# with input noise and dropout 0, trained until it decodes its train split
+# (the JAX package reaches accuracy 1.0 at 1000 epochs in f32 on the CPU);
+# the speech corpus the CSV reader was timed on (80 files, ~36 MB).
+SYN_LEARN_EPOCHS = 1000
+SYN_MIN_ACCURACY = 0.9
+SYN_MID_ROWS = 5000    # the reader's file: 5,000 rows x 39 values beside f32 midpoints
+SYN_AUDIO = dict(n_files=80, frames_per_label=600, max_labels=3, seed=0)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
@@ -233,14 +249,27 @@ def device_phase() -> str:
     return name
 
 
-def build_phase() -> None:
+def build_phase() -> float:
+    """Builds the kernels (one nvcc per source) and the host CSV parser
+    (the host C++ compiler), all started together; returns the parser's
+    build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mgr_tpu_torch.kernels import build
 
     from mgr_tpu_torch.ops import dispatch
 
+    def host_build() -> float:
+        t = time.perf_counter()
+        build.load_host("fastcsv")
+        return time.perf_counter() - t
+
     sources = sorted({dispatch.SOURCES[name] for name in KERNELS})
     t0 = time.perf_counter()
-    build.load_all(sources)  # one nvcc per source, all started together
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(host_build)
+        build.load_all(sources)  # one nvcc per source, all started together
+        fastcsv_s = host.result()
     secs = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in build.build_log(name).splitlines()
@@ -259,7 +288,9 @@ def build_phase() -> None:
     for name in ("bilstm_tm_fwd", "bilstm_tm_bwd"):
         if sass[name]["HMMA"] + sass[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its SASS: {sass[name]}")
-    phase("build", seconds=secs, ptxas=ptxas, sass_tensor_core_instructions=sass)
+    phase("build", seconds=secs, fastcsv_build_s=fastcsv_s, ptxas=ptxas,
+          sass_tensor_core_instructions=sass)
+    return fastcsv_s
 
 
 def k1_phase(dev) -> dict:
@@ -994,6 +1025,175 @@ def fit_path_phase(dev) -> dict:
           launches=launches, debug_nans_raised=nan_error)
     return launches
 
+
+def _midpoint_csv(path, rows, seed) -> list:
+    """An audio CSV (39 feature columns + file_number) of decimals of 25
+    significant digits, each 1e-20 (relative) above or below a float32
+    rounding midpoint, which a float64 parse lands on exactly (its float32
+    rounding then goes to the even neighbour whichever side the decimal
+    lies). Returns the feature cells' text, row by row."""
+    from decimal import Decimal, localcontext
+
+    rng = np.random.default_rng(seed)
+    n = rows * 39
+    a = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)).astype(np.float32)
+    mid = (a.astype(np.float64) + np.nextafter(a, np.float32(np.inf)).astype(np.float64)) / 2
+    with localcontext() as ctx:
+        ctx.prec = 60
+        cells = [format(Decimal(m) * (1 + s * Decimal("1e-20")), ".24e")
+                 for m, s in zip(mid.tolist(), rng.choice([-1, 1], size=n).tolist())]
+    with open(path, "w") as f:
+        f.write(",".join(str(i) for i in range(39)) + ",file_number\n")
+        for r in range(rows):
+            f.write(",".join(cells[39 * r:39 * (r + 1)]) + ",1\n")
+    return cells
+
+
+def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
+    """The last small modules on the card.
+
+    The example (``python -m mgr_tpu_torch.examples.synthetic_end_to_end``)
+    at its defaults for 2 epochs, in a subprocess started first, while
+    this process holds the CSV reader (built in ``build_phase``) against
+    libc's own ``strtof``, value by value, on a file of decimals beside
+    float32 rounding midpoints (and counts ``np.loadtxt``'s misses there),
+    then, at full width, writes a speech corpus of per-file audio CSVs
+    with the port's ``synthetic``, reads it with the parser and with
+    ``np.loadtxt`` (host seconds), and runs ``train speech``, ``decode
+    speech`` and ``score`` through the CLI (BiLSTM(500)x2 at T=1900
+    through K1-K4). Once the example has ended, alone: the learning run,
+    the example's corpus and widths with input noise and dropout 0,
+    ``fit`` without a workdir, decoded to an MLF and scored, the train
+    split's accuracy at least ``SYN_MIN_ACCURACY``. Returns the launches
+    of the full-width commands and the learning run."""
+    import ctypes
+    import io
+    from unittest import mock
+
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.core.metrics import MetricsLogger
+    from mgr_tpu_torch.data import datasets, fastcsv, formats, synthetic, vocab
+    from mgr_tpu_torch.decode import Decoder, mlf, read_mlf, score_sequences
+    from mgr_tpu_torch.decode.evaluate import evaluate_accuracy
+    from mgr_tpu_torch.examples import synthetic_end_to_end as example
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train.loop import fit
+
+    t_phase = time.perf_counter()
+    libc = ctypes.CDLL(None)
+    libc.strtof.restype = ctypes.c_float
+    libc.strtof.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    out = {"fastcsv_build_s": fastcsv_build_s}
+    with tempfile.TemporaryDirectory() as root, subprocess.Popen(
+            [sys.executable, "-m", "mgr_tpu_torch.examples.synthetic_end_to_end",
+             os.path.join(root, "example")],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "MGR_TPU_EXAMPLE_EPOCHS": "2"}) as proc:
+        try:
+            # The reader, bit for bit against strtof.
+            path = os.path.join(root, "audio_1.csv")
+            cells = _midpoint_csv(path, SYN_MID_ROWS, SEED + 17)
+            want = np.array([libc.strtof(c.encode(), None) for c in cells], np.float32)
+            t0 = time.perf_counter()
+            got = formats.load_audio_file_csv(path)
+            parse_s = time.perf_counter() - t0
+            raw = fastcsv.load_numeric_csv(path)[:, :39]
+            loadtxt = fastcsv.numpy_fallback(path, True)[:, :39]
+            misses = {name: int((x.ravel().view(np.uint32) != want.view(np.uint32)).sum())
+                      for name, x in (("load_audio_file_csv", got), ("load_numeric_csv", raw),
+                                      ("np_loadtxt", loadtxt))}
+            out["reader"] = {"values": len(cells), "parse_s": parse_s, "bits_differing": misses}
+            if misses["load_audio_file_csv"] or misses["load_numeric_csv"]:
+                raise AssertionError(f"the CSV reader differs from strtof: {misses}")
+
+            # Full width: the speech corpus on disk, read twice, then the CLI.
+            t0 = time.perf_counter()
+            data_dir, label_file, labels = synthetic.make_audio_dataset(
+                os.path.join(root, "speech"), **SYN_AUDIO)
+            write_s = time.perf_counter() - t0
+            speech = get_preset("speech")
+            t0 = time.perf_counter()
+            fast = datasets.build_audio_dataset(data_dir, label_file, speech)
+            fast_s = time.perf_counter() - t0
+            with mock.patch.object(fastcsv, "load_numeric_csv", fastcsv.numpy_fallback):
+                t0 = time.perf_counter()
+                slow = datasets.build_audio_dataset(data_dir, label_file, speech)
+                slow_s = time.perf_counter() - t0
+            wd = os.path.join(root, "wd")
+            corpus = ["--data-dir", data_dir, "--labels", label_file]
+            dispatch.reset_launch_counts()
+            train_line, train_s = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
+                                        "--batch-size", "32", *corpus])
+            hyps, refs = os.path.join(root, "speech.mlf"), os.path.join(root, "speech_refs.mlf")
+            dec_line, decode_s = _cli(["decode", "speech", "--workdir", wd, "--out", hyps,
+                                       *corpus])
+            full_launches = dispatch.launch_counts()
+            mlf.write_mlf(refs, [(mlf.entry_name(fid, "_audio"),
+                                  vocab.ids_to_tokens(vocab.class_seq_to_word_seq(seq),
+                                                      vocab.WORDS))
+                                 for fid, seq in labels.items()])
+            score_line, _ = _cli(["score", refs, hyps, "--partial"])
+            out["full_width"] = {
+                "files": SYN_AUDIO["n_files"], "csv_mb": sum(
+                    os.path.getsize(os.path.join(data_dir, f))
+                    for f in os.listdir(data_dir)) / 1e6,
+                "csv_write_s": write_s, "corpus_build_fastcsv_s": fast_s,
+                "corpus_build_loadtxt_s": slow_s,
+                "corpus_bits_equal": bool(np.array_equal(fast.features.view(np.uint32),
+                                                         slow.features.view(np.uint32))),
+                "B": 32, "T": speech.maxlen, "H": speech.encoder.hidden, "train_s": train_s,
+                "decode_s": decode_s, "decoded": dec_line["decoded"], "score": score_line,
+                "launches": full_launches}
+
+            # The example at its defaults, as a user runs it.
+            stdout, stderr = proc.communicate(timeout=300)
+        except BaseException:
+            proc.kill()
+            raise
+        out["example"] = {"rc": proc.returncode, "ended_after_s": time.perf_counter() - t_phase,
+                          "mlf_scoring": [ln for ln in stdout.splitlines()
+                                          if ln.startswith("MLF scoring:")]}
+        if proc.returncode != 0 or not out["example"]["mlf_scoring"]:
+            raise AssertionError(f"the example failed: {stdout[-1500:]}{stderr[-1500:]}")
+
+        # The learning run, alone: the example's corpus and widths, noise and dropout 0.
+        csv_path, label_file, labels = example.make_corpus(os.path.join(root, "learn"))
+        cfg = example.example_config(noise=0.0, dropout=0.0)
+        data = datasets.build_skeletal_dataset(csv_path, label_file, cfg)
+        model = build_model(cfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(model, data, epochs=SYN_LEARN_EPOCHS, metrics=MetricsLogger(stream=io.StringIO()))
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t0
+        fit_launches = {k: v - full_launches[k] for k, v in dispatch.launch_counts().items()}
+        dec = Decoder.for_model(model, "skeletal")
+        hyps, refs = os.path.join(root, "sk.mlf"), os.path.join(root, "sk_refs.mlf")
+        dec.write_mlf(hyps, dec.decode_batches(data.epoch(cfg.batch_size, train=False),
+                                               use_lengths=True))
+        mlf.write_mlf(refs, [(mlf.entry_name(fid), [vocab.GESTURE_CODES[c] for c in seq])
+                             for fid, seq in labels.items()])
+        accuracy = evaluate_accuracy(model, data, train_split=True, use_lengths=True)
+        launches = dispatch.launch_counts()
+        out["learn"] = {"B": cfg.batch_size, "T": cfg.maxlen, "H": cfg.encoder.hidden,
+                        "epochs": res.epochs_run, "s": learn_s,
+                        "ms_per_epoch": 1e3 * learn_s / res.epochs_run,
+                        "final_train_loss": res.history[-1]["train_loss"],
+                        "mlf_scoring": score_sequences(read_mlf(refs), read_mlf(hyps),
+                                                       ignore_missing=True),
+                        "train_split_accuracy": accuracy, "fit_launches": fit_launches}
+        out["launches"] = launches
+        phase("synthetic", seconds=time.perf_counter() - t_phase, **out)
+        if accuracy["accuracy"] < SYN_MIN_ACCURACY:
+            raise AssertionError(f"the learning run reached a train-split accuracy of "
+                                 f"{accuracy['accuracy']} after {res.epochs_run} epochs")
+        if train_line["epochs_run"] != 1 or dec_line["decoded"] <= 0:
+            raise AssertionError(f"train {train_line}, decode {dec_line}")
+        if min(launches[k] for k in FIT_KERNELS) <= 0:
+            raise AssertionError(f"the synthetic path did not launch K1-K4: {launches}")
+    return launches
 
 def _two_stream_corpus(cfg, n, seed):
     """n files of seeded random audio (T, 39) and skeletal (T, 20)
@@ -2517,7 +2717,7 @@ def main() -> int:
     args = parser.parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
+    fastcsv_build_s = build_phase()
     measured = {"bilstm_tm_fwd": k1_phase(dev), "bilstm_tm_bwd": k2_phase(dev),
                 "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev), **k5_phase(dev),
                 **k6_phase(dev)}
@@ -2525,6 +2725,7 @@ def main() -> int:
     serving = slice_phase(dev)
     training = train_phase(dev)
     fit_path = fit_path_phase(dev)
+    synthetic = synthetic_phase(dev, fastcsv_build_s)
     fusion_shapes = fusion_kernels_phase(dev)
     fusion = fusion_phase(dev)
     rgb_shapes = rgb_kernels_phase(dev)
@@ -2550,7 +2751,9 @@ def main() -> int:
     # train and eval step (the mesh path); K6a/K6b from the batch-major
     # layer path; K1-K4 also from the fit path's main path (train speech
     # through the CLI on the device-resident corpus, then decode of a
-    # msgpack workdir).
+    # msgpack workdir) and from the synthetic path (the learning run's
+    # fit, decode and evaluate, then train and decode speech through the
+    # CLI on the synthetic corpus).
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     kernels = [
         {"name": name, "route": "cuda",
@@ -2562,8 +2765,8 @@ def main() -> int:
             if name in fusion_shapes else {}),
          **({"launches_rgb": rgb[name], "at_rgb_shape": rgb_shapes[name]}
             if name in rgb_shapes else {}),
-         **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name]}
-            if name in KERNELS[:4] else {}),
+         **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name],
+             "launches_synthetic": synthetic[name]} if name in KERNELS[:4] else {}),
          **measured[name]}
         for name in KERNELS
     ]

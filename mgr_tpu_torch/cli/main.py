@@ -41,7 +41,8 @@ command's featurizer) runs on ``--device``:
 (through their plain versions), and a command asked for ``cuda`` on a
 host without a card fails; it never carries on on the CPU.
 
-``train`` takes the JAX CLI's ``--trace-dir`` (a ``torch.profiler``
+``train`` (and ``curriculum``, which ignores them as the JAX one does)
+takes the JAX CLI's ``--trace-dir`` (a ``torch.profiler``
 trace of the run), ``--debug-nans`` (the steps raise
 ``FloatingPointError`` on a non-finite loss or gradient norm; autograd's
 anomaly mode on), ``--async-checkpoints`` (slots written by a background
@@ -207,7 +208,12 @@ def cmd_train(args) -> int:
 
 def cmd_curriculum(args) -> int:
     """speech -> skeletal -> late fusion in one workdir
-    (``mgr_tpu/cli/main.py:173-200``)."""
+    (``mgr_tpu/cli/main.py:173-200``). It takes every train flag and reads
+    what the JAX command reads (the corpus, ``--workdir``, ``--epochs`` and
+    the config overrides); ``--resume``, ``--checkpoint-every``,
+    ``--monitor``, ``--trace-dir``, ``--debug-nans``,
+    ``--async-checkpoints`` and ``--cache-dir`` are accepted and ignored,
+    as there."""
     from mgr_tpu_torch.data import datasets
     from mgr_tpu_torch.train.curriculum import run_curriculum
 
@@ -395,6 +401,15 @@ def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh", default=None,
                    help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
                         "one process per rank under torchrun (speech and skeletal)")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of training to this directory")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError on a non-finite loss or gradient norm "
+                        "(one host sync a step; autograd anomaly mode)")
+    p.add_argument("--async-checkpoints", action="store_true",
+                   help="write checkpoints from a background thread")
+    p.add_argument("--cache-dir", default=None,
+                   help="keep the featurized speech corpus (.npz) across runs")
     _add_device_flag(p)
 
 
@@ -421,15 +436,6 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--from-scratch", action="store_true",
                     help="late fusion: start from random encoders, not the workdir's "
                          "trained speech and skeletal ones")
-    pt.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler trace of training to this directory")
-    pt.add_argument("--debug-nans", action="store_true",
-                    help="raise FloatingPointError on a non-finite loss or gradient norm "
-                         "(one host sync a step; autograd anomaly mode)")
-    pt.add_argument("--async-checkpoints", action="store_true",
-                    help="write checkpoints from a background thread")
-    pt.add_argument("--cache-dir", default=None,
-                    help="keep the featurized speech corpus (.npz) across runs")
     _add_common_train_flags(pt)
     pt.set_defaults(fn=cmd_train)
 

@@ -44,6 +44,12 @@ class MetricsLogger:
         of epochs."""
         self._epoch = epoch
 
+    def step(self, loss: float, batch_size: int, **extra: Any) -> None:
+        """One step's record (``{"kind": "step", "loss": ...}``), its
+        sequences counted toward the epoch's throughput."""
+        self._epoch_seqs += batch_size
+        self.log({"kind": "step", "loss": float(loss), **extra})
+
     def add_seqs(self, n: int) -> None:
         """Count sequences without a per-step record (the fit loop keeps
         losses on device and logs once per epoch)."""

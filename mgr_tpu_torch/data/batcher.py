@@ -119,24 +119,33 @@ class Batcher:
 
     def epoch_indices(
         self, batch_size: int, *, train: bool = True,
-        shuffle_seed: Optional[int] = None,
+        shuffle_seed: Optional[int] = None, process_index: int = 0,
+        process_count: int = 1,
     ) -> Iterator[Tuple[List[int], np.ndarray]]:
         """Yields (file_ids, rows) over the split once, rows the (B,) int32
         row indices of the batch in :meth:`device_arrays`; a last partial
-        batch is dropped."""
+        batch is dropped.
+
+        Per-process striding: every process shuffles with the same seed
+        and takes batches ``process_index``, ``process_index +
+        process_count``, ... of the stream, so the processes read disjoint
+        batches that together cover it."""
         ids = list(self.train_ids if train else self.val_ids)
         if shuffle_seed is not None:
             random.Random(shuffle_seed).shuffle(ids)
-        for i in range(0, len(ids) - batch_size + 1, batch_size):
+        starts = range(0, len(ids) - batch_size + 1, batch_size)
+        for i in starts[process_index::process_count]:
             chunk = ids[i : i + batch_size]
             yield chunk, np.asarray([self._row_of[f] for f in chunk], np.int32)
 
     def epoch(
         self, batch_size: int, *, train: bool = True,
-        shuffle_seed: Optional[int] = None,
+        shuffle_seed: Optional[int] = None, process_index: int = 0,
+        process_count: int = 1,
     ) -> Iterator[Tuple[List[int], Dict[str, np.ndarray]]]:
         """Yields (file_ids, batch) over the split once: the batches of
-        :meth:`epoch_indices`, sliced on the host."""
-        for chunk, rows in self.epoch_indices(batch_size, train=train,
-                                              shuffle_seed=shuffle_seed):
+        :meth:`epoch_indices` (with its striding), sliced on the host."""
+        for chunk, rows in self.epoch_indices(
+                batch_size, train=train, shuffle_seed=shuffle_seed,
+                process_index=process_index, process_count=process_count):
             yield chunk, self._batch_from_rows(rows)

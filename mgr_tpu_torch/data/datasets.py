@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import random
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -235,12 +234,9 @@ class LazyVideoBatcher(Batcher):
         batch dropped); process ``process_index`` of ``process_count`` takes
         every ``process_count``-th batch. One worker thread loads up to
         ``PREFETCH`` batches ahead of the one being used."""
-        ids = list(self.train_ids if train else self.val_ids)
-        if shuffle_seed is not None:
-            random.Random(shuffle_seed).shuffle(ids)
-        chunks = [ids[i : i + batch_size]
-                  for j, i in enumerate(range(0, len(ids) - batch_size + 1, batch_size))
-                  if j % process_count == process_index]
+        chunks = [chunk for chunk, _ in self.epoch_indices(
+            batch_size, train=train, shuffle_seed=shuffle_seed,
+            process_index=process_index, process_count=process_count)]
         if not chunks:
             return
         with ThreadPoolExecutor(max_workers=1) as pool:

@@ -3,7 +3,7 @@ with the standard ``csv`` module and numpy in place of pandas:
 
   * per-file audio CSVs ``audio_<id>.csv``: a header row; 39 MFCC
     columns, plus ``file_number`` and optionally '39'/'40', which are
-    dropped.
+    dropped. Parsed by the C++ reader ``native/fastcsv.cpp``.
   * the monolithic labelled audio CSV (early fusion): no header; columns
     0-38 the features, 39 the file number, 40 the frame's label.
   * the monolithic skeletal CSV: a header; the 20 kinematic feature
@@ -22,6 +22,8 @@ import re
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from mgr_tpu_torch.data import fastcsv
 
 # The 20 model features, in the order the reference selects them.
 SKELETAL_FEATURES: Tuple[str, ...] = (
@@ -78,11 +80,15 @@ def list_audio_files(data_dir: str | os.PathLike) -> List[int]:
 
 
 def load_audio_file_csv(path: str | os.PathLike) -> np.ndarray:
-    """One per-file audio CSV -> (T, 39) float32 features."""
-    keep = [i for i, name in enumerate(_header(path))
+    """One per-file audio CSV -> (T, 39) float32 features, each cell
+    parsed by ``strtof`` (``data/fastcsv.py``), as the JAX package parses
+    it."""
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    keep = [i for i, name in enumerate(header)
             if name not in ("file_number", "39", "40")]
-    x = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2)
-    x = np.ascontiguousarray(x[:, keep])
+    x = np.ascontiguousarray(
+        fastcsv.load_numeric_csv(str(path), skip_header=True)[:, keep], dtype=np.float32)
     if x.shape[1] != NUM_AUDIO_FEATS:
         raise ValueError(
             f"{path}: expected {NUM_AUDIO_FEATS} feature cols, got {x.shape[1]}"

@@ -14,7 +14,7 @@ conventions:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,12 +57,14 @@ def decode_probs(
     spec: DecodeSpec,
     input_lengths=None,
 ) -> List[List[str]]:
-    """(B, T, C) softmax probabilities -> token sequences."""
+    """(B, T, C) softmax probabilities -> token sequences, decoded on the
+    probabilities' device."""
     probs = torch.as_tensor(probs)
     blank = probs.shape[-1] - 1 if spec.drop_blank else None
     best, emit = best_path_decode(
         probs,
-        None if input_lengths is None else torch.as_tensor(input_lengths),
+        None if input_lengths is None
+        else torch.as_tensor(input_lengths, device=probs.device),
         threshold=spec.threshold,
         trim_frames=spec.trim_frames,
         collapse=spec.collapse,
@@ -75,18 +77,25 @@ def decode_probs(
 
 
 class Decoder:
-    """Batched decoder for one pipeline.
+    """Batched decoder for one pipeline, in one of two modes:
 
-    ``decode_fn(inputs, input_lengths|None) -> (best, emit)`` is the fused
-    on-device path (``train.step.make_decode_step``): only the int argmax
-    and the emit mask leave the device."""
+    * ``decode_fn(inputs, input_lengths|None) -> (best, emit)``: the fused
+      on-device path (``train.step.make_decode_step``), where only the int
+      argmax and the emit mask leave the device. ``for_model`` builds it.
+    * ``predict_fn(inputs) -> (B, T, C)`` softmax posteriors, decoded by
+      :func:`decode_probs` on whatever device they come back on.
+    """
 
     def __init__(
         self,
-        decode_fn: Callable[..., tuple],
+        predict_fn: Optional[Callable[..., Any]] = None,
         pipeline: str = "speech",
         spec: Optional[DecodeSpec] = None,
+        decode_fn: Optional[Callable[..., tuple]] = None,
     ):
+        if predict_fn is None and decode_fn is None:
+            raise ValueError("need predict_fn or decode_fn")
+        self.predict_fn = predict_fn
         self.decode_fn = decode_fn
         self.pipeline = pipeline
         self.spec = spec or DECODE_SPECS[pipeline]
@@ -98,17 +107,20 @@ class Decoder:
         use_lengths: bool = False,
     ) -> List[Tuple[int, List[str]]]:
         """batches: iterable of (file_ids, batch_dict); a batch with
-        ``inputs2`` hands the pair to the decode step. Returns
+        ``inputs2`` hands the pair to the step. Returns
         [(file_id, tokens)] in input order. ``use_lengths`` masks decoding
         to the true sequence lengths instead of the padded length."""
         results: List[Tuple[int, List[str]]] = []
         for file_ids, batch in batches:
             lengths = np.asarray(batch["input_length"]) if use_lengths else None
-            best, emit = self.decode_fn(batch_inputs(batch), lengths)
-            seqs = [
-                vocab_lib.ids_to_tokens(s, self.spec.vocab)
-                for s in emitted_sequences(best, emit)
-            ]
+            if self.decode_fn is not None:
+                best, emit = self.decode_fn(batch_inputs(batch), lengths)
+                seqs = [
+                    vocab_lib.ids_to_tokens(s, self.spec.vocab)
+                    for s in emitted_sequences(best, emit)
+                ]
+            else:
+                seqs = decode_probs(self.predict_fn(batch_inputs(batch)), self.spec, lengths)
             results.extend(zip(file_ids, seqs))
         return results
 
@@ -121,7 +133,7 @@ class Decoder:
             model, threshold=s.threshold, trim_frames=s.trim_frames,
             drop_blank=s.drop_blank,
         )
-        return Decoder(step, pipeline, s)
+        return Decoder(pipeline=pipeline, spec=s, decode_fn=step)
 
     def write_mlf(
         self,

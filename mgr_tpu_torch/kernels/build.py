@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the host C++ library.
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` into ``mgr_tpu_torch/_build/lib<name>_<hash>.so``
@@ -7,6 +7,10 @@ edited kernel or header is rebuilt) and loaded
 with ``ctypes``. Only the repository's sources are compiled; nothing is
 downloaded. The build needs the CUDA toolkit, which the GPU machine has
 and a CPU-only host does not: nothing here runs at import time.
+
+``native/<name>.cpp`` (the CSV parser) is host code: :func:`load_host`
+builds it the same way with the host C++ compiler (``c++ -O3 -shared
+-fPIC``), on any host, into ``_build/lib<name>_<hash>.so``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, Optional, Sequence
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
+NATIVE = PACKAGE / "native"
 BUILD_DIR = PACKAGE / "_build"
 
 NVCC_FLAGS = (
@@ -30,6 +35,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
@@ -50,6 +56,17 @@ def nvcc() -> str:
     )
 
 
+def host_cxx() -> str:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError(
+        "no host C++ compiler (c++ or g++) on PATH: the CSV parser is built "
+        "from mgr_tpu_torch/native at first use"
+    )
+
+
 def source_digest(name: str, csrc: Path = CSRC) -> str:
     """Hash of ``csrc/<name>.cu`` and every header beside it
     (``csrc/*.cuh``): an edited header rebuilds the libraries that may
@@ -61,22 +78,25 @@ def source_digest(name: str, csrc: Path = CSRC) -> str:
     return h.hexdigest()[:12]
 
 
-def _compile(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
+def _build(name: str, src: Path, digest: str, compiler: Sequence[str]) -> Path:
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [*compiler, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     _logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{_logs[name]}")
+        raise RuntimeError(f"{compiler[0]} failed for {src}:\n{_logs[name]}")
     os.replace(tmp, out)
     return out
+
+
+def _compile(name: str) -> Path:
+    return _build(name, CSRC / f"{name}.cu", source_digest(name), (nvcc(), *NVCC_FLAGS))
 
 
 def library_path(name: str) -> Path:
@@ -93,6 +113,19 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of ``native/<name>.cpp``, built by the host C++
+    compiler if needed (the hash is of the source); a failed build raises
+    with the compiler's output."""
+    with _lock:
+        if name not in _libs:
+            src = NATIVE / f"{name}.cpp"
+            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+            _libs[name] = ctypes.CDLL(
+                str(_build(name, src, digest, (host_cxx(), *HOST_CXX_FLAGS))))
+        return _libs[name]
+
+
 def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     """Build ``names`` with one nvcc process each, all started together,
     then load them."""
@@ -102,7 +135,7 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills)
+    """The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     from this process's build of ``name``, or "" if it was cached."""
     return _logs.get(name, "")
 

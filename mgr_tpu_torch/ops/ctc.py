@@ -17,13 +17,16 @@ The recursion is kernel K3 (``csrc/ctc_fwd.cu``) on a CUDA device and
 (``csrc/ctc_bwd.cu``) and :func:`ctc_alpha_bwd_plain`, chosen by
 ``mgr_tpu_torch.kernels.ctc``, whose ``CTCAlphaLoss`` differentiates the
 loss whenever autograd records. Log-softmax stays plain PyTorch.
-``torch.nn.functional.ctc_loss`` appears only in the tests, as an oracle.
+``torch.nn.functional.ctc_loss`` appears only in the tests, as an oracle,
+beside the JAX package's NumPy oracle :func:`ctc_loss_reference` (copied
+at the end of this module).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from mgr_tpu_torch.kernels import ctc as _kernel
@@ -214,4 +217,76 @@ def ctc_loss_from_logits(
     return ctc_loss(
         log_probs, labels, input_lengths, label_lengths, blank,
         time_major=time_major,
+    )
+
+
+# NumPy reference (tests only), copied from the JAX package
+# (``mgr_tpu/ops/ctc.py:189, 238``): the classic (T, 2L+1) lattice forward
+# pass, O(T * S) per sequence, independent of the formulation above, so the
+# two cross-check each other.
+
+def ctc_loss_reference(
+    log_probs: np.ndarray,
+    labels: np.ndarray,
+    input_length: int,
+    label_length: int,
+    blank: Optional[int] = None,
+) -> float:
+    """Single-sequence CTC NLL via the extended-label lattice."""
+    T, K = log_probs.shape
+    if blank is None:
+        blank = K - 1
+    lab = [int(x) for x in labels[:label_length]]
+    # Extended sequence: blank, l1, blank, l2, ..., lN, blank.
+    ext = [blank]
+    for l in lab:
+        ext += [l, blank]
+    S = len(ext)
+
+    neg_inf = -np.inf
+    alpha = np.full(S, neg_inf)
+    alpha[0] = log_probs[0, ext[0]]
+    if S > 1:
+        alpha[1] = log_probs[0, ext[1]]
+
+    def lse(*xs):
+        xs = [x for x in xs if x != neg_inf]
+        if not xs:
+            return neg_inf
+        m = max(xs)
+        return m + np.log(sum(np.exp(x - m) for x in xs))
+
+    for t in range(1, input_length):
+        new = np.full(S, neg_inf)
+        for s in range(S):
+            cands = [alpha[s]]
+            if s >= 1:
+                cands.append(alpha[s - 1])
+            if s >= 2 and ext[s] != blank and ext[s] != ext[s - 2]:
+                cands.append(alpha[s - 2])
+            new[s] = lse(*cands) + log_probs[t, ext[s]]
+        alpha = new
+
+    if S == 1:
+        total = alpha[0]
+    else:
+        total = lse(alpha[S - 1], alpha[S - 2])
+    return float(-total)
+
+
+def ctc_loss_reference_batch(
+    log_probs: np.ndarray,
+    labels: np.ndarray,
+    input_lengths: np.ndarray,
+    label_lengths: np.ndarray,
+    blank: Optional[int] = None,
+) -> np.ndarray:
+    return np.array(
+        [
+            ctc_loss_reference(
+                log_probs[b], labels[b], int(input_lengths[b]),
+                int(label_lengths[b]), blank,
+            )
+            for b in range(log_probs.shape[0])
+        ]
     )

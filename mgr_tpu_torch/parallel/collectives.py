@@ -1,8 +1,12 @@
 """Collectives over a process group (``mgr_tpu/parallel/collectives.py``).
 
-Written with ``all_reduce`` and ``broadcast`` alone: gloo, the one
-backend under which several ranks can share one card (NCCL refuses two
-ranks on one device), has no CUDA ``all_gather`` or ``reduce_scatter``.
+The mesh steps' collectives (``psum``, ``pmean``, ``pmean_tree``,
+``broadcast_``, ``gather_directions``) are written with ``all_reduce``
+and ``broadcast`` alone: gloo, the one backend under which several ranks
+can share one card (NCCL refuses two ranks on one device), has no CUDA
+``all_gather`` or ``reduce_scatter``. The generic ``all_gather``,
+``ppermute_ring`` and ``reduce_scatter`` use the group's own collectives:
+over gloo they take CPU tensors, over NCCL CUDA tensors.
 """
 
 from __future__ import annotations
@@ -77,3 +81,45 @@ def gather_directions(h: torch.Tensor, group: Any, direction: int) -> torch.Tens
     if dist.get_world_size(group) != 2:
         raise ValueError("the direction exchange needs a model group of 2 ranks")
     return _GatherDirections.apply(h, group, direction)
+
+
+def all_gather(x: torch.Tensor, group: Any = None, *, tiled: bool = True) -> torch.Tensor:
+    """Every rank's ``x`` in rank order: concatenated along axis 0
+    (``tiled``) or stacked on a new leading axis, as
+    ``jax.lax.all_gather``."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if tiled else out.reshape((n,) + tuple(x.shape))
+
+
+def ppermute_ring(x: torch.Tensor, group: Any = None, shift: int = 1) -> torch.Tensor:
+    """Rank i's ``x`` sent to rank (i + shift) mod n; returns what this
+    rank received, from rank (i - shift) mod n (``jax.lax.ppermute`` over
+    the ring)."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    if shift % n == 0:
+        return x.clone()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    g = group or dist.group.WORLD
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, dist.get_global_rank(g, (i + shift) % n), group),
+        dist.P2POp(dist.irecv, out, dist.get_global_rank(g, (i - shift) % n), group),
+    ])
+    for req in reqs:
+        req.wait()
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """The sum of ``x`` over the group, split along axis 0 into one block
+    per rank; returns this rank's block (``jax.lax.psum_scatter``,
+    ``tiled=True``). Axis 0 must divide by the group's size."""
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter: axis 0 ({x.shape[0]}) does not divide by {n} ranks")
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out

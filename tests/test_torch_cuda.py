@@ -898,3 +898,28 @@ def test_fit_device_path_on_the_card_gives_the_host_paths_bits(cuda):
                    dispatch.launch_counts())
     assert got[True][1] == got[False][1] and got[True][1]["bilstm_tm_bwd"] == 8
     assert all(torch.equal(got[True][0][k], v) for k, v in got[False][0].items())
+
+
+def test_example_corpus_trains_through_the_kernels_and_decodes(cuda, tmp_path):
+    """The example's corpus, written by the port's ``synthetic``, trained
+    for a few epochs on the card (fit launches K1-K4), its validation
+    split decoded to an MLF."""
+    from mgr_tpu_torch.data import datasets
+    from mgr_tpu_torch.decode import Decoder, read_mlf
+    from mgr_tpu_torch.examples import synthetic_end_to_end as example
+    from mgr_tpu_torch.train.loop import fit
+
+    csv_path, label_file, labels = example.make_corpus(str(tmp_path))
+    cfg = example.example_config()
+    data = datasets.build_skeletal_dataset(csv_path, label_file, cfg)
+    model = build_model(cfg, device=cuda)
+    dispatch.reset_launch_counts()
+    res = fit(model, data, epochs=3)
+    launches = dispatch.launch_counts()
+    assert res.epochs_run == 3 and np.isfinite(res.history[-1]["train_loss"])
+    assert all(launches[k] > 0 for k in ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd"))
+    dec = Decoder.for_model(model, "skeletal")
+    decoded = dec.decode_batches(data.epoch(cfg.batch_size, train=False), use_lengths=True)
+    dec.write_mlf(str(tmp_path / "sk.mlf"), decoded)
+    assert sorted(read_mlf(tmp_path / "sk.mlf")) == sorted(
+        f"Sample{fid:05d}" for fid in data.val_ids)

@@ -22,7 +22,6 @@ import torch
 from mgr_tpu.core import checkpoint as jckpt
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
-from mgr_tpu.data import synthetic
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.train import curriculum as jcurriculum
 from mgr_tpu.train import loop as jloop
@@ -31,6 +30,7 @@ from mgr_tpu.train import step as jstep
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import checkpoint as tckpt
 from mgr_tpu_torch.core import config as tconfig
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.train import curriculum as tcurriculum
 

@@ -14,13 +14,13 @@ from mgr_tpu.core import config as jconfig
 from mgr_tpu.data import batcher as jbatcher
 from mgr_tpu.data import datasets as jdatasets
 from mgr_tpu.data import formats as jformats
-from mgr_tpu.data import synthetic
 from mgr_tpu.data import vocab as jvocab
 from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.data import batcher as tbatcher
 from mgr_tpu_torch.data import datasets as tdatasets
 from mgr_tpu_torch.data import formats as tformats
 from mgr_tpu_torch.data import vocab as tvocab
+from mgr_tpu_torch.data import synthetic
 
 torch.set_num_threads(1)
 

@@ -77,7 +77,7 @@ def test_decoder_predict_path_and_mlf_bytes_match_jax(tmp_path):
         return tdec.best_path_decode(torch.from_numpy(p), lengths, threshold=spec.threshold,
                                      trim_frames=spec.trim_frames)
 
-    tdec_ = tdecoder.Decoder(decode_fn, "speech")
+    tdec_ = tdecoder.Decoder(pipeline="speech", decode_fn=decode_fn)
     jdec_ = jdecoder.Decoder(lambda x: x, "speech")
     tres = tdec_.decode_batches(batches)
     assert tres == jdec_.decode_batches(batches)

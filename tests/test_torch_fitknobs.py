@@ -28,7 +28,6 @@ from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
 from mgr_tpu.data import datasets as jdatasets
 from mgr_tpu.data import formats as jformats
-from mgr_tpu.data import synthetic
 from mgr_tpu.data.batcher import Batcher as JBatcher
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.train import loop as jloop
@@ -39,6 +38,7 @@ from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.core import tracing
 from mgr_tpu_torch.data import datasets as tdatasets
 from mgr_tpu_torch.data import formats as tformats
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.data.batcher import Batcher as TBatcher
 from mgr_tpu_torch.models import zoo
 from mgr_tpu_torch.train import loop as tloop

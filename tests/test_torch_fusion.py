@@ -37,7 +37,6 @@ from mgr_tpu.core import prng as jprng
 from mgr_tpu.data import batcher as jbatcher
 from mgr_tpu.data import datasets as jdatasets
 from mgr_tpu.data import formats as jformats
-from mgr_tpu.data import synthetic
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.ops import dispatch as jdispatch
 from mgr_tpu.train import loop as jloop
@@ -50,6 +49,7 @@ from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.data import batcher as tbatcher
 from mgr_tpu_torch.data import datasets as tdatasets
 from mgr_tpu_torch.data import formats as tformats
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.train import step as tstep

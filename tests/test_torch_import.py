@@ -90,6 +90,50 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_package_level_names_resolve_with_jax_and_pandas_blocked():
+    """The JAX package's package-level names have their counterparts, and
+    every module (the fastcsv binding, the synthetic fixtures, the example,
+    utils included) imports with ``pandas`` blocked too: the GPU machine
+    has none."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'optax', 'msgpack', 'pandas', 'mgr_tpu'): sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "import mgr_tpu_torch\n"
+        "assert mgr_tpu_torch.config.get_preset('speech').name == 'speech'\n"
+        "from mgr_tpu_torch.models import build_model\n"
+        "from mgr_tpu_torch.decode import (Decoder, decode_probs, read_mlf, write_mlf,\n"
+        "                                  edit_distance, score_sequences)\n"
+        "from mgr_tpu_torch.train import (keras_adam, apply_maxnorm, TrainState,\n"
+        "                                 create_train_state, make_eval_step,\n"
+        "                                 make_predict_step, make_train_step)\n"
+        "from mgr_tpu_torch.parallel import make_mesh, shard_batch\n"
+        "from mgr_tpu_torch.utils import Timer, tree_count_params, tree_norm\n"
+        "from mgr_tpu_torch.utils.trees import tree_equal\n"
+        "from mgr_tpu_torch.parallel.collectives import all_gather, ppermute_ring, reduce_scatter\n"
+        "from mgr_tpu_torch.data.synthetic import (make_audio_dataset, make_skeletal_dataset,\n"
+        "    make_monolithic_audio_dataset, make_rgb_dataset, write_label_csv)\n"
+        "from mgr_tpu_torch.data.fastcsv import load_numeric_csv\n"
+        "from mgr_tpu_torch.ops.ctc import ctc_loss_reference, ctc_loss_reference_batch\n"
+        "from mgr_tpu_torch.examples.synthetic_end_to_end import main, example_config\n"
+        "from mgr_tpu_torch.core.metrics import MetricsLogger\n"
+        "assert callable(MetricsLogger.step)\n"
+        "from mgr_tpu_torch.cli.main import build_parser\n"
+        "a = build_parser().parse_args(['curriculum', '--audio-dir', 'a', '--audio-labels', 'b',\n"
+        "    '--skeletal-csv', 'c', '--labels', 'd', '--trace-dir', 't', '--debug-nans',\n"
+        "    '--async-checkpoints', '--cache-dir', 'x'])\n"
+        "assert (a.trace_dir, a.debug_nans, a.async_checkpoints, a.cache_dir) == \\\n"
+        "    ('t', True, True, 'x')\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("ok")
+
 @pytest.mark.parametrize(
     "pattern",
     [r"^\s*(import|from)\s+(jax|flax|optax|mgr_tpu)\b", r"torch\.compile",

@@ -33,7 +33,6 @@ from mgr_tpu.core import checkpoint as jckpt
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
 from mgr_tpu.data import datasets as jdatasets
-from mgr_tpu.data import synthetic
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.train import loop as jloop
 from mgr_tpu.train import optimizer as jopt
@@ -43,6 +42,7 @@ from mgr_tpu_torch.core import checkpoint as tckpt
 from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.core import msgpack
 from mgr_tpu_torch.data import datasets as tdatasets
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.models import zoo
 from mgr_tpu_torch.train import loop as tloop
 from mgr_tpu_torch.train import step as tstep

@@ -39,7 +39,6 @@ import torch
 import mgr_tpu.ops.pallas_kernels as pk
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
-from mgr_tpu.data import synthetic
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.ops import lstm as jlstm
 from mgr_tpu.parallel import make_mesh as jmake_mesh
@@ -48,6 +47,7 @@ from mgr_tpu.parallel import shard_params as jshard_params
 from mgr_tpu.train import step as jstep
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import config as tconfig
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.ops import lstm as tlstm

@@ -30,12 +30,12 @@ import torch
 from mgr_tpu.cli.main import main as jcli
 from mgr_tpu.data import labels_pipeline as jlabels
 from mgr_tpu.data import rgb_pipeline as jrgb
-from mgr_tpu.data import synthetic
 from mgr_tpu_torch.cli.main import main as tcli
 from mgr_tpu_torch.data import formats as tformats
 from mgr_tpu_torch.data import labels_pipeline as tlabels
 from mgr_tpu_torch.data import mixer as tmixer
 from mgr_tpu_torch.data import rgb_pipeline as trgb
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.data.skeletal_pipeline import KINECT_COLUMNS
 
 torch.set_num_threads(1)

@@ -39,7 +39,6 @@ from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
 from mgr_tpu.data import datasets as jdatasets
 from mgr_tpu.data import formats as jformats
-from mgr_tpu.data import synthetic
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.models import layers as jlayers
 from mgr_tpu.ops import dispatch as jdispatch
@@ -52,6 +51,7 @@ from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.data import datasets as tdatasets
 from mgr_tpu_torch.data import formats as tformats
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.models import layers as tlayers
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.train import step as tstep

@@ -22,7 +22,6 @@ import torch
 from mgr_tpu.core import checkpoint as jckpt
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng
-from mgr_tpu.data import synthetic
 from mgr_tpu.data.batcher import Batcher
 from mgr_tpu.data.vocab import GESTURE_CODES
 from mgr_tpu.decode import decoder as jdecoder
@@ -32,6 +31,7 @@ from mgr_tpu.train import step as jstep
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import checkpoint as tckpt
 from mgr_tpu_torch.core import config as tconfig
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.decode import decoder as tdecoder
 from mgr_tpu_torch.decode import evaluate as tevaluate
 from mgr_tpu_torch.decode.mlf import entry_name, write_mlf

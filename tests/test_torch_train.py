@@ -38,7 +38,6 @@ import torch
 
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng as jprng
-from mgr_tpu.data import synthetic
 from mgr_tpu.data.batcher import Batcher as JBatcher
 from mgr_tpu.models import build_model as jbuild
 from mgr_tpu.models import layers as jlayers
@@ -51,6 +50,7 @@ from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import checkpoint as tckpt
 from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.data.batcher import Batcher as TBatcher
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.models import layers as tlayers

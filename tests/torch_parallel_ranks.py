@@ -117,6 +117,22 @@ def fit_rank(rank, world, cfg_json, params, corpus, workdir, epochs):
             "writes": writes, "step": res.state.step}
 
 
+def collectives_rank(rank, world):
+    """The generic collectives on rank-specific shards: ``all_gather`` of
+    this rank's slice of arange(2 * world) (tiled and stacked),
+    ``reduce_scatter`` of ones(4 * world), and ``ppermute_ring`` of
+    [rank] by shifts 1, -1 and 2."""
+    g = dist.group.WORLD
+    x = torch.arange(2.0 * rank, 2.0 * rank + 2)
+    return {
+        "all_gather": collectives.all_gather(x, g).numpy(),
+        "all_gather_stacked": collectives.all_gather(x, g, tiled=False).numpy(),
+        "reduce_scatter": collectives.reduce_scatter(torch.ones(4 * world), g).numpy(),
+        "ring": [collectives.ppermute_ring(torch.tensor([float(rank)]), g, shift).numpy()
+                 for shift in (1, -1, 2)],
+    }
+
+
 def barrier_rank(rank, world, fail_rank):
     """Rank ``fail_rank`` raises; the others wait at a barrier."""
     if rank == fail_rank:
