@@ -58,7 +58,11 @@ full-size file; ``train speech`` for one epoch and ``decode speech`` on the
 prepared corpus through the kernels), the mesh slice
 (a mesh train and eval step at full speech width on 2x1, 1x2 and 2x2
 meshes of gloo ranks that time-share the one card, against the
-single-process step, and ``fit`` over the 2x2 mesh), with ``--profile`` a
+single-process step, and ``fit`` over the 2x2 mesh), the mesh slice of
+every family (early fusion, late fusion and rgb on 2x2 and rgb on 2x1 at
+full width against the single-process step, speech and late fusion
+decoded over both meshes, ``run_curriculum`` over 2x1, and K5a/K5b at
+the shapes those meshes give them), with ``--profile`` a
 per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
 step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
 remat recompute and backward named apart), a JSON line of the kernels
@@ -126,6 +130,16 @@ K6_CASES = ((2, 32), (2, 128), (1, 32))  # (directions, B) of K6 at T=1900, H=50
 MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
 N_MESH_TRAIN, N_MESH_VAL = 64, 32  # fit over the 2x2 mesh: 2 train + 1 val batch
 MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
+# The mesh_families phase: every family trained on a 2x2 mesh (rgb on 2x1
+# too), speech and late fusion decoded over both, and the curriculum on 2x1;
+# the data axis is 2 on both, so a rank holds half of every batch.
+FAM_MESHES = ((2, 2), (2, 1))
+FAM_TRAIN = {(2, 2): ("early_fusion", "late_fusion", "rgb"), (2, 1): ("rgb",)}
+FAM_DECODE = {"speech": 128, "late_fusion": 32}  # global B of each mesh decode
+FAM_SEED = {"early_fusion": 40, "late_fusion": 41, "rgb": 42, "speech": 43}
+K5_FAM_SHAPES = ((4, 512), (16, 100), (16, 500), (16, 300))  # (rows a rank, H) of K5
+                       # on 2x2: rgb, the fusion layer, early fusion and the speech
+                       # encoder, the skeletal encoder
 N_FUS_TRAIN, N_FUS_VAL, FUS_EPOCHS = 64, 32, 2  # the fusion slice: 2 train + 1 val batch
 H_FUS = 100            # the late-fusion BiLSTM over the 1600-wide encoder concat
 K_FUS, N_FUS = 22, 35  # the fusion presets' gesture classes and label cap
@@ -1961,83 +1975,99 @@ def rgb_kernels_phase(dev) -> dict:
     return out
 
 
+def _k5_case(dev, rng, gen, T, B, H, timed=False):
+    """K5a and K5b for both scan orders at one shape, against their plain
+    versions and against the matching direction of K1's streams and K2's
+    dz on the same inputs: the errors of each order, whether every one was
+    bit-equal to K1/K2, and with ``timed`` each order's kernel and plain
+    times (CUDA events)."""
+    from mgr_tpu_torch.kernels.bilstm_tm import (
+        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
+    from mgr_tpu_torch.ops.lstm import (
+        init_bilstm_params, lstm_scan_tm_bwd_plain, lstm_scan_tm_plain, lstm_weight_grad)
+
+    bf = torch.bfloat16
+    xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
+    xp[:, :, :, 1, :] += 1.0
+    xp = torch.from_numpy(xp).to(dev, bf)
+    U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
+    dhs = torch.from_numpy(
+        1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
+    two = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    dz_two = bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
+    cases, times, equal = [], {}, True
+    for rev in (False, True):
+        d = int(rev)
+        hs, cs = lstm_tm_streams(xp[d], U[d], reverse=rev, store_c=True)
+        dz = lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=rev)
+        dU = lstm_weight_grad(hs, dz, reverse=rev)
+        want, fwd_plain_ms = _timed(
+            lambda: lstm_scan_tm_plain(xp[d], U[d], reverse=rev, store_c=True))
+        (dz_w, dU_w), bwd_plain_ms = _timed(
+            lambda: lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=rev))
+        for g in (hs, cs, dz):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"K5 gave non-finite values at {(T, B, H, rev)}")
+        err_h = max(float((hs.float() - want[0]).abs().max()),
+                    float((cs.float() - want[1]).abs().max()))
+        ddz = (dz.float() - dz_w.float()).abs()
+        scale = float(dz_w.float().abs().max())
+        cases.append({"T": T, "B": B, "H": H, "reverse": rev, "max_abs_err_h_c": err_h,
+                      "dz_max_rel": float(ddz.max()) / scale,
+                      "dz_fro_rel": float(ddz.norm() / dz_w.float().norm()),
+                      "dU_fro_rel": float((dU - dU_w).norm() / dU_w.norm()),
+                      "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
+                      "dz_entries": ddz.numel()})
+        equal &= (torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
+                  and torch.equal(dz, dz_two[d]))
+        if timed:
+            times[rev] = {
+                "fwd_ms": cuda_time_ms(lambda: lstm_tm_streams(
+                    xp[d], U[d], reverse=rev, store_c=True), reps=5),
+                "fwd_plain_ms": fwd_plain_ms,
+                "bwd_ms": cuda_time_ms(lambda: lstm_tm_bwd(
+                    xp[d], U[d], hs, cs, dhs[d], reverse=rev), reps=5),
+                "bwd_plain_ms": bwd_plain_ms,
+            }
+    return cases, equal, times
+
+
+def _k5_worst(cases) -> dict:
+    """The largest errors of K5 cases, held against K1's and K2's
+    tolerances. dz is held in relative Frobenius norm: a recomputed z within
+    an ulp of +-2.5 gets the hard sigmoid's slope 0.2 on one side and 0 on
+    the other, which moves that one dz entry by its own size
+    (dz_entries_over_tol counts such entries); bit-equality with K2 is the
+    strict check."""
+    worst = {"h": max(c["max_abs_err_h_c"] for c in cases),
+             "dz": max(c["dz_fro_rel"] for c in cases),
+             "dU": max(c["dU_fro_rel"] for c in cases)}
+    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
+        raise AssertionError(f"K5 disagrees with its plain versions: {worst} (tol h "
+                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
+    return worst
+
+
 def k5_phase(dev) -> dict:
     """K5a and K5b, the single-direction recurrence and its adjoint, for
     both scan orders at T=1900, H=500, B=32 and 128 and at edge shapes
     (B=1, two launches at B=300, an odd H): against their plain versions
     with K1's and K2's tolerances, and bit-equal to the matching direction
     of K1's streams and K2's dz on the same inputs."""
-    from mgr_tpu_torch.kernels.bilstm_tm import (
-        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
-    from mgr_tpu_torch.ops.lstm import (
-        init_bilstm_params, lstm_scan_tm_bwd_plain, lstm_scan_tm_plain, lstm_weight_grad)
-
     rng = np.random.default_rng(SEED + 9)
     gen = torch.Generator().manual_seed(SEED + 9)
-    bf = torch.bfloat16
-    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
     unequal, times, cases = [], {}, []
-
-    def case(T, B, H, timed=False):
-        xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
-        xp[:, :, :, 1, :] += 1.0
-        xp = torch.from_numpy(xp).to(dev, bf)
-        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
-        dhs = torch.from_numpy(
-            1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
-        two = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-        dz_two = bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
-        for rev in (False, True):
-            d = int(rev)
-            hs, cs = lstm_tm_streams(xp[d], U[d], reverse=rev, store_c=True)
-            dz = lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=rev)
-            dU = lstm_weight_grad(hs, dz, reverse=rev)
-            want, fwd_plain_ms = _timed(
-                lambda: lstm_scan_tm_plain(xp[d], U[d], reverse=rev, store_c=True))
-            (dz_w, dU_w), bwd_plain_ms = _timed(
-                lambda: lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=rev))
-            for g in (hs, cs, dz):
-                if not torch.isfinite(g.float()).all():
-                    raise AssertionError(f"K5 gave non-finite values at {(T, B, H, rev)}")
-            err_h = max(float((hs.float() - want[0]).abs().max()),
-                        float((cs.float() - want[1]).abs().max()))
-            ddz = (dz.float() - dz_w.float()).abs()
-            scale = float(dz_w.float().abs().max())
-            dz_max, dz_fro = float(ddz.max()) / scale, float(ddz.norm() / dz_w.float().norm())
-            err_dU = float((dU - dU_w).norm() / dU_w.norm())
-            worst["h"] = max(worst["h"], err_h)
-            worst["dz"] = max(worst["dz"], dz_fro)
-            worst["dU"] = max(worst["dU"], err_dU)
-            cases.append({"T": T, "B": B, "H": H, "reverse": rev, "max_abs_err_h_c": err_h,
-                          "dz_max_rel": dz_max, "dz_fro_rel": dz_fro, "dU_fro_rel": err_dU,
-                          "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
-                          "dz_entries": ddz.numel()})
-            if not (torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
-                    and torch.equal(dz, dz_two[d])):
-                unequal.append((T, B, H, rev))
-            if timed:
-                times[(B, rev)] = {
-                    "fwd_ms": cuda_time_ms(lambda: lstm_tm_streams(
-                        xp[d], U[d], reverse=rev, store_c=True), reps=5),
-                    "fwd_plain_ms": fwd_plain_ms,
-                    "bwd_ms": cuda_time_ms(lambda: lstm_tm_bwd(
-                        xp[d], U[d], hs, cs, dhs[d], reverse=rev), reps=5),
-                    "bwd_plain_ms": bwd_plain_ms,
-                }
-
-    for B in B_K5:
-        case(T_K1, B, H_K1, timed=True)
-    for T, B, H in ((64, 1, 500), (64, 300, 64), (64, 3, 7)):
-        case(T, B, H)
+    shapes = [(T_K1, B, H_K1, True) for B in B_K5] + [
+        (64, 1, 500, False), (64, 300, 64, False), (64, 3, 7, False)]
+    for T, B, H, timed in shapes:
+        got, equal, t = _k5_case(dev, rng, gen, T, B, H, timed)
+        cases += got
+        times.update({(B, rev): v for rev, v in t.items()})
+        if not equal:
+            unequal.append((T, B, H))
     if unequal:
         raise AssertionError(f"K5 is not bit-equal to K1/K2's direction at {unequal}")
-    # dz is held in relative Frobenius norm: a recomputed z within an ulp of
-    # +-2.5 gets the hard sigmoid's slope 0.2 on one side and 0 on the other,
-    # which moves that one dz entry by its own size (dz_entries_over_tol
-    # counts such entries). Bit-equality with K2 above is the strict check.
-    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
-        raise AssertionError(f"K5 disagrees with its plain versions: {worst} (tol h "
-                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
+    worst = _k5_worst(cases)
     B = B_K5[0]
     fwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=False, store_c=True)
     bwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=True, store_c=False)
@@ -2246,8 +2276,12 @@ def bm_path_phase(dev) -> dict:
 
 
 def _digest(model) -> str:
+    return _digest_tensors(model.parameters())
+
+
+def _digest_tensors(tensors) -> str:
     return hashlib.sha256(b"".join(
-        p.detach().float().cpu().numpy().tobytes() for p in model.parameters())).hexdigest()
+        p.detach().float().cpu().numpy().tobytes() for p in tensors)).hexdigest()
 
 
 def _mesh_rank(rank, world, shape, cfg_json, batch, corpus, workdir):
@@ -2394,6 +2428,328 @@ def mesh_phase(dev) -> dict:
           ranks_share_one_card=True, loss_1=loss_1, eval_1=eval_1, tol_loss_rel=TOL_LOSS_REL,
           tol_grad_rel=TOL_GRAD_REL, meshes=meshes)
     return meshes["2x2"]["launches_rank0"]
+
+
+def _families_cfgs():
+    """Each family's preset at full width with noise and dropout off (the
+    mesh step is held against the single-process step on the same batch,
+    without draws); speech and skeletal are also late fusion's sources."""
+    from mgr_tpu_torch.core.config import get_preset
+
+    def quiet(name, **kw):
+        cfg = get_preset(name)
+        enc = dataclasses.replace(cfg.encoder, input_noise=0.0, output_dropout=0.0,
+                                  dropout=tuple(0.0 for _ in cfg.encoder.dropout))
+        return cfg.replace(encoder=enc, **kw)
+
+    return {"speech": quiet("speech"), "skeletal": quiet("skeletal"),
+            "early_fusion": quiet("early_fusion", second_stream_noise=0.0),
+            "late_fusion": quiet("late_fusion", fusion_dropout=0.0, fusion_output_dropout=0.0),
+            "rgb": quiet("rgb")}
+
+
+def _family_batch(cfg, B, seed):
+    """B seeded rows of ``cfg``'s family: one stream, two, or video."""
+    if cfg.name == "rgb":
+        return _video_batch(cfg, B, seed)
+    if cfg.second_stream_feats:
+        (a, s), labels, lab_len, in_len = _two_stream_corpus(cfg, B, seed)
+        streams = {"inputs": a, "inputs2": s}
+    else:
+        feats, labels, lab_len, in_len = _speech_corpus(cfg, B, seed)
+        streams = {"inputs": feats}
+    return {**streams, "labels": labels, "label_length": lab_len, "input_length": in_len}
+
+
+def _family_model(name, cfgs, dev):
+    """``name``'s model from SEED, its weights drawn with one CPU thread as
+    a rank (``run_ranks``) draws them: the orthogonal init's QR differs in
+    its last bits with the thread count."""
+    from mgr_tpu_torch.models.zoo import build_model
+
+    sources = {k: cfgs[k] for k in ("speech", "skeletal")} if name == "late_fusion" else None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return build_model(cfgs[name], sources, seed=SEED, device=dev)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _families_rank(rank, world, device, shape, cfgs_json, train, decode, curriculum_dir):
+    """One rank of a (data, model) mesh on the one card, every family of the
+    launch in turn: for each trained family one mesh step's loss and raw
+    gradients and one mesh eval step with the launch counts of that run,
+    the wall of three mesh train steps and whether the frozen parameters
+    stayed bit-unchanged; for each decoded family the mesh decode
+    (``Decoder.for_model(mesh=)``) of its global batch; with a
+    ``curriculum_dir`` ``run_curriculum(mesh=)``, one epoch a stage on the
+    fusion phase's corpora: the stamps this rank wrote and a digest of
+    each stage's final parameters."""
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig, get_preset
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.parallel import sharding as shard_lib
+    from mgr_tpu_torch.parallel.mesh import make_mesh
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.curriculum import run_curriculum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = {k: PipelineConfig.from_json(v) for k, v in cfgs_json.items()}
+    mesh = make_mesh(MeshConfig(*shape), device=device)
+    out = {"train": {}, "decode": {}}
+    for name in train:
+        cfg = cfgs[name]
+        batch = _family_batch(cfg, cfg.batch_size, SEED + FAM_SEED[name])
+        model = _family_model(name, cfgs, mesh.device)
+        trainable = model.trainable()
+        frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not trainable[k]}
+        dispatch.reset_launch_counts()
+        loss, grads = step_lib.mesh_loss_and_grads(
+            model, mesh, dict(model.named_parameters()), batch, None)
+        ev = step_lib.make_eval_step(model, mesh=mesh)(batch)
+        torch.cuda.synchronize()
+        r = {"loss": float(loss), "eval": float(ev), "launches": dispatch.launch_counts()}
+        if rank == 0:
+            r["grads"] = {k: g.float().cpu().numpy() for k, g in grads.items()}
+        del grads
+        state = step_lib.create_train_state(model)
+        train_step = step_lib.make_train_step(model, mesh=mesh)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch, None)
+            float(m["loss"])
+            walls.append(time.perf_counter() - t0)
+        r["step_wall_s"] = walls
+        r["frozen"] = len(frozen)
+        r["frozen_unchanged"] = all(torch.equal(p, frozen[k])
+                                    for k, p in model.named_parameters() if k in frozen)
+        out["train"][name] = r
+        del model, state, train_step
+        torch.cuda.empty_cache()
+    for name in decode:
+        batch = _family_batch(cfgs[name], FAM_DECODE[name], SEED + FAM_SEED[name] + 10)
+        model = _family_model(name, cfgs, mesh.device)
+        dec = Decoder.for_model(model, name, mesh=mesh)
+        dispatch.reset_launch_counts()
+        best, emit = dec.decode_fn(step_lib.batch_inputs(batch), None)
+        torch.cuda.synchronize()
+        out["decode"][name] = {"best": best.cpu().numpy(), "emit": emit.cpu().numpy(),
+                               "launches": dispatch.launch_counts()}
+        rows = shard_lib.shard_batch(batch, mesh)  # this rank's posteriors (every rank
+        with step_lib._shard_context(mesh):        # joins the exchanges)
+            probs = step_lib.make_predict_step(model)(step_lib.batch_inputs(rows))
+        if rank == 0:
+            out["decode"][name]["probs"] = probs.float().cpu().numpy()
+        del model, dec
+        torch.cuda.empty_cache()
+    if curriculum_dir:
+        writes, real = [], ckpt_lib.save_train_state
+
+        def spy(workdir, stamp, *a, **kw):
+            writes.append(stamp)
+            return real(workdir, stamp, *a, **kw)
+
+        ckpt_lib.save_train_state = spy
+        presets = {k: get_preset(k) for k in ("speech", "skeletal", "late_fusion")}
+        n = N_FUS_TRAIN + N_FUS_VAL
+        data = [_batcher(_speech_corpus(presets[k], n, SEED + 22 + i), N_FUS_TRAIN)
+                for i, k in enumerate(("speech", "skeletal"))]
+        data.append(_batcher(_two_stream_corpus(presets["late_fusion"], n, SEED + 21),
+                             N_FUS_TRAIN))
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_curriculum(*data, curriculum_dir, configs=presets, mesh=mesh, epochs=1)
+        torch.cuda.synchronize()
+        out["curriculum"] = {
+            "writes": sorted(set(writes)), "seconds": time.perf_counter() - t0,
+            "launches": dispatch.launch_counts(),
+            "stages": {k: {"digest": _digest_tensors(r.state.params.values()),
+                           "epochs_run": r.epochs_run,
+                           "history": [{h_k: h[h_k] for h_k in ("train_loss", "val_loss")}
+                                       for h in r.history]} for k, r in res.items()}}
+    return out
+
+
+def _decode_agrees(got, want, probs, rank0_probs) -> dict:
+    """A mesh decode's (best, emit) against the single-process one on the
+    same rows, in global row order: equal in every frame. Each rank's
+    launches have the single-process decode's shapes (K5a is bit-equal to
+    K1's direction, the exchange adds zeros), and both sides' weights are
+    drawn with one thread, so the posteriors are the same bits and no
+    argmax may flip; a row gathered out of order differs too."""
+    (best, emit), (best_1, emit_1) = got, want
+    differ = (best != best_1) | (emit != emit_1)
+    half = rank0_probs.shape[0]
+    probs_diff = float(np.abs(rank0_probs[:, -probs.shape[1]:] - probs[:half]).max())
+    if differ.any():
+        raise AssertionError(
+            f"mesh decode differs from one process in rows "
+            f"{np.nonzero(differ.any(1))[0].tolist()} ({int(differ.sum())} of {differ.size} "
+            f"frames; rank 0's posteriors {probs_diff} apart)")
+    return {"rows": int(best.shape[0]), "rows_equal": int(best.shape[0]),
+            "frames": int(best.size), "rank0_probs_max_abs_diff": probs_diff}
+
+
+def mesh_families_phase(dev) -> dict:
+    """Every family over meshes of gloo ranks that time-share the one card,
+    at full width (B=32, T=1900; rgb B=8, 60x60 frames), bf16, noise and
+    dropout off: early fusion (BiLSTM(500)x2 over 39+20 features), late
+    fusion (frozen speech H=500 and skeletal H=300 encoders, the fusion
+    BiLSTM(100)) and rgb (the CNN with remat, BiLSTM(512)x2) on 2x2, and
+    rgb on 2x1. For each, one mesh train step's loss and every raw gradient
+    and one mesh eval loss against the single-process step on the same
+    batch; each rank's launches (K5a/K5b and no K1/K2 on 2x2, K1/K2 on 2x1,
+    K3/K4 always); the wall of three mesh train steps; late fusion's
+    encoders bit-unchanged. Then speech (B=128) and late fusion (B=32)
+    decoded over both meshes against the single-process decode of the same
+    rows, ``run_curriculum(mesh=)`` on 2x1 (one epoch a stage: rank 0
+    alone writes, the ranks end equal, the fusion slot's encoders are the
+    donors' best slots), and K5a/K5b against their plain versions at the
+    shapes these meshes give them. The walls are of ranks time-sharing one
+    card, not a multi-card speed."""
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.decode.decoder import DECODE_SPECS
+    from mgr_tpu_torch.parallel.spawn import run_ranks
+    from mgr_tpu_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    cfgs = _families_cfgs()
+    refs = {}
+    for name in FAM_TRAIN[(2, 2)]:
+        cfg = cfgs[name]
+        batch = _family_batch(cfg, cfg.batch_size, SEED + FAM_SEED[name])
+        model = _family_model(name, cfgs, dev)
+        tb = step_lib.batch_to_device(batch, dev)
+        loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, None)
+        refs[name] = {"loss": float(loss), "eval": float(step_lib.make_eval_step(model)(batch)),
+                      "grads": {k: g.float().cpu() for k, g in grads.items()}}
+        del model, tb, grads
+        torch.cuda.empty_cache()
+    dec_refs = {}
+    for name, B in FAM_DECODE.items():
+        spec = DECODE_SPECS[name]
+        batch = _family_batch(cfgs[name], B, SEED + FAM_SEED[name] + 10)
+        model = _family_model(name, cfgs, dev)
+        decode = step_lib.make_decode_step(model, threshold=spec.threshold,
+                                           trim_frames=spec.trim_frames)
+        predict = step_lib.make_predict_step(model)
+        halves = []  # the rows of each data index, decoded at a rank's shape
+        for d in range(2):
+            rows = {k: v[d * B // 2:(d + 1) * B // 2] for k, v in batch.items()}
+            inputs = step_lib.batch_inputs(rows)
+            best, emit = decode(inputs, None)
+            halves.append((best.cpu().numpy(), emit.cpu().numpy(),
+                           predict(inputs)[:, spec.trim_frames:].float().cpu().numpy()))
+        dec_refs[name] = tuple(np.concatenate(parts) for parts in zip(*halves))
+        del model
+        torch.cuda.empty_cache()
+
+    cfgs_json = {k: v.to_json() for k, v in cfgs.items()}
+    meshes, decodes, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as cur_dir:
+        for shape in FAM_MESHES:
+            mname = "x".join(map(str, shape))
+            t0 = time.perf_counter()
+            out = run_ranks(_families_rank, shape[0] * shape[1],
+                            (str(dev), shape, cfgs_json, FAM_TRAIN[shape], tuple(FAM_DECODE),
+                             cur_dir if shape == (2, 1) else None),
+                            timeout_s=MESH_TIMEOUT_S)
+            run_s = time.perf_counter() - t0
+            tp = shape[1] == 2
+            for name in FAM_TRAIN[shape]:
+                ref, res = refs[name], [r["train"][name] for r in out]
+                grads = res[0]["grads"]
+                grad_rel = {k: float(np.linalg.norm(grads[k] - g.numpy())
+                                     / max(float(g.norm()), 1e-30))
+                            for k, g in ref["grads"].items() if float(g.norm()) > 0}
+                frozen_zero = all(not grads[k].any() for k, g in ref["grads"].items()
+                                  if float(g.norm()) == 0)
+                loss_rel = max(abs(r["loss"] - ref["loss"]) / abs(ref["loss"]) for r in res)
+                eval_rel = max(abs(r["eval"] - ref["eval"]) / abs(ref["eval"]) for r in res)
+                if loss_rel > TOL_LOSS_REL or eval_rel > TOL_LOSS_REL or not frozen_zero or \
+                        max(grad_rel.values()) > TOL_GRAD_REL:
+                    raise AssertionError(
+                        f"{name} on {mname} disagrees with the single-process step: loss rel "
+                        f"{loss_rel}, eval rel {eval_rel} (tol {TOL_LOSS_REL}), grads "
+                        f"{grad_rel} (tol {TOL_GRAD_REL}), frozen grads zero {frozen_zero}")
+                for r in res:
+                    c = r["launches"]
+                    one = c["lstm_tm_fwd"] > 0 and c["lstm_tm_bwd"] > 0
+                    two = c["bilstm_tm_fwd"] > 0 and c["bilstm_tm_bwd"] > 0
+                    ok = (one and not c["bilstm_tm_fwd"] and not c["bilstm_tm_bwd"]) if tp \
+                        else (two and not c["lstm_tm_fwd"] and not c["lstm_tm_bwd"])
+                    if not (ok and c["ctc_fwd"] > 0 and c["ctc_bwd"] > 0):
+                        raise AssertionError(f"{name} on {mname}: a rank took the wrong "
+                                             f"kernels: {c}")
+                    if not r["frozen_unchanged"] or (name == "late_fusion") != (r["frozen"] > 0):
+                        raise AssertionError(f"{name} on {mname}: frozen parameters "
+                                             f"{r['frozen']}, unchanged {r['frozen_unchanged']}")
+                launches[f"{name} {mname}"] = res[0]["launches"]
+                meshes[f"{name} {mname}"] = {
+                    "loss_rel_err": loss_rel, "eval_rel_err": eval_rel,
+                    "grad_max_rel_err": max(grad_rel.values()),
+                    "launches_rank0": res[0]["launches"],
+                    "step_wall_ms_ranks_time_sharing_one_card": [
+                        1e3 * float(np.median(r["step_wall_s"])) for r in res],
+                    **({"frozen_encoders_bit_unchanged": True} if name == "late_fusion" else {}),
+                }
+            for name in FAM_DECODE:
+                res = [r["decode"][name] for r in out]
+                if any(not (np.array_equal(r["best"], res[0]["best"])
+                            and np.array_equal(r["emit"], res[0]["emit"])) for r in res):
+                    raise AssertionError(f"decode {name} on {mname}: the ranks disagree")
+                best_1, emit_1, probs = dec_refs[name]
+                decodes[f"{name} {mname}"] = _decode_agrees(
+                    (res[0]["best"], res[0]["emit"]), (best_1, emit_1), probs,
+                    res[0]["probs"])
+                launches[f"decode {name} {mname}"] = res[0]["launches"]
+            meshes[f"run {mname}"] = {"run_s": run_s}
+            if shape == (2, 1):
+                cur = [r["curriculum"] for r in out]
+                stages = ("speech", "skeletal", "late_fusion")
+                if cur[0]["writes"] != sorted(stages) or cur[1]["writes"]:
+                    raise AssertionError(f"curriculum: writes {[c['writes'] for c in cur]}")
+                for k in stages:
+                    if cur[0]["stages"][k]["digest"] != cur[1]["stages"][k]["digest"] or \
+                            cur[0]["stages"][k]["epochs_run"] != 1:
+                        raise AssertionError(f"curriculum stage {k}: the ranks disagree")
+                fused = ckpt_lib.read_params(cur_dir, "late_fusion")
+                for k in ("speech", "skeletal"):
+                    for key, v in ckpt_lib.read_params(cur_dir, k).items():
+                        if key.startswith("encoder.") and not torch.equal(
+                                fused[f"{k}.{key[len('encoder.'):]}"], v):
+                            raise AssertionError(f"curriculum: fusion slot's {k}.{key} is "
+                                                 f"not the donor's best slot")
+                launches["curriculum 2x1"] = cur[0]["launches"]
+                curriculum = {"seconds": cur[0]["seconds"], "launches_rank0": cur[0]["launches"],
+                              "history": {k: v["history"] for k, v in cur[0]["stages"].items()},
+                              "rank0_alone_writes": True, "ranks_agree": True,
+                              "fusion_encoders_are_the_donors": True}
+
+    rng = np.random.default_rng(SEED + 60)
+    gen = torch.Generator().manual_seed(SEED + 60)
+    k5 = {}
+    for B, H in K5_FAM_SHAPES:
+        cases, equal, times = _k5_case(dev, rng, gen, T_K1, B, H, timed=True)
+        if not equal:
+            raise AssertionError(f"K5 is not bit-equal to K1/K2's direction at B={B}, H={H}")
+        worst = _k5_worst(cases)
+        k5[f"B={B} H={H}"] = {
+            "max_abs_err_h_c": worst["h"], "fro_rel_err_dz": worst["dz"],
+            "rel_err_dU": worst["dU"], **times[False],
+            "bound_fwd": lstm_bound(T_K1, B, H, dirs=1, backward=False, store_c=True),
+            "bound_bwd": lstm_bound(T_K1, B, H, dirs=1, backward=True, store_c=False)}
+    phase("mesh_families", backend="gloo", ranks_share_one_card=True,
+          tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL, steps=meshes,
+          decodes=decodes, curriculum=curriculum, k5_at_family_shapes=k5,
+          tol_k5_h=TOL_K1_H, tol_k5_rel=TOL_K2_REL, seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "k5": k5}
 
 
 def _device_us(prof) -> float:
@@ -2732,6 +3088,7 @@ def main() -> int:
     rgb = rgb_phase(dev)
     prepare = prepare_phase(dev)
     mesh = mesh_phase(dev)
+    families = mesh_families_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
@@ -2753,8 +3110,13 @@ def main() -> int:
     # through the CLI on the device-resident corpus, then decode of a
     # msgpack workdir) and from the synthetic path (the learning run's
     # fit, decode and evaluate, then train and decode speech through the
-    # CLI on the synthetic corpus).
+    # CLI on the synthetic corpus); every kernel also from rank 0 of each
+    # path of the mesh_families phase (each family's mesh train and eval
+    # step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
+    # shapes those meshes give them.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
+    k5_at = {"lstm_tm_fwd": ("fwd_ms", "fwd_plain_ms", "bound_fwd"),
+             "lstm_tm_bwd": ("bwd_ms", "bwd_plain_ms", "bound_bwd")}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mgr_tpu_torch/csrc/{dispatch.SOURCES[name]}.cu",
@@ -2767,6 +3129,11 @@ def main() -> int:
             if name in rgb_shapes else {}),
          **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name],
              "launches_synthetic": synthetic[name]} if name in KERNELS[:4] else {}),
+         "launches_mesh_families": {path: c[name] for path, c in families["launches"].items()},
+         **({"at_family_shapes": {shape: {"ms": t[k5_at[name][0]],
+                                          "plain_ms": t[k5_at[name][1]], **t[k5_at[name][2]]}
+                                  for shape, t in families["k5"].items()}}
+            if name in k5_at else {}),
          **measured[name]}
         for name in KERNELS
     ]

@@ -49,17 +49,23 @@ anomaly mode on), ``--async-checkpoints`` (slots written by a background
 thread) and ``--cache-dir`` (the speech corpus kept as one ``.npz``, the
 JAX package's cache format).
 
-``train --mesh DATAxMODEL`` trains over a mesh of ranks (pure data
-parallelism, or data parallelism x direction-sharded tensor parallelism
-with MODEL = 2), one process per rank, started by torchrun:
+``train --mesh DATAxMODEL`` trains any family over a mesh of ranks (pure
+data parallelism, or data parallelism x direction-sharded tensor
+parallelism with MODEL = 2), one process per rank, started by torchrun;
+``curriculum --mesh`` trains its three stages over it:
 
-    torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train speech --mesh 2x2 ...
+    torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train early_fusion --mesh 2x2 ...
+    torchrun --nproc-per-node 2 -m mgr_tpu_torch.cli.main curriculum --mesh 2x1 ...
 
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
 on the CPU over gloo; rank 0 writes the workdir and prints the result.
-Not ported yet (ROADMAP.md 'Modules to port', 'The mesh path's
-remainder'): rgb, the fusion families and ``curriculum`` under ``--mesh``
-and ``decode``/``evaluate --mesh``.
+``--debug-nans`` on a mesh makes every rank raise at the same step.
+``decode`` decodes over the mesh stored in the workdir's config when it is
+started with that many processes (torchrun sets ``WORLD_SIZE``), else in
+one process, as the JAX CLI decodes without a mesh on a host that lacks
+the devices; rank 0 writes the MLF. ``evaluate`` runs in one process, as
+in JAX. A model axis above 2 or a time axis needs the JAX package's
+GSPMD path, which is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,8 +77,6 @@ from typing import Optional
 
 PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
 FUSION = ("early_fusion", "late_fusion")
-NO_MESH = FUSION + ("rgb",)  # families the mesh steps do not take yet
-MESH_ITEM = "ROADMAP.md 'Modules to port', 'The mesh path's remainder'"
 
 
 def _device(args):
@@ -87,16 +91,17 @@ def _device(args):
     return torch.device("cuda", 0) if dev == torch.device("cuda") else dev
 
 
-def _load_model(args):
-    """The workdir's config and its ``--slot`` parameters in the model;
-    late fusion built through the graft of the workdir's encoders, as the
-    JAX CLI builds it (``mgr_tpu/cli/main.py:213-216``)."""
+def _load_model(args, dev=None):
+    """The workdir's config and its ``--slot`` parameters in the model, on
+    ``dev`` (default ``--device``); late fusion built through the graft of
+    the workdir's encoders, as the JAX CLI builds it
+    (``mgr_tpu/cli/main.py:213-216``)."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.models.zoo import build_model
     from mgr_tpu_torch.train.curriculum import build_fusion_with_pretrained
 
     cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
-    dev = _device(args)
+    dev = dev or _device(args)
     if args.pipeline == "late_fusion":
         model = build_fusion_with_pretrained(args.workdir, cfg, device=dev)
     else:
@@ -138,9 +143,9 @@ def _config_for(args, name: str):
     return cfg.replace(**over) if over else cfg
 
 
-def _mesh_for(cfg, args, dev):
-    """The mesh of ``--mesh`` over torchrun's process group, or None for a
-    single process. Exits when the process count is not the mesh's."""
+def _mesh_for(cfg, dev):
+    """The mesh of ``cfg.mesh`` over torchrun's process group, or None for
+    a single process. Exits when the process count is not the mesh's."""
     import os
 
     from mgr_tpu_torch.parallel import mesh as mesh_lib
@@ -149,21 +154,22 @@ def _mesh_for(cfg, args, dev):
     n = cfg.mesh.num_devices
     if n <= 1:
         return None
-    if cfg.name in NO_MESH:
-        raise SystemExit(f"--mesh {args.mesh}: {cfg.name} does not run on a mesh yet "
-                         f"({MESH_ITEM})")
-    if getattr(args, "debug_nans", False):
-        raise SystemExit(f"--debug-nans --mesh: a rank whose rows hold a NaN would raise "
-                         f"alone and leave the others at a collective ({MESH_ITEM})")
     sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
     world = os.environ.get("WORLD_SIZE")
     if world is None or int(world) != n:
         raise SystemExit(
-            f"--mesh {args.mesh} runs {n} processes, one per rank: launch it as "
-            f"`torchrun --nproc-per-node {n} -m mgr_tpu_torch.cli.main train ...` "
+            f"mesh {cfg.mesh.data}x{cfg.mesh.model} runs {n} processes, one per rank: "
+            f"launch it as `torchrun --nproc-per-node {n} -m mgr_tpu_torch.cli.main ...` "
             f"(WORLD_SIZE is {world})")
     multihost.initialize("nccl" if dev.type == "cuda" else "gloo")
     return mesh_lib.make_mesh(cfg.mesh, device=None if dev.type == "cuda" else dev)
+
+
+def _close(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def cmd_train(args) -> int:
@@ -174,14 +180,15 @@ def cmd_train(args) -> int:
 
     cfg = _config_for(args, args.pipeline)
     dev = _device(args)
-    mesh = _mesh_for(cfg, args, dev)
+    mesh = _mesh_for(cfg, dev)
+    where = dev if mesh is None else mesh.device
     data = _build_dataset(args.pipeline, cfg, args, mode="train")
     if args.pipeline == "late_fusion" and not args.from_scratch:
         # The graft is the starting point; --resume then restores the
         # latest slot over it, as the JAX CLI's resume does.
-        model = build_fusion_with_pretrained(args.workdir, cfg, device=dev)
+        model = build_fusion_with_pretrained(args.workdir, cfg, device=where)
     else:
-        model = build_model(cfg, device=dev if mesh is None else mesh.device)
+        model = build_model(cfg, device=where)
     if args.debug_nans:
         tracing.debug_nans(True)
     try:
@@ -199,37 +206,34 @@ def cmd_train(args) -> int:
             "best_val_loss": res.best_val_loss,
             "epochs_run": res.epochs_run,
         }))
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
+    _close(mesh)
     return 0
 
 
 def cmd_curriculum(args) -> int:
     """speech -> skeletal -> late fusion in one workdir
     (``mgr_tpu/cli/main.py:173-200``). It takes every train flag and reads
-    what the JAX command reads (the corpus, ``--workdir``, ``--epochs`` and
-    the config overrides); ``--resume``, ``--checkpoint-every``,
-    ``--monitor``, ``--trace-dir``, ``--debug-nans``,
-    ``--async-checkpoints`` and ``--cache-dir`` are accepted and ignored,
-    as there."""
+    what the JAX command reads (the corpus, ``--workdir``, ``--epochs``,
+    the config overrides and ``--mesh``, the speech config's mesh for all
+    three stages); ``--resume``, ``--checkpoint-every``, ``--monitor``,
+    ``--trace-dir``, ``--debug-nans``, ``--async-checkpoints`` and
+    ``--cache-dir`` are accepted and ignored, as there."""
     from mgr_tpu_torch.data import datasets
     from mgr_tpu_torch.train.curriculum import run_curriculum
 
-    if args.mesh:
-        raise SystemExit(f"curriculum --mesh: the curriculum does not run on a mesh yet "
-                         f"({MESH_ITEM})")
     cfgs = {name: _config_for(args, name) for name in ("speech", "skeletal", "late_fusion")}
     dev = _device(args)
+    mesh = _mesh_for(cfgs["speech"], dev)
     speech = datasets.build_audio_dataset(args.audio_dir, args.audio_labels, cfgs["speech"])
     skeletal = datasets.build_skeletal_dataset(args.skeletal_csv, args.labels, cfgs["skeletal"])
     fusion = datasets.build_late_fusion_dataset(args.audio_dir, args.skeletal_csv, args.labels,
                                                 cfgs["late_fusion"])
     results = run_curriculum(speech, skeletal, fusion, args.workdir, configs=cfgs,
-                             epochs=args.epochs, device=dev)
-    print(json.dumps({k: {"best_val_loss": v.best_val_loss, "epochs": v.epochs_run}
-                      for k, v in results.items()}))
+                             mesh=mesh, epochs=args.epochs, device=dev)
+    if mesh is None or mesh.is_primary:
+        print(json.dumps({k: {"best_val_loss": v.best_val_loss, "epochs": v.epochs_run}
+                          for k, v in results.items()}))
+    _close(mesh)
     return 0
 
 
@@ -252,13 +256,32 @@ def _build_dataset(name: str, cfg, args, mode: str):
     raise KeyError(name)
 
 
+def _stored_mesh(args, dev):
+    """The mesh of the workdir's config when this process is one of as
+    many ranks (torchrun's ``WORLD_SIZE``), else None: decode then runs in
+    one process, as the JAX CLI decodes without a mesh on a host that
+    lacks the devices (``mgr_tpu/cli/main.py:248-256``)."""
+    import os
+
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+
+    cfg = ckpt_lib.load_config(args.workdir, args.pipeline)
+    n = cfg.mesh.num_devices
+    if n <= 1 or os.environ.get("WORLD_SIZE") != str(n):
+        return None
+    return _mesh_for(cfg, dev)
+
+
 def cmd_decode(args) -> int:
     from mgr_tpu_torch.decode.decoder import DECODE_SPECS, MLF_FILENAMES, Decoder
 
-    cfg, model = _load_model(args)
+    dev = _device(args)
+    beam = args.beam and args.beam > 1
+    mesh = None if beam else _stored_mesh(args, dev)
+    cfg, model = _load_model(args, dev if mesh is None else mesh.device)
     data = _build_dataset(args.pipeline, cfg, args, mode=args.dataset)
-    dec = Decoder.for_model(model, args.pipeline)
-    if args.beam and args.beam > 1:
+    dec = Decoder.for_model(model, args.pipeline, mesh=mesh)
+    if beam:
         from mgr_tpu_torch.decode.beam import beam_decode_batch
         from mgr_tpu_torch.train.step import batch_inputs, make_predict_step
 
@@ -275,8 +298,10 @@ def cmd_decode(args) -> int:
         results = dec.decode_batches(data.epoch(cfg.batch_size, train=False),
                                      use_lengths=args.true_lengths)
     out = args.out or MLF_FILENAMES[args.pipeline]
-    dec.write_mlf(out, results)
-    print(json.dumps({"decoded": len(results), "mlf": out}))
+    if mesh is None or mesh.is_primary:
+        dec.write_mlf(out, results)
+        print(json.dumps({"decoded": len(results), "mlf": out}))
+    _close(mesh)
     return 0
 
 
@@ -400,7 +425,7 @@ def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
                    help="loss that drives the best checkpoint and early stopping")
     p.add_argument("--mesh", default=None,
                    help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
-                        "one process per rank under torchrun (speech and skeletal)")
+                        "one process per rank under torchrun")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of training to this directory")
     p.add_argument("--debug-nans", action="store_true",

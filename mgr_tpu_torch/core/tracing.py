@@ -15,8 +15,13 @@ PyTorch's own tools.
     autograd's anomaly mode (``set_detect_anomaly(True, check_nan=True)``)
     raises naming the backward function that first returned a NaN. A NaN
     made inside a forward kernel shows at the loss, not at the kernel.
-    One process only: on a mesh, the rank whose rows hold the NaN would
-    raise alone (``train --debug-nans --mesh`` exits).
+    On a mesh every rank reaches one verdict at the same step: a rank's
+    own verdict is shared by a flag all-reduce before any rank raises,
+    and the loss and gradient norm are checked after the collectives
+    (``train.step``). With a model axis the backward holds the model
+    group's collectives, so there anomaly mode's NaN check is off (a rank
+    that raised inside the backward would leave its partner waiting): a
+    NaN of the backward reaches the combined gradients and their norm.
 """
 
 from __future__ import annotations
@@ -51,6 +56,19 @@ def debug_nans(enable: bool = True) -> None:
     global _debug_nans
     _debug_nans = bool(enable)
     torch.autograd.set_detect_anomaly(_debug_nans, check_nan=True)
+
+
+def debugging_nans() -> bool:
+    """Whether :func:`debug_nans` is on."""
+    return _debug_nans
+
+
+def is_nan_verdict(err: BaseException) -> bool:
+    """Whether ``err`` is a verdict of :func:`debug_nans`: the steps' own
+    ``FloatingPointError``, or anomaly mode's error naming the backward
+    function that returned a NaN."""
+    return isinstance(err, FloatingPointError) or (
+        isinstance(err, RuntimeError) and "returned nan values" in str(err))
 
 
 def check_finite(value: torch.Tensor, what: str) -> None:

@@ -125,13 +125,16 @@ class Decoder:
         return results
 
     @staticmethod
-    def for_model(model, pipeline: str,
-                  spec: Optional[DecodeSpec] = None) -> "Decoder":
-        """A Decoder on the fused on-device decode step of ``model``."""
+    def for_model(model, pipeline: str, spec: Optional[DecodeSpec] = None,
+                  mesh=None) -> "Decoder":
+        """A Decoder on the fused on-device decode step of ``model``;
+        with a ``mesh`` (``parallel.mesh.Mesh``) each batch is decoded over
+        its ranks (``make_decode_step(mesh=)``) and every rank gets the
+        whole batch's sequences."""
         s = spec or DECODE_SPECS[pipeline]
         step = make_decode_step(
             model, threshold=s.threshold, trim_frames=s.trim_frames,
-            drop_blank=s.drop_blank,
+            drop_blank=s.drop_blank, mesh=mesh,
         )
         return Decoder(pipeline=pipeline, spec=s, decode_fn=step)
 

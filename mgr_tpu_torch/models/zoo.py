@@ -20,6 +20,13 @@ JAX package's fold paths. Parameters are registered so that
 grafted encoders unless ``finetune_encoders``; a frozen encoder runs
 outside autograd, so a train step computes no backward through it, as
 XLA compiles the JAX step whose frozen gradients are replaced by zeros.
+
+On a mesh with a model axis every BLSTM layer of every family, the frozen
+encoders' included, runs its rank's direction under the direction-shard
+context that the mesh step sets around the model
+(``ops.lstm.bilstm_layer_tm``); the rest of a model (rgb's CNN frontend,
+the noise, the concat, the head) runs on both ranks of a model pair, on
+the same rows.
 """
 
 from __future__ import annotations
@@ -56,8 +63,6 @@ def _sub(rng: Optional[prng.Key], name: str) -> Optional[prng.Key]:
 class _Model(nn.Module):
     """What every family shares: the config, the compute dtype, the head
     with its dropout, ``forward`` and ``trainable``."""
-
-    two_streams = False
 
     def __init__(self, cfg: PipelineConfig):
         super().__init__()
@@ -138,8 +143,6 @@ class EarlyFusionModel(_Model):
     residual BLSTM encoder, Dense(nb_classes) (``_build_early_fusion``,
     ``mgr_tpu/models/zoo.py:157-198``)."""
 
-    two_streams = True
-
     def __init__(self, cfg: PipelineConfig, generator: torch.Generator):
         super().__init__(cfg)
         self.encoder = Encoder(cfg.num_feats + cfg.second_stream_feats, cfg.encoder, generator)
@@ -169,8 +172,6 @@ class LateFusionModel(_Model):
     rates), ``fusion`` (one BiLSTM of width ``fusion_hidden`` over the
     concat of their residual streams) and ``head``: the JAX pytree's keys
     (``_build_late_fusion``, ``mgr_tpu/models/zoo.py:208-285``)."""
-
-    two_streams = True
 
     def __init__(self, cfg: PipelineConfig, generator: torch.Generator,
                  source_configs: Dict[str, PipelineConfig]):

@@ -1,12 +1,17 @@
 """Collectives over a process group (``mgr_tpu/parallel/collectives.py``).
 
-The mesh steps' collectives (``psum``, ``pmean``, ``pmean_tree``,
-``broadcast_``, ``gather_directions``) are written with ``all_reduce``
-and ``broadcast`` alone: gloo, the one backend under which several ranks
-can share one card (NCCL refuses two ranks on one device), has no CUDA
-``all_gather`` or ``reduce_scatter``. The generic ``all_gather``,
-``ppermute_ring`` and ``reduce_scatter`` use the group's own collectives:
-over gloo they take CPU tensors, over NCCL CUDA tensors.
+The mesh steps' collectives are ``psum``, ``pmean``, ``pmean_tree``,
+``broadcast_``, ``any_rank``, the direction exchange
+``gather_directions`` and the decode step's ``all_gather_rows``. The
+direction exchange is written with ``all_reduce`` alone: gloo, the one
+backend under which several ranks can share one card (NCCL refuses two
+ranks on one device), has no CUDA ``all_gather`` or ``reduce_scatter``,
+and an all-reduce of a buffer whose other slot is zero is exact on every
+backend. ``all_gather_rows`` uses the group's own ``all_gather`` where
+the backend serves the tensor's device (NCCL on CUDA, gloo on CPU) and
+goes through the host for gloo and a CUDA tensor. The generic
+``all_gather``, ``ppermute_ring`` and ``reduce_scatter`` use the group's
+own collectives: over gloo they take CPU tensors, over NCCL CUDA tensors.
 """
 
 from __future__ import annotations
@@ -52,6 +57,20 @@ def broadcast_(tensors) -> None:
         dist.broadcast(t, src=0)
 
 
+def _served(x: torch.Tensor, group: Any) -> bool:
+    """Whether the group's backend gathers and scatters tensors on
+    ``x``'s device: NCCL on CUDA, gloo on the CPU."""
+    return (dist.get_backend(group) == dist.Backend.NCCL) == x.is_cuda
+
+
+def any_rank(flag: bool, device: torch.device) -> bool:
+    """Whether ``flag`` is set on any rank of the process group (one
+    all-reduce of a flag on ``device``, which the backend must serve)."""
+    t = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 class _GatherDirections(torch.autograd.Function):
     """Forward: the (2, ...) stack of both ranks' h streams, as an
     all-reduce of a buffer whose other slot is zero (exact: x + 0 = x).
@@ -81,6 +100,15 @@ def gather_directions(h: torch.Tensor, group: Any, direction: int) -> torch.Tens
     if dist.get_world_size(group) != 2:
         raise ValueError("the direction exchange needs a model group of 2 ranks")
     return _GatherDirections.apply(h, group, direction)
+
+
+def all_gather_rows(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along axis 0 in group rank order,
+    on ``x``'s device; through the host where the backend cannot gather
+    on that device (gloo and a CUDA tensor)."""
+    if _served(x, group):
+        return all_gather(x, group)
+    return all_gather(x.cpu(), group).to(x.device)
 
 
 def all_gather(x: torch.Tensor, group: Any = None, *, tiled: bool = True) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from mgr_tpu_torch.core.config import MeshConfig
 from mgr_tpu_torch.parallel import multihost
+from mgr_tpu_torch.parallel.sharding import GSPMD_ITEM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +75,7 @@ def make_mesh(cfg: MeshConfig, device: Optional[torch.device | str] = None) -> M
     if cfg.time > 1:
         raise NotImplementedError(
             f"mesh {cfg.data}x{cfg.model}x{cfg.time}: a time axis needs the JAX "
-            f"package's GSPMD path, which is not ported (ROADMAP.md)")
+            f"package's GSPMD path, which is not ported ({GSPMD_ITEM})")
     world = dist.get_world_size()
     want = cfg.data * cfg.model
     if world != want:

@@ -12,6 +12,8 @@ from typing import Any, Dict, Optional, Tuple
 
 from mgr_tpu_torch.core.config import MeshConfig
 
+GSPMD_ITEM = "ROADMAP.md 'Modules to port', 'The GSPMD mesh path'"
+
 
 def shardmap_axes(cfg: MeshConfig) -> Tuple[str, Optional[str]]:
     """``(data_axis, model_axis or None)`` for a mesh the port serves
@@ -23,7 +25,7 @@ def shardmap_axes(cfg: MeshConfig) -> Tuple[str, Optional[str]]:
         raise NotImplementedError(
             f"mesh {cfg.data}x{cfg.model}x{cfg.time}: a model axis above 2 or a "
             f"time axis needs the JAX package's GSPMD path, which is not ported "
-            f"(ROADMAP.md); use DATAx1 or DATAx2")
+            f"({GSPMD_ITEM}); use DATAx1 or DATAx2")
     return cfg.data_axis, (cfg.model_axis if cfg.model == 2 else None)
 
 

@@ -11,7 +11,11 @@ controller's state of whatever ran before in the workdir). The donors'
 slots may be the port's ``.pt`` or the JAX package's msgpack
 (``core.checkpoint.read_params``), so encoders trained by JAX graft bit
 for bit. Each stage's ``fit`` takes its default data path: the corpus on
-the device, batches gathered there.
+the device, batches gathered there, or over a mesh host batches through
+the mesh steps. On a mesh (``mgr_tpu/train/curriculum.py:66-112``) every
+stage trains over it; rank 0 writes the slots, ``fit``'s closing barrier
+has them on disk before any rank reads the donors, and each rank builds
+the late-fusion model on its own device.
 """
 
 from __future__ import annotations
@@ -82,19 +86,24 @@ def run_curriculum(
     workdir: str,
     *,
     configs: Optional[Dict[str, PipelineConfig]] = None,
+    mesh=None,
     epochs: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> Dict[str, FitResult]:
     """Trains speech and skeletal into ``workdir``, then late fusion from
     their best slots. ``configs`` maps "speech", "skeletal" and
-    "late_fusion" to their configs (default: the presets); ``epochs``
-    overrides every stage's epoch budget."""
+    "late_fusion" to their configs (default: the presets); ``mesh``
+    (``parallel.mesh.Mesh``) trains every stage over a mesh of ranks, on
+    ``mesh.device`` in place of ``device``; ``epochs`` overrides every
+    stage's epoch budget."""
     cfgs = configs or {name: get_preset(name) for name in ENCODERS + ("late_fusion",)}
+    dev = device if mesh is None else mesh.device
     results: Dict[str, FitResult] = {}
     for stage, data in zip(ENCODERS, (speech_data, skeletal_data)):
-        model = zoo.build_model(cfgs[stage], device=device)
-        results[stage] = fit(model, data, workdir=workdir, epochs=epochs)
+        model = zoo.build_model(cfgs[stage], device=dev)
+        results[stage] = fit(model, data, workdir=workdir, mesh=mesh, epochs=epochs)
     fusion = build_fusion_with_pretrained(
-        workdir, cfgs["late_fusion"], {name: cfgs[name] for name in ENCODERS}, device=device)
-    results["late_fusion"] = fit(fusion, fusion_data, workdir=workdir, epochs=epochs)
+        workdir, cfgs["late_fusion"], {name: cfgs[name] for name in ENCODERS}, device=dev)
+    results["late_fusion"] = fit(fusion, fusion_data, workdir=workdir, mesh=mesh,
+                                 epochs=epochs)
     return results

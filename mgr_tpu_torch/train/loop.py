@@ -19,10 +19,15 @@ gathers its rows there from a (B,) index (the indexed steps); a lazy
 corpus (``LazyVideoBatcher``, which holds no features) and a mesh stream
 host batches, one host-to-device copy a step. Both paths take the same
 rows and run the same step, so they give the same bits.
+``fit(device_data=True, mesh=)`` takes the indexed single-device steps,
+as JAX does (``mgr_tpu/train/loop.py:173-187``): every rank trains the
+whole batch on its own replica, with no collective in the step.
 
 With a ``mesh`` (``parallel.mesh.Mesh``, ``mgr_tpu/train/loop.py:
 168-195``) every rank runs this loop: it builds the same global batches
-and the mesh steps take its rows; rank 0 alone writes the config, the
+(two streams, or a lazy corpus's videos, alike) and the mesh steps take
+its rows, sliced on the host before their copy to the card, as JAX's
+``data.epoch`` then ``shard_batch`` does; rank 0 alone writes the config, the
 slots, the fitmeta and the metrics, and the other ranks wait at a
 barrier before they read a checkpoint; the window's losses are rank 0's,
 broadcast, so that early stopping and the plateau controller decide the
@@ -56,9 +61,6 @@ from mgr_tpu_torch.train.step import (
     model_device,
 )
 
-MESH_ITEM = "ROADMAP.md 'Modules to port', 'The mesh path's remainder'"
-
-
 @dataclasses.dataclass
 class FitResult:
     state: TrainState
@@ -79,10 +81,6 @@ def _use_device_data(data: Batcher, mesh, device_data: Optional[bool]) -> bool:
     held = getattr(data, "features", None) is not None
     if device_data is None:
         return mesh is None and held
-    if device_data and mesh is not None:
-        raise NotImplementedError(
-            f"fit(device_data=True) over a mesh: the mesh steps take host batches "
-            f"({MESH_ITEM})")
     if device_data and not held:
         raise ValueError(
             f"fit(device_data=True): {type(data).__name__} holds no features to upload "
@@ -120,8 +118,8 @@ def fit(
 
     ``device_data``: the corpus on the model's device, batches gathered
     there by row index (no host-to-device copy a step). Default: on for
-    an array-backed corpus without a mesh; True with a lazy corpus or a
-    mesh raises.
+    an array-backed corpus without a mesh; True with a lazy corpus
+    raises; True with a mesh trains the whole batch on every rank.
 
     ``checkpoint_every``: write the latest/best slots at most every N
     epochs; the best state is kept in memory meanwhile and the final

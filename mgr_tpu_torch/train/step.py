@@ -1,8 +1,9 @@
 """Train, eval, predict and decode steps (``mgr_tpu/train/step.py``), on
-one device, and the train and eval steps over a mesh of ranks
-(``make_train_step(model, mesh=)``, ``make_eval_step(model, mesh=)``):
-pure data parallelism, or data parallelism x direction-sharded tensor
-parallelism (``parallel.mesh``).
+one device, and the train, eval and decode steps over a mesh of ranks
+(``make_train_step(model, mesh=)``, ``make_eval_step(model, mesh=)``,
+``make_decode_step(model, ..., mesh=)``), for every family: pure data
+parallelism, or data parallelism x direction-sharded tensor parallelism
+(``parallel.mesh``).
 
 JAX's steps take ``(params, ...)``; here the parameters live in the
 module. The eval, predict and decode steps take the batch alone and run
@@ -16,9 +17,9 @@ Batch contract (as in the JAX package): ``inputs`` (B, T, F) (rgb: the
 (B, T, D, D, 1) video), and for
 the fusion families the second stream ``inputs2`` (B, T, F2) (the model
 then takes the pair), ``labels`` (B, N) int -1 padded, ``input_length``
-(B,) valid frames AFTER the CTC trim, ``label_length`` (B,). The mesh
-steps take one stream only (ROADMAP.md 'Modules to port', 'The mesh path's
-remainder').
+(B,) valid frames AFTER the CTC trim, ``label_length`` (B,). A mesh step
+splits every one of them, the second stream too, by rows over the data
+axis (JAX's ``in_specs`` ``P(data)`` over every leaf of the batch).
 
 The indexed steps (``make_indexed_train_step``, ``make_indexed_eval_step``,
 ``mgr_tpu/train/step.py:290-321``) take the whole corpus as tensors on the
@@ -26,7 +27,8 @@ model's device (``Batcher.device_arrays``, uploaded once) and a (B,) row
 index, gather the batch on the device and run the same step; only the
 batch's origin differs. Under ``core.tracing.debug_nans`` every step
 raises ``FloatingPointError`` on a loss or gradient norm that is not
-finite.
+finite; over a mesh every rank reaches that verdict at the same step
+(a rank-local verdict is shared by a flag all-reduce first).
 """
 
 from __future__ import annotations
@@ -65,11 +67,23 @@ def to_device(x: Any, device: torch.device) -> Any:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _keys(batch: Dict[str, Any]) -> Tuple[str, ...]:
+    return BATCH_KEYS + (("inputs2",) if "inputs2" in batch else ())
+
+
 def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """The batch's ``BATCH_KEYS`` and, when present, ``inputs2`` on
     ``device``."""
-    keys = BATCH_KEYS + (("inputs2",) if "inputs2" in batch else ())
-    return {k: to_device(batch[k], device) for k in keys}
+    return {k: to_device(batch[k], device) for k in _keys(batch)}
+
+
+def _rank_rows(batch: Dict[str, Any], mesh, device: torch.device) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch, every key of
+    :func:`batch_to_device` (the second stream too), sliced where the
+    batch lies (on the host for host batches) and then moved to
+    ``device``: a rank copies only its rows."""
+    return batch_to_device(shard_lib.shard_batch({k: batch[k] for k in _keys(batch)}, mesh),
+                           device)
 
 
 def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -83,13 +97,6 @@ def batch_inputs(batch: Dict[str, Any]) -> Any:
     if "inputs2" in batch:
         return (batch["inputs"], batch["inputs2"])
     return batch["inputs"]
-
-
-def _refuse_two_streams_on_a_mesh(model: nn.Module, mesh) -> None:
-    if mesh is not None and getattr(model, "two_streams", False):
-        raise NotImplementedError(
-            f"{model.config.name}: the fusion families do not run on a mesh yet "
-            f"(ROADMAP.md 'Modules to port', 'The mesh path's remainder')")
 
 
 def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
@@ -115,6 +122,40 @@ def _shard_context(mesh):
     return dispatch.direction_shard(mesh.model_group, mesh.model_index)
 
 
+def _on_every_rank(mesh, fn: Callable[[], Any]) -> Any:
+    """``fn()``, this rank's part of a mesh step. Under
+    ``tracing.debug_nans`` its verdict (a non-finite local loss, or on a
+    mesh without a model axis anomaly mode's error in its backward) does
+    not stop this rank alone, which would leave the others waiting at
+    their next collective: every rank first learns from one flag
+    all-reduce whether any rank failed, then all raise
+    ``FloatingPointError`` together. Any other error propagates as it is.
+
+    With a model axis the backward holds the model group's collectives
+    (the direction exchange's transpose), so a rank that raised inside it
+    would leave its partner waiting there: anomaly mode's NaN check is
+    off in ``fn``, a NaN of one direction's backward runs on through the
+    exchange into the combined gradients, and the check of their norm
+    raises on every rank at once. The two ranks of a model pair compute
+    the same loss from the same rows, so its check fails on both or on
+    neither, before the backward."""
+    if not tracing.debugging_nans():
+        return fn()
+    failed = None
+    with torch.autograd.set_detect_anomaly(True, check_nan=mesh.model == 1):
+        try:
+            out = fn()
+        except Exception as err:
+            if not tracing.is_nan_verdict(err):
+                raise
+            failed = err
+    if collectives.any_rank(failed is not None, mesh.device):
+        if failed is not None:
+            raise FloatingPointError(f"debug_nans: this rank's step: {failed}") from failed
+        raise FloatingPointError("debug_nans: another rank's step was not finite")
+    return out
+
+
 def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], torch.Tensor]:
     """Returns step(batch) -> mean CTC loss (no dropout or noise), a 0-d
     tensor on the model's device.
@@ -125,20 +166,22 @@ def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], to
     (``mgr_tpu/train/step.py:323-358``); every rank returns the same
     value."""
     dev = model_device(model)
-    _refuse_two_streams_on_a_mesh(model, mesh)
+
+    def local(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with _shard_context(mesh):
+            return _loss_from_batch(model, batch, train=False, rng=None)
 
     @torch.inference_mode()
     def step(batch: Dict[str, Any]) -> torch.Tensor:
         if mesh is None:
             batch = batch_to_device(batch, dev)
             return _loss_from_batch(model, batch, train=False, rng=None)
-        local = shard_lib.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
-        local = {k: to_device(v, dev) for k, v in local.items()}
-        with _shard_context(mesh):
-            loss = _loss_from_batch(model, local, train=False, rng=None)
+        rows = _rank_rows(batch, mesh, dev)
+        loss = _on_every_rank(mesh, lambda: local(rows))
         loss = collectives.pmean(loss, mesh.data_group)
         if mesh.model > 1:
             loss = collectives.pmean(loss, mesh.model_group)
+        tracing.check_finite(loss, "loss")
         return loss
 
     if mesh is not None:
@@ -244,17 +287,22 @@ def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
     (the two ranks of a model group draw the same masks), the loss and
     gradients under this rank's direction-shard context, then averaged
     over the data group and, with a model axis, over the model group.
-    Every rank returns the same values."""
-    dev = model_device(model)
-    local = shard_lib.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
-    local = {k: to_device(v, dev) for k, v in local.items()}
+    Every rank returns the same values. Under ``tracing.debug_nans`` the
+    averaged loss is checked here and the norm of the combined gradients
+    by the optimizer tail, so every rank raises at the same step."""
+    rows = _rank_rows(batch, mesh, model_device(model))
     rng = None if rng is None else prng.fold_in(rng, mesh.data_index)
-    with _shard_context(mesh):
-        loss, grads = _loss_and_grads(model, params, local, rng)
+
+    def local():
+        with _shard_context(mesh):
+            return _loss_and_grads(model, params, rows, rng)
+
+    loss, grads = _on_every_rank(mesh, local)
     both = collectives.pmean_tree({"loss": loss.reshape(1), **grads}, mesh.data_group)
     if mesh.model > 1:
         both = _combine_model_grads(both, mesh)
     loss = both.pop("loss").reshape(())
+    tracing.check_finite(loss, "loss")
     return loss, both
 
 
@@ -273,7 +321,6 @@ def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainSta
     replica. A mesh with a model axis above 2 or a time axis raises."""
     tx = opt_lib.keras_adam(model.config.optimizer)
     dev = model_device(model)
-    _refuse_two_streams_on_a_mesh(model, mesh)
     if mesh is not None:
         shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
 
@@ -327,13 +374,20 @@ def make_predict_step(model: nn.Module) -> Callable[[Any], torch.Tensor]:
 
 def make_decode_step(
     model: nn.Module, *, threshold: float, trim_frames: int = 2,
-    drop_blank: bool = False,
+    drop_blank: bool = False, mesh=None,
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Predict and best-path decode on the device.
 
     Returns step(inputs, input_lengths=None) -> (best, emit), (B, T')
     int32 argmax classes and the bool emit mask: only these reach the
-    host, not the (B, T, C) posteriors."""
+    host, not the (B, T, C) posteriors.
+
+    With a ``mesh`` (``mgr_tpu/train/step.py:378-446``) the step takes
+    the GLOBAL batch: this rank decodes its rows (of both streams, for a
+    fusion model) under its direction-shard context, and ``(best, emit)``
+    of the whole batch, in global row order, comes back on every rank
+    (gathered over the data group). Without ``input_lengths`` every row's
+    length is the inputs' padded T (not ``cfg.maxlen``)."""
     blank = model.config.nb_classes - 1 if drop_blank else None
     dev = model_device(model)
 
@@ -346,4 +400,23 @@ def make_decode_step(
             threshold=threshold, trim_frames=trim_frames, blank=blank,
         )
 
-    return step
+    if mesh is None:
+        return step
+    shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
+
+    @torch.inference_mode()
+    def mesh_step(inputs, input_lengths: Optional[Any] = None):
+        streams = inputs if isinstance(inputs, tuple) else (inputs,)
+        if input_lengths is None:
+            B, T = streams[0].shape[:2]
+            input_lengths = np.full((B,), T, np.int32)
+        rows = shard_lib.shard_batch(
+            {"lengths": input_lengths, **{str(i): x for i, x in enumerate(streams)}}, mesh)
+        local = tuple(rows[str(i)] for i in range(len(streams)))
+        with _shard_context(mesh):
+            best, emit = step(local if isinstance(inputs, tuple) else local[0],
+                              rows["lengths"])
+        return (collectives.all_gather_rows(best, mesh.data_group),
+                collectives.all_gather_rows(emit, mesh.data_group))
+
+    return mesh_step

@@ -230,15 +230,10 @@ def test_late_fusion_cli_matches_jax_cli(corpus, small_presets, tmp_path, capsys
     assert got["torch"] == got["jax"] and got["torch"][0] == 10
     assert "sil" in got["torch"][1]
 
-    # --from-scratch trains without donors; the mesh path is not ported.
+    # --from-scratch trains without donors.
     scratch = _run(capsys, tmain, ["train", "late_fusion", "--workdir", str(tmp_path / "s"),
                                    "--epochs", "1", "--from-scratch", "--device", "cpu", *data])
     assert scratch["epochs_run"] == 1
-    for argv in (["train", "late_fusion", "--mesh", "2x1"],
-                 ["train", "early_fusion", "--mesh", "2x1"], ["curriculum", "--mesh", "2x1",
-                                                              "--audio-labels", "x"]):
-        with pytest.raises(SystemExit, match="mesh path's remainder"):
-            tmain([*argv, "--device", "cpu", *data])
 
 
 def test_curriculum_cli_end_to_end(corpus, small_presets, tmp_path, capsys):

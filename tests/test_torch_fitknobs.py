@@ -192,8 +192,6 @@ def test_device_data_refuses_a_lazy_corpus_and_a_mesh(tmp_path):
     model = zoo.build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="holds no features"):
         tloop.fit(model, lazy, device_data=True)
-    with pytest.raises(NotImplementedError, match="mesh path's remainder"):
-        tloop.fit(model, tdata, device_data=True, mesh=object())
 
 
 def test_build_model_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -378,17 +376,6 @@ def test_trace_writes_the_named_ranges_and_nothing_without_a_dir(tmp_path):
     with tracing.trace(None), tracing.trace(""):
         pass
     assert os.listdir(tmp_path) == ["t"]
-
-
-def test_debug_nans_is_refused_on_a_mesh():
-    """A rank whose rows hold the NaN would raise alone and leave the
-    others at their next collective."""
-    from mgr_tpu_torch.cli.main import main as tmain
-
-    with pytest.raises(SystemExit, match="--debug-nans --mesh"):
-        tmain(["train", "skeletal", "--mesh", "2x1", "--debug-nans", "--device", "cpu",
-               "--skeletal-csv", "unread.csv", "--labels", "unread.csv"])
-    assert not torch.is_anomaly_enabled()
 
 
 def test_without_debug_nans_a_nan_input_trains_on():

@@ -386,18 +386,6 @@ def test_frozen_encoders_compute_no_backward(monkeypatch):
         assert not torch.equal(state.params["fusion.W"], start["fusion.W"])
 
 
-def test_fusion_families_refuse_a_mesh():
-    cfg, sources = late_cfgs()
-    _, _, model = pair(cfg, sources)
-
-    class OneRank:
-        config = tconfig.MeshConfig(data=2)
-
-    for make in (tstep.make_train_step, tstep.make_eval_step):
-        with pytest.raises(NotImplementedError, match="mesh path's remainder"):
-            make(model, mesh=OneRank())
-
-
 # ---------------------------------------------------------------- the CLI
 
 

@@ -351,12 +351,3 @@ def test_rgb_cli_matches_jax_cli(corpus, tmp_path, capsys, monkeypatch):
         inf = _run(capsys, main, ["infer", "rgb", one, "--workdir", wd, *dev])
         got[tag] = (dec["decoded"], open(mlf).read(), ev, inf["tokens"])
     assert got["torch"] == got["jax"] and got["torch"][0] == 10 and got["torch"][3]
-
-
-def test_train_rgb_on_a_mesh_names_the_roadmap_item(corpus, tmp_path):
-    from mgr_tpu_torch.cli import main as tcli
-
-    with pytest.raises(SystemExit, match="mesh path's remainder"):
-        tcli.main(["train", "rgb", "--mesh", "2x1", "--device", "cpu", "--workdir",
-                   str(tmp_path), "--data-dir", corpus["data_dir"], "--labels",
-                   corpus["labels"]])

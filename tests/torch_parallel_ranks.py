@@ -1,4 +1,5 @@
-"""Rank bodies of the gloo mesh tests in ``tests/test_torch_parallel.py``.
+"""Rank bodies of the gloo mesh tests in ``tests/test_torch_parallel.py``
+and ``tests/test_torch_mesh_*.py``.
 
 Each function runs in a process spawned by
 ``mgr_tpu_torch.parallel.spawn.run_ranks``, inside an initialized gloo
@@ -6,7 +7,9 @@ process group on the CPU. This module imports no JAX and nothing of the
 JAX package, so that a rank starts fast; results go back as numpy arrays.
 """
 
+import hashlib
 import sys
+import time
 
 import numpy as np
 import torch
@@ -15,7 +18,9 @@ import torch.distributed as dist
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import checkpoint as ckpt_lib
 from mgr_tpu_torch.core import config as tconfig
+from mgr_tpu_torch.core import tracing
 from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
+from mgr_tpu_torch.data import datasets
 from mgr_tpu_torch.data.batcher import Batcher
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.models.zoo import build_model
@@ -23,6 +28,7 @@ from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops import lstm as tlstm
 from mgr_tpu_torch.parallel import collectives
 from mgr_tpu_torch.parallel.mesh import make_mesh
+from mgr_tpu_torch.train import curriculum as curriculum_lib
 from mgr_tpu_torch.train import loop as loop_lib
 from mgr_tpu_torch.train import step as step_lib
 
@@ -71,9 +77,144 @@ def _spy():
     return calls
 
 
-def _model(cfg_json, params):
+def _model(cfg_json, params, sources_json=None):
+    """The model of a config (late fusion: over the source configs) on the
+    CPU with the given JAX tree of weights."""
     cfg = PipelineConfig.from_json(cfg_json)
-    return bridge.load_params(build_model(cfg, device="cpu"), params)
+    sources = None if sources_json is None else {
+        k: PipelineConfig.from_json(v) for k, v in sources_json.items()}
+    return bridge.load_params(build_model(cfg, sources, device="cpu"), params)
+
+
+def _digest(params) -> str:
+    return hashlib.sha256(b"".join(v.detach().float().numpy().tobytes()
+                                   for v in params.values())).hexdigest()
+
+
+def families_rank(rank, world, shape, cases):
+    """On a ``shape`` mesh, for each case (a family's config, weights and
+    global batch): the raw loss and gradients of the mesh step, the mesh
+    eval loss, then one mesh train step (its loss, the parameters and
+    Adam's moments after it), with the recurrence wrappers' calls."""
+    mesh = make_mesh(MeshConfig(*shape), device="cpu")
+    calls = _spy()
+    out = []
+    for case in cases:
+        model = _model(case["cfg"], case["params"], case.get("sources"))
+        batch = case["batch"]
+        before = dict(calls)
+        loss, grads = step_lib.mesh_loss_and_grads(
+            model, mesh, dict(model.named_parameters()), batch, None)
+        grads = _numpy(grads)
+        ev = float(step_lib.make_eval_step(model, mesh=mesh)(batch))
+        state = step_lib.create_train_state(model)
+        state, m = step_lib.make_train_step(model, mesh=mesh)(state, batch, None, 1.0)
+        out.append({"loss": float(loss), "grads": grads, "eval": ev,
+                    "step_loss": float(m["loss"]), "params": _numpy(state.params),
+                    "mu": _numpy(state.opt_state.mu), "nu": _numpy(state.opt_state.nu),
+                    "calls": {k: calls[k] - before[k] for k in calls}})
+    return out
+
+
+def decode_rank(rank, world, shape, cases):
+    """On a ``shape`` mesh, for each case: the mesh decode step's (best,
+    emit) of the global batch, without and with the input lengths."""
+    mesh = make_mesh(MeshConfig(*shape), device="cpu")
+    out = []
+    for case in cases:
+        model = _model(case["cfg"], case["params"], case.get("sources"))
+        step = step_lib.make_decode_step(model, threshold=case["threshold"], mesh=mesh)
+        inputs = step_lib.batch_inputs(case["batch"])
+        out.append([tuple(t.numpy() for t in step(inputs, lengths))
+                    for lengths in (None, case["batch"]["input_length"])])
+    return out
+
+
+def fit_families_rank(rank, world, shape, cases, workdir):
+    """``fit`` over a ``shape`` mesh for each case: an array corpus (two
+    streams) or a lazy video corpus (``LazyVideoBatcher``), with its data
+    path; the history and a digest of the final parameters."""
+    mesh = make_mesh(MeshConfig(*shape), device="cpu")
+    out = []
+    for case in cases:
+        model = _model(case["cfg"], case["params"])
+        cfg = model.config
+        if "videos" in case:
+            data = datasets.build_rgb_dataset(*case["videos"], cfg)
+        else:
+            data = Batcher(*case["corpus"])
+        res = loop_lib.fit(model, data, workdir=f"{workdir}/{case['tag']}", epochs=2,
+                           mesh=mesh, device_data=case.get("device_data"))
+        out.append({"history": [{k: h[k] for k in ("train_loss", "val_loss")}
+                                for h in res.history],
+                    "digest": _digest(dict(model.named_parameters())),
+                    "step": res.state.step})
+    return out
+
+
+def _write_spy():
+    """The stamps of the slots this rank writes."""
+    writes = []
+    real = ckpt_lib.save_train_state
+
+    def spy(workdir, stamp, *a, **kw):
+        writes.append(stamp)
+        return real(workdir, stamp, *a, **kw)
+
+    ckpt_lib.save_train_state = spy
+    return writes
+
+
+def curriculum_rank(rank, world, cfgs_json, corpus, workdir):
+    """``run_curriculum`` over a DATAx1 mesh on the corpus's files: the
+    stamps of the slots this rank wrote, each stage's history and a
+    digest of its final parameters."""
+    cfgs = {k: PipelineConfig.from_json(v) for k, v in cfgs_json.items()}
+    mesh = make_mesh(MeshConfig(world, 1), device="cpu")
+    writes = _write_spy()
+    speech = datasets.build_audio_dataset(corpus["audio_dir"], corpus["audio_labels"],
+                                          cfgs["speech"])
+    skeletal = datasets.build_skeletal_dataset(corpus["sk_csv"], corpus["labels"],
+                                               cfgs["skeletal"])
+    fusion = datasets.build_late_fusion_dataset(corpus["audio_dir"], corpus["sk_csv"],
+                                                corpus["labels"], cfgs["late_fusion"])
+    res = curriculum_lib.run_curriculum(speech, skeletal, fusion, workdir, configs=cfgs,
+                                        mesh=mesh, epochs=2)
+    return {"writes": sorted(set(writes)),
+            "stages": {k: {"history": [{h_k: h[h_k] for h_k in ("train_loss", "val_loss")}
+                                       for h in r.history],
+                           "digest": _digest(r.state.params)} for k, r in res.items()}}
+
+
+def nan_rank(rank, world, cfg_json, params, batch, model_axis=1, nan_dz=False):
+    """A mesh train step under ``debug_nans`` on a mesh of ``world //
+    model_axis`` x ``model_axis`` ranks, on a batch whose NaN (if any) lies
+    in rank 0's rows; with ``nan_dz`` rank 0 alone makes a NaN in the
+    backward of direction 0's recurrence (its dz), the forward finite.
+    Returns what each rank raised, after how many seconds, and whether
+    anomaly mode is off once ``debug_nans`` is switched off."""
+    model = _model(cfg_json, params)
+    mesh = make_mesh(MeshConfig(world // model_axis, model_axis), device="cpu")
+    if nan_dz and rank == 0:
+        plain = tlstm.lstm_scan_tm_bwd_plain
+
+        def nan_in_direction_0(xp, U1, hs, cs, dhs, *, reverse):
+            dz, dU = plain(xp, U1, hs, cs, dhs, reverse=reverse)
+            return (dz if reverse else torch.full_like(dz, float("nan"))), dU
+
+        tlstm.lstm_scan_tm_bwd_plain = nan_in_direction_0
+    step = step_lib.make_train_step(model, mesh=mesh)
+    tracing.debug_nans(True)
+    t0 = time.monotonic()
+    try:
+        step(step_lib.create_train_state(model), batch, None, 1.0)
+        raised = None
+    except FloatingPointError as err:
+        raised = f"FloatingPointError: {err}"
+    finally:
+        tracing.debug_nans(False)
+    return {"raised": raised, "seconds": time.monotonic() - t0,
+            "anomaly_after": torch.is_anomaly_enabled()}
 
 
 def mesh_rank(rank, world, cfg_json, params, batch, shape):
@@ -155,10 +296,31 @@ def _small_skeletal():
                                                  dropout=(0.6, 0.6), output_dropout=0.6))
 
 
+def _small(name, **kw):
+    """Another family's preset at test size: T=24, BiLSTM(8)x2 (rgb: T=6
+    and a narrow CNN on 44x44 frames), its noise and dropout kept."""
+    cfg = _PRESETS[name]()
+    enc = tconfig.EncoderConfig(hidden=8, depth=2, input_noise=cfg.encoder.input_noise,
+                                dropout=cfg.encoder.dropout,
+                                output_dropout=cfg.encoder.output_dropout)
+    return cfg.replace(**{"maxlen": 24, "encoder": enc, **kw})
+
+
+_PRESETS = dict(tconfig.PRESETS)  # the full-size presets, before __main__ patches them
+SMALL_PRESETS = {
+    "skeletal": _small_skeletal,
+    "speech": lambda: _small("speech", max_label_len=12),
+    "early_fusion": lambda: _small("early_fusion", max_label_len=4),
+    "late_fusion": lambda: _small("late_fusion", max_label_len=4, fusion_hidden=4),
+    "rgb": lambda: _small("rgb", maxlen=6, max_label_len=3,
+                          cnn=tconfig.CNNConfig(img_dim=44, channels=(4, 6, 8))),
+}
+
+
 if __name__ == "__main__":
-    # The port's CLI with the skeletal preset at test size, as torchrun
-    # starts it in each rank.
+    # The port's CLI with every preset at test size, as torchrun starts it
+    # in each rank.
     from mgr_tpu_torch.cli import main as cli
 
-    tconfig.PRESETS["skeletal"] = _small_skeletal
+    tconfig.PRESETS.update(SMALL_PRESETS)
     sys.exit(cli.main(sys.argv[1:]))
