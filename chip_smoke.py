@@ -62,14 +62,22 @@ single-process step, and ``fit`` over the 2x2 mesh), the mesh slice of
 every family (early fusion, late fusion and rgb on 2x2 and rgb on 2x1 at
 full width against the single-process step, speech and late fusion
 decoded over both meshes, ``run_curriculum`` over 2x1, and K5a/K5b at
-the shapes those meshes give them), with ``--profile`` a
+the shapes those meshes give them), the GSPMD slice (speech at full width
+with noise and dropout on over 1x4, 2x1x2 and 1x2x2 meshes of gloo ranks
+sharing the card, two train steps each against the single-process step
+with the same draws: the H-sharded recurrence with one exchange a time
+step and no K1/K2 on 1x4 and 1x2x2, K1/K2 on every 2x1x2 rank; the other
+families one step each on 1x4 with their encoders at depth 1; one
+exchange's all-reduce timed; ``fit`` over 1x2x2, its slot decoded bit for
+bit as the ranks' parameters), with ``--profile`` a
 per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
 step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
 remat recompute and backward named apart), a JSON line of the kernels
 (each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
 and rgb paths and their times at those shapes, and their launches on the
-prepare and synthetic paths), and last ``{"ok": true, "device":
+prepare and synthetic paths; every kernel with its launches on the
+mesh_families and gspmd paths), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -140,6 +148,22 @@ FAM_SEED = {"early_fusion": 40, "late_fusion": 41, "rgb": 42, "speech": 43}
 K5_FAM_SHAPES = ((4, 512), (16, 100), (16, 500), (16, 300))  # (rows a rank, H) of K5
                        # on 2x2: rgb, the fusion layer, early fusion and the speech
                        # encoder, the skeletal encoder
+# The gspmd phase: speech at full width with noise and dropout on (one key),
+# global B=8, on the GSPMD route's meshes (data, model, time): H-blocks of
+# 125 (1x4), time slices of 950 with K1/K2 on every rank (2x1x2), H over 2
+# and time (1x2x2, not the direction-sharded route); two train steps each
+# (the first held against one process, both timed). The other families one
+# step each on 1x4 at global B=2 (rgb's H=512 in blocks of 128), their
+# encoders cut to depth 1: gloo's all-reduce over 4 ranks takes ~6 ms on
+# the one-card machine, and a step of depth 2 makes 7,600 of them. fit
+# over 1x2x2 on 8 + 8 files (1 train + 1 val batch).
+GSPMD_MESHES = ((1, 4, 1), (2, 1, 2), (1, 2, 2))
+GSPMD_B, GSPMD_FAM_B = 8, 2
+GSPMD_FAM_MESH, GSPMD_FIT_MESH = (1, 4, 1), (1, 2, 2)
+GSPMD_FAM_DEPTH = 1
+N_GSPMD_TRAIN, N_GSPMD_VAL = 8, 8
+N_EXCHANGE = 50        # all-reduces timed at the exchange's shape, per rank
+GSPMD_TIMEOUT_S = 600  # per mesh run, ranks started to ranks joined
 N_FUS_TRAIN, N_FUS_VAL, FUS_EPOCHS = 64, 32, 2  # the fusion slice: 2 train + 1 val batch
 H_FUS = 100            # the late-fusion BiLSTM over the 1600-wide encoder concat
 K_FUS, N_FUS = 22, 35  # the fusion presets' gesture classes and label cap
@@ -2752,6 +2776,244 @@ def mesh_families_phase(dev) -> dict:
     return {"launches": launches, "k5": k5}
 
 
+def _gspmd_key():
+    from mgr_tpu_torch.core import prng
+
+    return prng.fold_in(prng.fold_name(prng.root_key(SEED), "dropout"), 0)
+
+
+def _gspmd_cfgs():
+    """Speech's preset at full width, noise and dropout on; and the
+    families' (late fusion over speech and skeletal sources), every encoder
+    cut to ``GSPMD_FAM_DEPTH`` layers."""
+    from mgr_tpu_torch.core.config import get_preset
+
+    def cut(name):
+        cfg = get_preset(name)
+        return cfg.replace(encoder=dataclasses.replace(cfg.encoder, depth=GSPMD_FAM_DEPTH))
+
+    fams = {k: cut(k) for k in ("speech", "skeletal", "early_fusion", "late_fusion", "rgb")}
+    return get_preset("speech"), fams
+
+
+def _gspmd_rank(rank, world, device, shape, speech_json, fams_json, families, fit_dir):
+    """One rank of a (data, model, time) mesh of the GSPMD route on the one
+    card: two speech mesh train steps (the first's raw loss and gradients,
+    launches and all-reduces; both walls); each of ``families`` one mesh
+    train step (the same, and whether its frozen parameters stayed
+    unchanged); the time of one all-reduce of the exchange's shape over the
+    model axis, of a card tensor and of a host tensor; with ``fit_dir`` one
+    epoch of speech over the mesh (rank 0 writes the slots) and, on rank 0,
+    the one-process decode of a batch with the in-memory parameters."""
+    import torch.distributed as dist
+
+    from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.parallel.mesh import make_mesh
+    from mgr_tpu_torch.train import step as step_lib
+    from mgr_tpu_torch.train.loop import fit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    speech_cfg = PipelineConfig.from_json(speech_json)
+    fams = {k: PipelineConfig.from_json(v) for k, v in fams_json.items()}
+    mesh = make_mesh(MeshConfig(*shape), device=device)
+    key = _gspmd_key()
+    reduces, real_all_reduce = [0], dist.all_reduce
+
+    def counted(*a, **kw):
+        reduces[0] += 1
+        return real_all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    seen, real_apply = {}, step_lib._apply_updates
+
+    def capture(model, state, tx, loss, grads, lr_scale):
+        """The combined loss and gradients the optimizer tail gets."""
+        seen["loss"] = float(loss)
+        if rank == 0:
+            seen["grads"] = {k: g.float().cpu().numpy() for k, g in grads.items()}
+        return real_apply(model, state, tx, loss, grads, lr_scale)
+
+    step_lib._apply_updates = capture
+
+    def train_steps(name, cfgs, B, n):
+        batch = _family_batch(cfgs[name], B, SEED + FAM_SEED[name] + 20)
+        model = _family_model(name, cfgs, mesh.device)
+        trainable = model.trainable()
+        frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not trainable[k]}
+        state = step_lib.create_train_state(model)
+        train_step = step_lib.make_train_step(model, mesh=mesh)
+        r = {"step_wall_s": []}
+        for i in range(n):
+            torch.cuda.synchronize()
+            mesh.barrier()
+            dispatch.reset_launch_counts()
+            n0, t0 = reduces[0], time.perf_counter()
+            state, m = train_step(state, batch, key)
+            float(m["loss"])
+            r["step_wall_s"].append(time.perf_counter() - t0)
+            if i == 0:
+                r.update(launches=dispatch.launch_counts(), all_reduces=reduces[0] - n0, **seen)
+        r["frozen"] = len(frozen)
+        r["frozen_unchanged"] = all(torch.equal(p, frozen[k])
+                                    for k, p in model.named_parameters() if k in frozen)
+        del model, state, train_step
+        torch.cuda.empty_cache()
+        return r
+
+    out = {"speech": train_steps("speech", {"speech": speech_cfg}, GSPMD_B, 2),
+           "families": {name: train_steps(name, fams, GSPMD_FAM_B, 1) for name in families}}
+    step_lib._apply_updates = real_apply
+    H = speech_cfg.encoder.hidden
+    exch = {}
+    for where in ("card", "host"):
+        buf = torch.zeros((2, GSPMD_B // shape[0], H), dtype=torch.bfloat16,
+                          device=mesh.device if where == "card" else "cpu")
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(N_EXCHANGE):
+            dist.all_reduce(buf, group=mesh.model_group)
+        torch.cuda.synchronize()
+        exch[f"{where}_ms"] = 1e3 * (time.perf_counter() - t0) / N_EXCHANGE
+    out["exchange"] = exch
+    if fit_dir:
+        cfgs = {"speech": speech_cfg.replace(batch_size=GSPMD_B)}
+        corpus = _speech_corpus(cfgs["speech"], N_GSPMD_TRAIN + N_GSPMD_VAL, SEED + 70)
+        model = _family_model("speech", cfgs, mesh.device)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(model, _batcher(corpus, N_GSPMD_TRAIN), workdir=fit_dir, epochs=1, mesh=mesh)
+        torch.cuda.synchronize()
+        out["fit"] = {"digest": _digest(model), "epochs_run": res.epochs_run,
+                      "seconds": time.perf_counter() - t0, "launches": dispatch.launch_counts(),
+                      "history": [{k: h[k] for k in ("train_loss", "val_loss")}
+                                  for h in res.history]}
+        if rank == 0:
+            best, emit = Decoder.for_model(model, "speech").decode_fn(corpus[0][:GSPMD_B], None)
+            out["fit"]["decode"] = (best.cpu().numpy(), emit.cpu().numpy())
+    return out
+
+
+def gspmd_phase(dev) -> dict:
+    """The GSPMD route on gloo ranks that time-share the one card: speech at
+    full width (B=8, T=1900, BiLSTM(500)x2, bf16) with noise 0.5 and
+    dropout on, the same key, on 1x4 (H-blocks of 125: the H-sharded
+    recurrence, one exchange a time step, no K1/K2), 2x1x2 (time slices of
+    950, the recurrence whole through K1/K2 on every rank) and 1x2x2 (H over
+    2 and time, not the direction-sharded route). On each mesh two train
+    steps: the first's loss and every combined gradient against the
+    single-process step on the card with the same draws, its launches on
+    each rank (K1/K2 0 on 1x4 and 1x2x2, K3/K4 on every rank) and its
+    all-reduces; the wall of both. Early fusion, late fusion (frozen
+    encoders) and rgb, their encoders at depth 1, one step each on 1x4 at
+    B=2 against their single-process step. The time of one all-reduce at
+    the exchange's shape over each mesh's model axis. ``fit`` of one epoch
+    of speech over 1x2x2 with a workdir: this process reads the best slot
+    and decodes, bit for bit the decode of rank 0's in-memory parameters.
+    The walls are of ranks time-sharing one card, through gloo and the
+    host, not a multi-card speed."""
+    from mgr_tpu_torch.core import checkpoint as ckpt_lib
+    from mgr_tpu_torch.decode.decoder import Decoder
+    from mgr_tpu_torch.parallel.spawn import run_ranks
+    from mgr_tpu_torch.train import optimizer as opt_lib
+    from mgr_tpu_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    speech, fams = _gspmd_cfgs()
+    key = _gspmd_key()
+    refs = {}
+    for name, cfgs, B in (("speech", {"speech": speech}, GSPMD_B),
+                          *((n, fams, GSPMD_FAM_B) for n in FAM_TRAIN[(2, 2)])):
+        batch = _family_batch(cfgs[name], B, SEED + FAM_SEED[name] + 20)
+        model = _family_model(name, cfgs, dev)
+        tb = step_lib.batch_to_device(batch, dev)
+        loss, grads = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, key)
+        masked = opt_lib.freeze_mask_grads(grads, model.trainable())
+        refs[name] = {"loss": float(loss),
+                      "grads": {k: g.float().cpu() for k, g in masked.items()}}
+        del model, tb, grads, masked
+        torch.cuda.empty_cache()
+
+    def check(tag, ref, res):
+        grads = res[0]["grads"]
+        grad_rel = {k: float(np.linalg.norm(grads[k] - g.numpy()) / float(g.norm()))
+                    for k, g in ref["grads"].items() if float(g.norm()) > 0}
+        frozen_zero = all(not grads[k].any() for k, g in ref["grads"].items()
+                          if float(g.norm()) == 0)
+        loss_rel = max(abs(r["loss"] - ref["loss"]) / abs(ref["loss"]) for r in res)
+        if loss_rel > TOL_LOSS_REL or not frozen_zero or max(grad_rel.values()) > TOL_GRAD_REL \
+                or not all(r["frozen_unchanged"] for r in res):
+            raise AssertionError(
+                f"{tag} disagrees with the single-process step: loss rel {loss_rel} (tol "
+                f"{TOL_LOSS_REL}), grads {grad_rel} (tol {TOL_GRAD_REL}), frozen grads zero "
+                f"{frozen_zero}, frozen unchanged {[r['frozen_unchanged'] for r in res]}")
+        return {"loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel.values())}
+
+    steps, launches, fit_out = {}, {}, None
+    with tempfile.TemporaryDirectory() as fit_dir:
+        for shape in GSPMD_MESHES:
+            mname = "x".join(map(str, shape))
+            families = FAM_TRAIN[(2, 2)] if shape == GSPMD_FAM_MESH else ()
+            t0 = time.perf_counter()
+            out = run_ranks(_gspmd_rank, int(np.prod(shape)),
+                            (str(dev), shape, speech.to_json(),
+                             {k: v.to_json() for k, v in fams.items()}, families,
+                             fit_dir if shape == GSPMD_FIT_MESH else None),
+                            timeout_s=GSPMD_TIMEOUT_S)
+            run_s = time.perf_counter() - t0
+            hsharded = shape[1] > 1
+            for name in ("speech", *families):
+                res = [r["speech"] if name == "speech" else r["families"][name] for r in out]
+                tag = f"{name} {mname}"
+                got = check(tag, refs[name], res)
+                for r in res:
+                    c = r["launches"]
+                    k12 = c["bilstm_tm_fwd"] + c["bilstm_tm_bwd"]
+                    ok = (k12 == 0) if hsharded else (c["bilstm_tm_fwd"] > 0 and
+                                                      c["bilstm_tm_bwd"] > 0)
+                    if not (ok and c["ctc_fwd"] > 0 and c["ctc_bwd"] > 0 and
+                            c["lstm_tm_fwd"] + c["lstm_tm_bwd"] == 0):
+                        raise AssertionError(f"{tag}: a rank took the wrong kernels: {c}")
+                launches[tag] = res[0]["launches"]
+                steps[tag] = {**got, "launches_rank0": res[0]["launches"],
+                              "all_reduces_per_step_rank0": res[0]["all_reduces"],
+                              "step_wall_ms_per_rank": [[1e3 * w for w in r["step_wall_s"]]
+                                                        for r in res]}
+                if name == "speech":
+                    steps[tag]["step_wall_ms_per_rank_median_of_2"] = [
+                        1e3 * float(np.median(r["step_wall_s"])) for r in res]
+                if name == "late_fusion":
+                    steps[tag]["frozen_encoders_bit_unchanged"] = True
+            steps[f"run {mname}"] = {"run_s": run_s, "exchange_ms_rank0": out[0]["exchange"]}
+            if shape == GSPMD_FIT_MESH:
+                fits = [r["fit"] for r in out]
+                if len({f["digest"] for f in fits}) != 1 or fits[0]["epochs_run"] != 1:
+                    raise AssertionError(f"the {mname} fit's ranks disagree")
+                model = _family_model("speech", {"speech": speech}, dev)
+                ckpt_lib.load_params(fit_dir, "speech", model, slot="best")
+                corpus = _speech_corpus(speech, N_GSPMD_TRAIN + N_GSPMD_VAL, SEED + 70)
+                best, emit = Decoder.for_model(model, "speech").decode_fn(
+                    corpus[0][:GSPMD_B], None)
+                want_best, want_emit = fits[0]["decode"]
+                if _digest(model) != fits[0]["digest"] or not (
+                        np.array_equal(best.cpu().numpy(), want_best)
+                        and np.array_equal(emit.cpu().numpy(), want_emit)):
+                    raise AssertionError(f"the {mname} fit's slot does not decode as rank 0's "
+                                         f"in-memory parameters do")
+                launches[f"fit {mname}"] = fits[0]["launches"]
+                fit_out = {"history": fits[0]["history"], "seconds": fits[0]["seconds"],
+                           "ranks_agree": True, "slot_decodes_bit_for_bit": True,
+                           "launches_rank0": fits[0]["launches"]}
+    phase("gspmd", pipeline="speech", B=GSPMD_B, T=speech.maxlen, H=speech.encoder.hidden,
+          noise=speech.encoder.input_noise, dropout=list(speech.encoder.dropout),
+          families_depth=GSPMD_FAM_DEPTH, families_B=GSPMD_FAM_B, backend="gloo",
+          ranks_share_one_card=True, tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
+          steps=steps, fit=fit_out, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _device_us(prof) -> float:
     """Device time of the kernels and copies a torch.profiler run traced.
     Only the device's own rows count: a host op's row also carries the
@@ -3089,6 +3351,7 @@ def main() -> int:
     prepare = prepare_phase(dev)
     mesh = mesh_phase(dev)
     families = mesh_families_phase(dev)
+    gspmd = gspmd_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
@@ -3113,7 +3376,9 @@ def main() -> int:
     # CLI on the synthetic corpus); every kernel also from rank 0 of each
     # path of the mesh_families phase (each family's mesh train and eval
     # step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
-    # shapes those meshes give them.
+    # shapes those meshes give them; and from rank 0 of each path of the
+    # gspmd phase (speech's mesh step on each mesh, each family's on 1x4,
+    # the fit over 1x2x2).
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     k5_at = {"lstm_tm_fwd": ("fwd_ms", "fwd_plain_ms", "bound_fwd"),
              "lstm_tm_bwd": ("bwd_ms", "bwd_plain_ms", "bound_bwd")}
@@ -3130,6 +3395,7 @@ def main() -> int:
          **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name],
              "launches_synthetic": synthetic[name]} if name in KERNELS[:4] else {}),
          "launches_mesh_families": {path: c[name] for path, c in families["launches"].items()},
+         "launches_gspmd": {path: c[name] for path, c in gspmd.items()},
          **({"at_family_shapes": {shape: {"ms": t[k5_at[name][0]],
                                           "plain_ms": t[k5_at[name][1]], **t[k5_at[name][2]]}
                                   for shape, t in families["k5"].items()}}

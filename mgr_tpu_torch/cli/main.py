@@ -49,13 +49,18 @@ anomaly mode on), ``--async-checkpoints`` (slots written by a background
 thread) and ``--cache-dir`` (the speech corpus kept as one ``.npz``, the
 JAX package's cache format).
 
-``train --mesh DATAxMODEL`` trains any family over a mesh of ranks (pure
-data parallelism, or data parallelism x direction-sharded tensor
-parallelism with MODEL = 2), one process per rank, started by torchrun;
-``curriculum --mesh`` trains its three stages over it:
+``train --mesh DATAxMODEL[xTIME]`` trains any family over a mesh of
+ranks, one process per rank, started by torchrun: pure data parallelism,
+data parallelism x direction-sharded tensor parallelism with MODEL = 2,
+or the GSPMD route (MODEL above 2: each rank computes a block of the
+LSTMs' hidden units, one exchange a time step; TIME above 1: each rank
+projects a slice of the time steps); ``curriculum --mesh`` trains its
+three stages over it:
 
     torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train early_fusion --mesh 2x2 ...
     torchrun --nproc-per-node 2 -m mgr_tpu_torch.cli.main curriculum --mesh 2x1 ...
+    torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train speech --mesh 1x4 ...
+    torchrun --nproc-per-node 4 -m mgr_tpu_torch.cli.main train speech --mesh 1x2x2 ...
 
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
 on the CPU over gloo; rank 0 writes the workdir and prints the result.
@@ -63,9 +68,9 @@ on the CPU over gloo; rank 0 writes the workdir and prints the result.
 ``decode`` decodes over the mesh stored in the workdir's config when it is
 started with that many processes (torchrun sets ``WORLD_SIZE``), else in
 one process, as the JAX CLI decodes without a mesh on a host that lacks
-the devices; rank 0 writes the MLF. ``evaluate`` runs in one process, as
-in JAX. A model axis above 2 or a time axis needs the JAX package's
-GSPMD path, which is not ported (ROADMAP.md).
+the devices; rank 0 writes the MLF (a stored mesh of the GSPMD route
+decodes with the one-process step on every rank, as JAX's does).
+``evaluate`` runs in one process, as in JAX.
 """
 
 from __future__ import annotations
@@ -149,16 +154,16 @@ def _mesh_for(cfg, dev):
     import os
 
     from mgr_tpu_torch.parallel import mesh as mesh_lib
-    from mgr_tpu_torch.parallel import multihost, sharding
+    from mgr_tpu_torch.parallel import multihost
 
     n = cfg.mesh.num_devices
     if n <= 1:
         return None
-    sharding.shardmap_axes(cfg.mesh)  # a model axis above 2 or a time axis raise
     world = os.environ.get("WORLD_SIZE")
     if world is None or int(world) != n:
         raise SystemExit(
-            f"mesh {cfg.mesh.data}x{cfg.mesh.model} runs {n} processes, one per rank: "
+            f"mesh {cfg.mesh.data}x{cfg.mesh.model}x{cfg.mesh.time} runs {n} processes, "
+            f"one per rank: "
             f"launch it as `torchrun --nproc-per-node {n} -m mgr_tpu_torch.cli.main ...` "
             f"(WORLD_SIZE is {world})")
     multihost.initialize("nccl" if dev.type == "cuda" else "gloo")
@@ -424,7 +429,7 @@ def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--monitor", choices=("val", "train"), default="val",
                    help="loss that drives the best checkpoint and early stopping")
     p.add_argument("--mesh", default=None,
-                   help="DATAxMODEL mesh of ranks, e.g. 4x1 or 2x2 (MODEL 1 or 2), "
+                   help="DATAxMODEL[xTIME] mesh of ranks, e.g. 4x1, 2x2, 1x4 or 2x2x2, "
                         "one process per rank under torchrun")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of training to this directory")

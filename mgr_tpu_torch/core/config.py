@@ -3,8 +3,7 @@
 
 The same frozen dataclasses with the same fields and defaults, so a
 ``<stamp>_config.json`` written by either package loads in the other
-(``PipelineConfig.to_json`` / ``from_json``). A field the port does not
-use yet (the mesh's time axis) is kept for that reason.
+(``PipelineConfig.to_json`` / ``from_json``).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ from torch import nn
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import EncoderConfig
 from mgr_tpu_torch.models.layers import gaussian_noise
-from mgr_tpu_torch.ops import lstm
+from mgr_tpu_torch.ops import dispatch, lstm
 
 
 class BiLSTM(nn.Module):
@@ -56,19 +56,21 @@ class Encoder(nn.Module):
         (``apply_encoder_tm``, ``mgr_tpu/models/encoder.py:36-72``): noise
         of ``noise_override`` if given, else the config's, from
         ``fold_name(rng, "noise")``; layer i's dropout from
-        ``fold_name(rng, f"drop_{i}")``."""
+        ``fold_name(rng, f"drop_{i}")``. On the GSPMD route ``x_tm`` is
+        this rank's time slice and every layer takes its slice of the
+        whole stream the layer before gives (``dispatch.local_time``)."""
         cfg = self.cfg
 
         def sub(name):
             return None if rng is None else prng.fold_name(rng, name)
 
         sigma = cfg.input_noise if noise_override is None else noise_override
-        h = gaussian_noise(x_tm, sigma, sub("noise"), train)
+        h = gaussian_noise(x_tm, sigma, sub("noise"), train, batch_axis=1, time_axis=0)
         outs = []
         for i in range(cfg.depth):
             rate = cfg.dropout[i] if i < len(cfg.dropout) else cfg.dropout[-1]
             h = getattr(self, f"blstm_{i}")(
-                h, rng=sub(f"drop_{i}"), dropout=rate,
+                h if i == 0 else dispatch.local_time(h), rng=sub(f"drop_{i}"), dropout=rate,
                 per_gate=cfg.per_gate_dropout, train=train,
                 compute_dtype=compute_dtype,
             )

@@ -3,7 +3,9 @@ frontend of the RGB stream.
 
 Counterpart of ``mgr_tpu/models/layers.py``. Kernels are
 RandomUniform(-0.05, 0.05), biases zero. Noise and dropout draw from
-``core.prng`` keys in train mode and are the identity otherwise.
+``core.prng`` keys in train mode and are the identity otherwise; on the
+GSPMD route they draw at the global shape and take this rank's rows and
+time slice (``ops.dispatch.draw_local``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 
 from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import CNNConfig
+from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops.lstm import matmul_f32
 
 Params = Dict[str, torch.Tensor]
@@ -34,29 +37,36 @@ def dense(params: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torc
 
 
 def gaussian_noise(
-    x: torch.Tensor, stddev: float, rng: Optional[prng.Key], train: bool
+    x: torch.Tensor, stddev: float, rng: Optional[prng.Key], train: bool, *,
+    batch_axis: int = 0, time_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Keras GaussianNoise: ``x + stddev * N(0, 1)`` in x's dtype, train
-    mode only."""
+    mode only. ``batch_axis`` is x's batch axis and ``time_axis`` its time
+    axis where x may be a rank's time slice (``dispatch.draw_local``)."""
     if not train or stddev == 0.0:
         return x
     if rng is None:
         raise ValueError("gaussian_noise requires an rng in train mode")
-    return x + stddev * prng.normal(rng, tuple(x.shape), x.dtype, x.device)
+    noise = dispatch.draw_local(lambda s: prng.normal(rng, s, x.dtype, x.device),
+                                tuple(x.shape), batch_axis=batch_axis, time_axis=time_axis)
+    return x + stddev * noise
 
 
 def dropout(
-    x: torch.Tensor, rate: float, rng: Optional[prng.Key], train: bool
+    x: torch.Tensor, rate: float, rng: Optional[prng.Key], train: bool, *,
+    batch_axis: int = 0, time_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Inverted dropout ``x * mask / keep``, computed in x's dtype as JAX
-    does (the scalar keep converted to that dtype)."""
+    does (the scalar keep converted to that dtype). The axes as in
+    :func:`gaussian_noise`."""
     if not train or rate == 0.0:
         return x
     if rng is None:
         raise ValueError("dropout requires an rng in train mode")
     keep = 1.0 - rate
-    mask = prng.bernoulli(rng, keep, tuple(x.shape), x.device).to(x.dtype)
-    return x * mask / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    mask = dispatch.draw_local(lambda s: prng.bernoulli(rng, keep, s, x.device),
+                               tuple(x.shape), batch_axis=batch_axis, time_axis=time_axis)
+    return x * mask.to(x.dtype) / torch.tensor(keep, dtype=x.dtype, device=x.device)
 
 
 class Dense(nn.Module):

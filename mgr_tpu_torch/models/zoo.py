@@ -26,7 +26,12 @@ encoders' included, runs its rank's direction under the direction-shard
 context that the mesh step sets around the model
 (``ops.lstm.bilstm_layer_tm``); the rest of a model (rgb's CNN frontend,
 the noise, the concat, the head) runs on both ranks of a model pair, on
-the same rows.
+the same rows. On the GSPMD route (``ops.dispatch.h_shard``) the inputs
+are this rank's rows and time slice: the first stage (the noise, early
+fusion's two streams and their concat, rgb's CNN on its frames) runs on
+the slice, every BLSTM layer (the frozen encoders' too) takes its slice
+and gives the whole stream, and the head and its dropout run on the whole
+stream of the rank's rows.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core.config import PipelineConfig, get_preset
 from mgr_tpu_torch.models import layers
 from mgr_tpu_torch.models.encoder import BiLSTM, Encoder
-from mgr_tpu_torch.ops import lstm
+from mgr_tpu_torch.ops import dispatch, lstm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -73,7 +78,7 @@ class _Model(nn.Module):
                     rng: Optional[prng.Key]) -> torch.Tensor:
         """Dropout from ``fold_name(rng, "head_drop")``, then the head: f32
         logits (``mgr_tpu/models/zoo.py:65-70``)."""
-        h = layers.dropout(h, rate, _sub(rng, "head_drop"), train)
+        h = layers.dropout(h, rate, _sub(rng, "head_drop"), train, batch_axis=1)
         return self.head(h, self.compute_dtype)
 
     def forward(self, x: Inputs, *, train: bool = False,
@@ -156,8 +161,10 @@ class EarlyFusionModel(_Model):
         concat, and the encoder adds none of its own."""
         cfg = self.config
         x_a, x_s = inputs
-        x_a = layers.gaussian_noise(x_a, cfg.encoder.input_noise, _sub(rng, "noise_a"), train)
-        x_s = layers.gaussian_noise(x_s, cfg.second_stream_noise, _sub(rng, "noise_s"), train)
+        x_a = layers.gaussian_noise(x_a, cfg.encoder.input_noise, _sub(rng, "noise_a"), train,
+                                    batch_axis=0, time_axis=1)
+        x_s = layers.gaussian_noise(x_s, cfg.second_stream_noise, _sub(rng, "noise_s"), train,
+                                    batch_axis=0, time_axis=1)
         x = torch.cat([x_a, x_s], dim=2)
         h = self.encoder.apply_tm(
             x.transpose(0, 1), train=train, rng=rng,
@@ -209,7 +216,8 @@ class LateFusionModel(_Model):
                              rng=_sub(rng, "enc_a"))
         res_s = self._encode("skeletal", x_s, cfg.second_stream_noise, train=train,
                              rng=_sub(rng, "enc_s"))
-        h = self.fusion(torch.cat([res_a, res_s], dim=-1), rng=_sub(rng, "fusion_drop"),
+        h = self.fusion(dispatch.local_time(torch.cat([res_a, res_s], dim=-1)),
+                        rng=_sub(rng, "fusion_drop"),
                         dropout=cfg.fusion_dropout, train=train,
                         compute_dtype=self.compute_dtype)
         return self._head_apply(h, cfg.fusion_output_dropout, train=train, rng=rng)

@@ -12,15 +12,20 @@ through the kernels (``chip_smoke.py`` resets the counters, drives the
 serving, training and mesh paths and reads them back).
 
 The direction-shard context is the counterpart of ``direction_shard`` /
-``direction_shard_axis``: the mesh steps set it, and
-``ops.lstm.bilstm_layer_tm`` takes the single-direction path under it.
+``direction_shard_axis``: the mesh steps of the shard_map route set it,
+and ``ops.lstm.bilstm_layer_tm`` takes the single-direction path under it.
+The H-shard context is this rank's place on the GSPMD route, where XLA
+partitions the step in the JAX package: the mesh steps of that route set
+it, ``ops.lstm.bilstm_layer_tm`` takes the H-sharded path under it, and
+the noise and dropout draws (:func:`draw_local`) are made at the global
+shape and cut to this rank's rows and time slice.
 """
 
 from __future__ import annotations
 
 import contextvars
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -75,6 +80,94 @@ def direction_shard_context() -> Optional[DirectionShard]:
     """The active :class:`DirectionShard`, else None
     (``direction_shard_axis``)."""
     return _DIR_SHARD.get()
+
+
+@dataclasses.dataclass(frozen=True)
+class HShard:
+    """This rank's place on the GSPMD route of a ``config``
+    (``core.config.MeshConfig``) mesh: its data index (its rows of the
+    batch), the process group of its model axis and its index there (each
+    rank computes a block of every LSTM's hidden units that the axis
+    divides) and of its time axis (each rank projects a contiguous slice
+    of the time steps)."""
+
+    config: Any  # core.config.MeshConfig
+    data_index: int
+    model_group: Any  # torch.distributed.ProcessGroup
+    model_index: int
+    time_group: Any
+    time_index: int
+
+    @property
+    def data(self) -> int:
+        return self.config.data
+
+    @property
+    def model(self) -> int:
+        return self.config.model
+
+    @property
+    def time(self) -> int:
+        return self.config.time
+
+
+_H_SHARD: contextvars.ContextVar = contextvars.ContextVar(
+    "mgr_tpu_torch_h_shard", default=None)
+
+
+class h_shard:
+    """Context: the model inside runs this rank's part of the GSPMD route
+    (``mgr_tpu/train/step.py:233-290``, where XLA partitions the step)."""
+
+    def __init__(self, shard: HShard):
+        self._shard = shard
+        self._token = None
+
+    def __enter__(self) -> HShard:
+        self._token = _H_SHARD.set(self._shard)
+        return self._shard
+
+    def __exit__(self, *exc) -> None:
+        _H_SHARD.reset(self._token)
+
+
+def h_shard_context() -> Optional[HShard]:
+    """The active :class:`HShard`, else None."""
+    return _H_SHARD.get()
+
+
+def local_time(x_tm: torch.Tensor) -> torch.Tensor:
+    """Under an H-shard context, this rank's slice of the whole time-major
+    stream ``x_tm`` (T, ...) (all of it without a time axis); else
+    ``x_tm``."""
+    shard = _H_SHARD.get()
+    if shard is None:
+        return x_tm
+    n = x_tm.shape[0] // shard.time
+    return x_tm[shard.time_index * n:(shard.time_index + 1) * n]
+
+
+def draw_local(draw: Callable[[Tuple[int, ...]], torch.Tensor], shape: Tuple[int, ...], *,
+               batch_axis: int, time_axis: Optional[int] = None) -> torch.Tensor:
+    """``draw(shape)``, a random draw of a tensor of this rank's
+    ``shape``. Under an H-shard context the draw is made at the global
+    shape, as one process draws it (``batch_axis`` times the data ranks,
+    ``time_axis``, where this rank holds a time slice, times the time
+    ranks), with the same key, and this rank's rows and time slice are
+    cut from it: the GSPMD step's draws are one device's."""
+    shard = _H_SHARD.get()
+    if shard is None:
+        return draw(tuple(shape))
+    full = list(shape)
+    full[batch_axis] *= shard.data
+    cuts = [(batch_axis, shard.data_index)]
+    if time_axis is not None:
+        full[time_axis] *= shard.time
+        cuts.append((time_axis, shard.time_index))
+    x = draw(tuple(full))
+    for axis, i in cuts:
+        x = x.narrow(axis, i * shape[axis], shape[axis])
+    return x
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -25,9 +25,16 @@ by ``mgr_tpu_torch.kernels.bilstm_tm``. Under a direction-shard context
 (``ops.dispatch.direction_shard``, set by the mesh steps) a layer runs one
 direction, through K5a/K5b (:func:`lstm_scan_tm_plain`,
 :func:`lstm_scan_tm_bwd_plain` on the CPU), and exchanges the h streams
-over the model group (:func:`bilstm_layer_tm_dirsharded`). In train mode the layer's input
-dropout draws one (B, F) mask per direction (four with ``per_gate``),
-constant over time, from ``core.prng`` (``mgr_tpu/ops/lstm.py:444-472``).
+over the model group (:func:`bilstm_layer_tm_dirsharded`). Under an
+H-shard context (``ops.dispatch.h_shard``, set by the mesh steps of the
+GSPMD route) a rank projects its time slice with its block of the hidden
+units, the time slices are gathered, and the recurrence runs H-sharded
+with one exchange of h a step (:func:`bilstm_layer_tm_hsharded`, the
+counterpart of the ``lax.scan`` that XLA partitions; no kernel), or
+through K1/K2 where the model axis does not divide H. In train mode the
+layer's input dropout draws one (B, F) mask per direction (four with
+``per_gate``), constant over time, from ``core.prng``
+(``mgr_tpu/ops/lstm.py:444-472``).
 
 The batch-major layer API, :func:`bilstm_layer` ((B, T, F) -> (B, T, 2H))
 and :func:`lstm_layer` (one direction), projects every direction in one
@@ -53,6 +60,7 @@ from mgr_tpu_torch.kernels import bilstm_tm as _kernel
 from mgr_tpu_torch.kernels import lstm_scan as _scan
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.parallel import collectives
+from mgr_tpu_torch.parallel import sharding
 
 Params = Dict[str, torch.Tensor]
 
@@ -324,12 +332,14 @@ def lstm_weight_grad(hs: torch.Tensor, dz: torch.Tensor, *, reverse: bool) -> to
     """``dU = sum_t h_prev[t]^T dz[t]`` (H, 4, H) f32, one GEMM outside the
     kernel (``_tm1_core_bwd`` :1286-1294): a forward scan's pre-state
     stream is hs shifted back (zero at t=0), a reverse scan's is hs
-    shifted forward (zero at T-1). Operands in the dz dtype, f32 sums."""
+    shifted forward (zero at T-1). Operands in the dz dtype, f32 sums.
+    dz (T, B, 4, n) may hold a block of n of the H units: dU is then
+    (H, 4, n)."""
     T, B, H = hs.shape
     zero = torch.zeros_like(hs[:1])
     hp = torch.cat([hs[1:], zero], dim=0) if reverse else torch.cat([zero, hs[:-1]], dim=0)
-    dz2 = dz.reshape(T * B, 4 * H)
-    return _mm_f32(hp.to(dz2.dtype).reshape(T * B, H).t(), dz2).reshape(H, 4, H)
+    dz2 = dz.reshape(T * B, -1)
+    return _mm_f32(hp.to(dz2.dtype).reshape(T * B, H).t(), dz2).reshape(H, 4, -1)
 
 
 def recurrent_weight_grad(
@@ -351,14 +361,17 @@ def _project(
     H) and ``b`` (4, H), in the compute dtype. In train mode with
     ``dropout`` > 0 its input is scaled by
     ``dropout_scale(fold_in(rng, d), 1 - dropout, ...)``, one (B, F) mask
-    (or (4, B, F) with ``per_gate``)."""
+    (or (4, B, F) with ``per_gate``), drawn at the global batch on the
+    GSPMD route (``dispatch.draw_local``)."""
     _, B, F = x_tm.shape
     xc = x_tm.to(compute_dtype)
     if not (train and dropout > 0.0):
         return input_projection(xc, W, b, compute_dtype)
     shape = (4, B, F) if per_gate else (B, F)
-    scale = dropout_scale(prng.fold_in(rng, d), 1.0 - dropout, shape,
-                          compute_dtype, x_tm.device)
+    key = prng.fold_in(rng, d)
+    scale = dispatch.draw_local(
+        lambda s: dropout_scale(key, 1.0 - dropout, s, compute_dtype, x_tm.device),
+        shape, batch_axis=len(shape) - 2)
     if per_gate:
         return input_projection(xc, W, b, compute_dtype, gate_scale=scale)
     return input_projection(xc * scale, W, b, compute_dtype)
@@ -386,7 +399,8 @@ def bilstm_layer_tm(
     (or (4, B, F) with ``per_gate``) applied before the projection. The
     recurrence is differentiable (:class:`BiLSTMTm`) whenever autograd
     records. Under a direction-shard context the layer is
-    :func:`bilstm_layer_tm_dirsharded` (``mgr_tpu/ops/lstm.py:423-437``)."""
+    :func:`bilstm_layer_tm_dirsharded` (``mgr_tpu/ops/lstm.py:423-437``),
+    under an H-shard context :func:`bilstm_layer_tm_hsharded`."""
     if train and dropout > 0.0 and rng is None:
         raise ValueError("dropout requires an rng key in train mode")
     kw = dict(rng=rng, dropout=dropout, per_gate=per_gate, train=train,
@@ -394,9 +408,19 @@ def bilstm_layer_tm(
     shard = dispatch.direction_shard_context()
     if shard is not None:
         return bilstm_layer_tm_dirsharded(params, x_tm, shard=shard, **kw)
+    h_shard = dispatch.h_shard_context()
+    if h_shard is not None:
+        return bilstm_layer_tm_hsharded(params, x_tm, shard=h_shard, **kw)
     W, U, b = params["W"], params["U"], params["b"]
     xp0 = _project(W[0], b[0], x_tm, 0, **kw)
     xp1 = _project(W[1], b[1], x_tm, 1, **kw)
+    return _bilstm_recurrence(xp0, xp1, U, compute_dtype)
+
+
+def _bilstm_recurrence(xp0: torch.Tensor, xp1: torch.Tensor, U: torch.Tensor,
+                       compute_dtype: torch.dtype) -> torch.Tensor:
+    """Both directions' recurrence through K1 (K2 in the backward, whenever
+    autograd records): (T, B, 2H) in the compute dtype."""
     if _records_grad(xp0, xp1, U):
         hs0, hs1 = _kernel.BiLSTMTm.apply(xp0, xp1, U)
     else:
@@ -436,6 +460,151 @@ def bilstm_layer_tm_dirsharded(
         hs = _kernel.lstm_tm_streams(xp, U1, reverse=d == 1)[0]
     both = collectives.gather_directions(hs.to(compute_dtype), shard.group, d)
     return torch.cat([both[0], both[1]], dim=-1)
+
+
+def _hsharded_steps(
+    xp: torch.Tensor, U: torch.Tensor, group, index: int, *, store: bool,
+) -> Tuple[torch.Tensor, ...]:
+    """The forward of :class:`_HShardedScan`: both directions in one walk
+    over s = 0 .. T-1, direction 0 at t = s and direction 1 at t = T-1-s.
+    Each step computes this rank's block of the pre-activations, ``z =
+    xp[t] + bf16(h_{t-1}) @ U_block`` with f32 sums, and of the cell (c in
+    f32), then exchanges the h blocks, rounded to the compute dtype, over
+    the model group (one all-reduce). Returns hs (T, 2, B, H) in the
+    compute dtype at original time positions, and with ``store`` the f32
+    residuals z (T, 2, B, 4n) and c (T, 2, B, n) by walk step."""
+    T, _, B, _, n = xp.shape
+    H = U.shape[1]
+    cd = xp.dtype
+    Uc = U.to(cd).reshape(2, H, 4 * n)
+    h = torch.zeros((2, B, H), dtype=cd, device=xp.device)
+    c = torch.zeros((2, B, n), dtype=torch.float32, device=xp.device)
+    hs = torch.empty((T, 2, B, H), dtype=cd, device=xp.device)
+    zs = torch.empty((T, 2, B, 4 * n), dtype=torch.float32, device=xp.device) if store else None
+    cs = torch.empty((T, 2, B, n), dtype=torch.float32, device=xp.device) if store else None
+    for s in range(T):
+        r = T - 1 - s
+        z = torch.stack([xp[s, 0], xp[r, 1]]).float().reshape(2, B, 4 * n) + torch.stack(
+            [_mm_f32(h[d], Uc[d]) for d in range(2)])
+        h_blk, c = _cell(z, c)
+        h = collectives.gather_blocks(h_blk.to(cd), group, index, -1)
+        hs[s, 0], hs[r, 1] = h[0], h[1]
+        if store:
+            zs[s], cs[s] = z, c
+    return (hs, zs, cs) if store else (hs,)
+
+
+class _HShardedScan(torch.autograd.Function):
+    """``(xp, U) -> hs``: the two-direction recurrence with the hidden units
+    split over the model group (``lax.scan`` over a carry whose H axis XLA
+    shards, ``mgr_tpu/ops/lstm.py:146-183``). xp (T, 2, B, 4, n): this
+    rank's block of n units of both directions' projections, in the compute
+    dtype, over all T; U (2, H, 4, n): the block's columns of U. hs (T, 2,
+    B, H): every unit, in the compute dtype, on every rank of the group.
+
+    The backward is the autodiff of that scan on its f32 residuals (z and
+    c as the forward computed them), walking the steps back: the cotangent
+    of step s's whole h (the output's and the partial ``dz_{s+1} @
+    U_block^T`` of step s+1) is summed over the group by one all-reduce
+    and this rank's block taken (the exchange's transpose); dz on the
+    block is rounded to the compute dtype where it meets a compute-dtype
+    operand (dxp = dz, as the projection's backward takes it, and the next
+    partial); dU_block is ``sum_t h_prev^T dz`` in one GEMM a direction,
+    rounded through the compute dtype, as :class:`BiLSTMTm` rounds dU.
+    The hard sigmoid's slope is 0.2 on the open interval, as
+    :func:`hard_sigmoid_grad` takes it."""
+
+    @staticmethod
+    def forward(ctx, xp, U, group, index):
+        hs, zs, cs = _hsharded_steps(xp, U, group, index, store=True)
+        ctx.group, ctx.index = group, index
+        ctx.save_for_backward(U, hs, zs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        U, hs, zs, cs = ctx.saved_tensors
+        T, _, B, H = hs.shape
+        n = cs.shape[-1]
+        cd = hs.dtype
+        UcT = U.to(cd).reshape(2, H, 4 * n).transpose(1, 2).contiguous()
+        dz_time = torch.empty((T, 2, B, 4 * n), dtype=cd, device=hs.device)
+        part = torch.zeros((2, B, H), dtype=torch.float32, device=hs.device)
+        dc = torch.zeros((2, B, n), dtype=torch.float32, device=hs.device)
+        for s in reversed(range(T)):
+            r = T - 1 - s
+            dh = collectives.psum_block(torch.stack([dhs[s, 0], dhs[r, 1]]).float() + part,
+                                        ctx.group, ctx.index, -1)
+            z = zs[s]
+            z_i, z_f, z_g, z_o = (z[..., g * n:(g + 1) * n] for g in range(4))
+            i, f, o = hard_sigmoid(z_i), hard_sigmoid(z_f), hard_sigmoid(z_o)
+            g_ = torch.tanh(z_g)
+            c_pre = cs[s - 1] if s > 0 else torch.zeros_like(dc)
+            tanh_c = torch.tanh(cs[s])
+            dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+            dz = torch.cat([
+                (dc * g_) * hard_sigmoid_grad(z_i),
+                (dc * c_pre) * hard_sigmoid_grad(z_f),
+                (dc * i) * (1.0 - g_ * g_),
+                (dh * tanh_c) * hard_sigmoid_grad(z_o),
+            ], dim=-1).to(cd)
+            dc = dc * f
+            dz_time[s, 0], dz_time[r, 1] = dz[0], dz[1]
+            part = torch.stack([_mm_f32(dz[d], UcT[d]) for d in range(2)])
+        dz_time = dz_time.reshape(T, 2, B, 4, n)
+        dU = torch.stack([lstm_weight_grad(hs[:, d], dz_time[:, d], reverse=d == 1)
+                          for d in range(2)])
+        return dz_time, dU.to(cd).to(U.dtype), None, None
+
+
+def bilstm_layer_tm_hsharded(
+    params: Params,
+    x_tm: torch.Tensor,
+    *,
+    shard: dispatch.HShard,
+    rng: Optional[prng.Key] = None,
+    dropout: float = 0.0,
+    per_gate: bool = False,
+    train: bool = False,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """This rank's part of a BLSTM layer on the GSPMD route: ``x_tm`` is
+    this rank's time slice (T / time, B, F) of the layer's input, and the
+    output (T, B, 2H) is the whole layer's, the same on every rank of the
+    model and time axes.
+
+    Where the model axis divides H (``sharding.h_sharded``), this rank
+    projects its slice with its block of n = H / model units of ``W[d]``
+    and ``b[d]`` (the gate-blocked (..., 4, H) layout makes the block a
+    slice of the last axis), gathers the slices over the time axis
+    (``collectives.gather_time``) and runs :class:`_HShardedScan`: one
+    exchange of h over the model axis a step. Elsewhere (a model axis of
+    1, or one that does not divide H, where JAX replicates the leaves) it
+    projects its slice with all of ``W[d]``, gathers, and runs the whole
+    recurrence through K1/K2 (:class:`BiLSTMTm`), as does every rank of
+    the model axis. Dropout as :func:`bilstm_layer_tm`, the masks drawn at
+    the global batch (``dispatch.draw_local``). The gradients are this
+    rank's part (``train.step``'s GSPMD route combines them)."""
+    if train and dropout > 0.0 and rng is None:
+        raise ValueError("dropout requires an rng key in train mode")
+    W, U, b = params["W"], params["U"], params["b"]
+    blocked = sharding.h_sharded(U.shape[1], shard.config)
+    if blocked:
+        n = U.shape[1] // shard.model
+        cols = slice(shard.model_index * n, (shard.model_index + 1) * n)
+        W, U, b = W[..., cols], U[..., cols], b[..., cols]
+    kw = dict(rng=rng, dropout=dropout, per_gate=per_gate, train=train,
+              compute_dtype=compute_dtype)
+    xp = torch.stack([_project(W[d], b[d], x_tm, d, **kw) for d in range(2)], dim=1)
+    if shard.time > 1:
+        xp = collectives.gather_time(xp, shard.time_group, shard.time_index)
+    if not blocked:
+        return _bilstm_recurrence(xp[:, 0], xp[:, 1], U, compute_dtype)
+    if _records_grad(xp, U):
+        hs = _HShardedScan.apply(xp, U, shard.model_group, shard.model_index)
+    else:
+        (hs,) = _hsharded_steps(xp, U, shard.model_group, shard.model_index, store=False)
+    return torch.cat([hs[:, 0], hs[:, 1]], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Ranks of a ``torch.distributed`` process group as a (data, model) mesh:
+"""Ranks of a ``torch.distributed`` process group as a (data, model, time) mesh:
 process start-up, the mesh and its groups, the batch split and the
 collectives of the mesh train and eval steps (``mgr_tpu/parallel``)."""
 

@@ -1,17 +1,20 @@
 """Collectives over a process group (``mgr_tpu/parallel/collectives.py``).
 
 The mesh steps' collectives are ``psum``, ``pmean``, ``pmean_tree``,
-``broadcast_``, ``any_rank``, the direction exchange
-``gather_directions`` and the decode step's ``all_gather_rows``. The
-direction exchange is written with ``all_reduce`` alone: gloo, the one
-backend under which several ranks can share one card (NCCL refuses two
-ranks on one device), has no CUDA ``all_gather`` or ``reduce_scatter``,
-and an all-reduce of a buffer whose other slot is zero is exact on every
-backend. ``all_gather_rows`` uses the group's own ``all_gather`` where
-the backend serves the tensor's device (NCCL on CUDA, gloo on CPU) and
-goes through the host for gloo and a CUDA tensor. The generic
-``all_gather``, ``ppermute_ring`` and ``reduce_scatter`` use the group's
-own collectives: over gloo they take CPU tensors, over NCCL CUDA tensors.
+``broadcast_``, ``any_rank``, the block exchanges (``gather_blocks`` and
+its transpose ``psum_block``: the direction exchange
+``gather_directions``, the GSPMD route's time gather ``gather_time`` and
+its per-step exchange of the LSTM's hidden units) and the decode step's
+``all_gather_rows``. The block exchanges are written with ``all_reduce``
+alone: gloo, the one backend under which several ranks can share one card
+(NCCL refuses two ranks on one device), has no CUDA ``all_gather`` or
+``reduce_scatter``, and an all-reduce of a buffer whose other blocks are
+zero is exact on every backend. ``all_gather_rows`` uses the group's own
+``all_gather`` where the backend serves the tensor's device (NCCL on
+CUDA, gloo on CPU) and goes through the host for gloo and a CUDA tensor.
+The generic ``all_gather``, ``ppermute_ring`` and ``reduce_scatter`` use
+the group's own collectives: over gloo they take CPU tensors, over NCCL
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -71,35 +74,69 @@ def any_rank(flag: bool, device: torch.device) -> bool:
     return bool(t.item())
 
 
-class _GatherDirections(torch.autograd.Function):
-    """Forward: the (2, ...) stack of both ranks' h streams, as an
-    all-reduce of a buffer whose other slot is zero (exact: x + 0 = x).
-    Backward: JAX's transpose of ``all_gather``, a ``psum_scatter``: the
-    cotangent summed over the group, then this rank's slot."""
+def _block_index(ndim: int, axis: int, index: int, size: int):
+    at = [slice(None)] * ndim
+    at[axis] = slice(index * size, (index + 1) * size)
+    return tuple(at)
+
+
+def psum_block(g: torch.Tensor, group: Any, index: int, axis: int) -> torch.Tensor:
+    """The transpose of :func:`gather_blocks` (JAX's ``psum_scatter`` of
+    an ``all_gather``): ``g`` summed over the group by one all-reduce,
+    then this rank's ``index``-th of the group's equal blocks along
+    ``axis``."""
+    n = dist.get_world_size(group)
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=group)
+    return g[_block_index(g.ndim, axis, index, g.shape[axis] // n)]
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """Forward: every rank's block concatenated along ``axis`` in group
+    rank order, as an all-reduce of a buffer whose other blocks are zero
+    (exact: x + 0 = x). Backward: :func:`psum_block`."""
 
     @staticmethod
-    def forward(ctx, h, group, direction):
-        ctx.group, ctx.direction = group, direction
-        buf = h.new_zeros((2,) + tuple(h.shape))
-        buf[direction] = h
+    def forward(ctx, x, group, index, axis):
+        ctx.group, ctx.index, ctx.axis = group, index, axis
+        n = dist.get_world_size(group)
+        shape = list(x.shape)
+        shape[axis] *= n
+        buf = x.new_zeros(shape)
+        buf[_block_index(x.ndim, axis, index, x.shape[axis])] = x
         dist.all_reduce(buf, group=group)
         return buf
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g[ctx.direction], None, None
+        return psum_block(g, ctx.group, ctx.index, ctx.axis), None, None, None
+
+
+def gather_blocks(x: torch.Tensor, group: Any, index: int, axis: int) -> torch.Tensor:
+    """This rank's block ``x``, the ``index``-th of the group's equal
+    blocks along ``axis``, -> the whole tensor, every block in group rank
+    order, in ``x``'s dtype (``jax.lax.all_gather`` with ``tiled=True``);
+    differentiable, its backward :func:`psum_block`."""
+    return _GatherBlocks.apply(x, group, index, axis)
 
 
 def gather_directions(h: torch.Tensor, group: Any, direction: int) -> torch.Tensor:
     """``(T, B, H)`` stream of this rank's direction -> ``(2, T, B, H)``
     streams of both directions, in ``h``'s dtype, over the model group of
     two ranks (``jax.lax.all_gather`` in ``bilstm_layer_tm_dirsharded``);
-    differentiable."""
+    differentiable: the backward sums the cotangent over the group, then
+    takes this rank's slot."""
     if dist.get_world_size(group) != 2:
         raise ValueError("the direction exchange needs a model group of 2 ranks")
-    return _GatherDirections.apply(h, group, direction)
+    return gather_blocks(h.unsqueeze(0), group, direction, 0)
+
+
+def gather_time(x: torch.Tensor, group: Any, index: int) -> torch.Tensor:
+    """``(T / n, ...)`` time-major slice of this rank, the ``index``-th of
+    the time group's ``n`` -> the whole ``(T, ...)``, on every rank of the
+    group: the all-gather of T that XLA inserts before the serial
+    recurrence on a time axis; differentiable."""
+    return gather_blocks(x, group, index, 0)
 
 
 def all_gather_rows(x: torch.Tensor, group: Any) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Train, eval, predict and decode steps (``mgr_tpu/train/step.py``), on
 one device, and the train, eval and decode steps over a mesh of ranks
 (``make_train_step(model, mesh=)``, ``make_eval_step(model, mesh=)``,
-``make_decode_step(model, ..., mesh=)``), for every family: pure data
-parallelism, or data parallelism x direction-sharded tensor parallelism
-(``parallel.mesh``).
+``make_decode_step(model, ..., mesh=)``), for every family, on both of the
+JAX package's routes (``parallel.sharding``): the shard_map route (pure
+data parallelism, or data parallelism x direction-sharded tensor
+parallelism on a model axis of 2) and the GSPMD route (a model axis above
+2, where each rank computes a block of the LSTMs' hidden units, or a time
+axis, where each rank projects a slice of the time steps; decoding there
+is the one-process step, as in JAX).
 
 JAX's steps take ``(params, ...)``; here the parameters live in the
 module. The eval, predict and decode steps take the batch alone and run
@@ -19,7 +23,8 @@ the fusion families the second stream ``inputs2`` (B, T, F2) (the model
 then takes the pair), ``labels`` (B, N) int -1 padded, ``input_length``
 (B,) valid frames AFTER the CTC trim, ``label_length`` (B,). A mesh step
 splits every one of them, the second stream too, by rows over the data
-axis (JAX's ``in_specs`` ``P(data)`` over every leaf of the batch).
+axis (JAX's ``in_specs`` ``P(data)`` over every leaf of the batch), and on
+a time axis the sequence leaves also by time (``shard_batch``).
 
 The indexed steps (``make_indexed_train_step``, ``make_indexed_eval_step``,
 ``mgr_tpu/train/step.py:290-321``) take the whole corpus as tensors on the
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -114,35 +120,59 @@ def _loss_from_batch(model: nn.Module, batch: Dict[str, torch.Tensor], *,
 
 
 def _shard_context(mesh):
-    """The direction-shard context of this rank (model axis of 2), else a
+    """This rank's context on its mesh's route: the H-shard context on the
+    GSPMD route, the direction-shard context on a model axis of 2, else a
     context that sets nothing (pure DP)."""
-    _, model_axis = shard_lib.shardmap_axes(mesh.config)
-    if model_axis is None:
+    axes = shard_lib.shardmap_axes(mesh.config)
+    if axes is None:
+        return dispatch.h_shard(dispatch.HShard(
+            mesh.config, mesh.data_index, mesh.model_group, mesh.model_index,
+            mesh.time_group, mesh.time_index))
+    if axes[1] is None:
         return contextlib.nullcontext()
     return dispatch.direction_shard(mesh.model_group, mesh.model_index)
+
+
+def _warn_gspmd(mesh) -> None:
+    """Once per mesh shape, a warning of what the GSPMD route runs
+    (``_warn_gspmd_fallback``, ``mgr_tpu/train/step.py:233-256``)."""
+    shape = (mesh.data, mesh.model, mesh.time)
+    if shape in _warned_mesh_shapes:
+        return
+    _warned_mesh_shapes.append(shape)
+    logging.warning(
+        "mesh %dx%dx%d: no shard_map mapping (model axis != 2 or time axis > 1): the "
+        "GSPMD route runs an H-sharded recurrence where the model axis divides H, a "
+        "per-step loop with one exchange of h over the model axis a time step and no "
+        "K1/K2 kernel, and projects a slice of the time steps per time rank; use "
+        "model=2 (direction-sharded, K5a/K5b) or pure DP (K1/K2) for the kernel path",
+        *shape)
+
+
+_warned_mesh_shapes: list = []
 
 
 def _on_every_rank(mesh, fn: Callable[[], Any]) -> Any:
     """``fn()``, this rank's part of a mesh step. Under
     ``tracing.debug_nans`` its verdict (a non-finite local loss, or on a
-    mesh without a model axis anomaly mode's error in its backward) does
-    not stop this rank alone, which would leave the others waiting at
-    their next collective: every rank first learns from one flag
-    all-reduce whether any rank failed, then all raise
+    mesh without a model or time axis anomaly mode's error in its
+    backward) does not stop this rank alone, which would leave the others
+    waiting at their next collective: every rank first learns from one
+    flag all-reduce whether any rank failed, then all raise
     ``FloatingPointError`` together. Any other error propagates as it is.
 
-    With a model axis the backward holds the model group's collectives
-    (the direction exchange's transpose), so a rank that raised inside it
-    would leave its partner waiting there: anomaly mode's NaN check is
-    off in ``fn``, a NaN of one direction's backward runs on through the
-    exchange into the combined gradients, and the check of their norm
-    raises on every rank at once. The two ranks of a model pair compute
-    the same loss from the same rows, so its check fails on both or on
-    neither, before the backward."""
+    With a model or time axis the backward holds the collectives of those
+    axes (the exchanges' transposes), so a rank that raised inside it
+    would leave its partners waiting there: anomaly mode's NaN check is
+    off in ``fn``, a NaN of one rank's backward runs on through the
+    exchanges into the combined gradients, and the check of their norm
+    raises on every rank at once. The ranks of a data index compute the
+    same loss from the same rows, so its check fails on all of them or on
+    none, before the backward."""
     if not tracing.debugging_nans():
         return fn()
     failed = None
-    with torch.autograd.set_detect_anomaly(True, check_nan=mesh.model == 1):
+    with torch.autograd.set_detect_anomaly(True, check_nan=mesh.model == 1 and mesh.time == 1):
         try:
             out = fn()
         except Exception as err:
@@ -161,8 +191,8 @@ def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], to
     tensor on the model's device.
 
     With a ``mesh`` (``parallel.mesh.Mesh``) the step takes the GLOBAL
-    batch: this rank evaluates its rows under its direction-shard context,
-    then the loss is averaged over the data group and the model group
+    batch: this rank evaluates its rows (and time slice) under its
+    route's context, then the loss is averaged over every rank
     (``mgr_tpu/train/step.py:323-358``); every rank returns the same
     value."""
     dev = model_device(model)
@@ -177,15 +207,10 @@ def make_eval_step(model: nn.Module, mesh=None) -> Callable[[Dict[str, Any]], to
             batch = batch_to_device(batch, dev)
             return _loss_from_batch(model, batch, train=False, rng=None)
         rows = _rank_rows(batch, mesh, dev)
-        loss = _on_every_rank(mesh, lambda: local(rows))
-        loss = collectives.pmean(loss, mesh.data_group)
-        if mesh.model > 1:
-            loss = collectives.pmean(loss, mesh.model_group)
+        loss = collectives.pmean(_on_every_rank(mesh, lambda: local(rows)), None)
         tracing.check_finite(loss, "loss")
         return loss
 
-    if mesh is not None:
-        shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
     return step
 
 
@@ -213,10 +238,14 @@ def create_train_state(model: nn.Module) -> TrainState:
 
 
 def _loss_and_grads(model: nn.Module, params: Dict[str, torch.Tensor],
-                    batch: Dict[str, torch.Tensor], rng: Optional[prng.Key]):
+                    batch: Dict[str, Any], rng: Optional[prng.Key],
+                    local: Callable[[Dict[str, Any]], Dict[str, torch.Tensor]] = lambda mb: mb):
     """Loss and gradients, with ``accum_steps`` microbatches (each with
     its own stream ``fold_in(rng, i)``) whose losses and gradients are
-    summed, then scaled by 1/accum (``mgr_tpu/train/step.py:83-125``)."""
+    summed, then scaled by 1/accum (``mgr_tpu/train/step.py:83-125``).
+    ``local`` maps a microbatch of ``batch`` to what this process computes
+    on (the GSPMD route: a global microbatch to this rank's rows and time
+    slice, on its device)."""
     accum = model.config.optimizer.accum_steps
     for p in params.values():
         p.grad = None
@@ -233,7 +262,7 @@ def _loss_and_grads(model: nn.Module, params: Dict[str, torch.Tensor],
     loss_sum = None
     with torch.enable_grad():
         for mb, r in micro:
-            loss = _loss_from_batch(model, mb, train=True, rng=r)
+            loss = _loss_from_batch(model, local(mb), train=True, rng=r)
             loss.backward()  # sums into .grad across microbatches
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -267,43 +296,85 @@ def _apply_updates(model: nn.Module, state: TrainState, tx: opt_lib.KerasAdam,
     return state, {"loss": loss, "grad_norm": grad_norm}
 
 
-def _combine_model_grads(grads: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """A uniform mean over the model group is exact for every gradient
-    (``mgr_tpu/train/step.py:144-161``). The backward of the direction
-    exchange sums the cotangent over both ranks, whose (identical)
-    downstream losses each reach direction d's stream: rank d holds 2x the
-    gradient of slot d of the BLSTM weights and 0 in the other slot, and
-    2x the via-its-direction half of every gradient below a BLSTM layer;
-    the head above it arrives 1x on both. The mean maps all three to the
-    single-process gradient."""
-    return collectives.pmean_tree(grads, mesh.model_group)
+def _combine(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
+    """The mesh step's loss and gradients, the same on every rank: the mean
+    of every rank's over all ranks, one all-reduce. It is the single
+    process's for every leaf on both routes.
+
+    Why one uniform mean is exact. Every collective in the forward of a
+    mesh step is an all-gather of equal blocks (the two directions on a
+    model axis of 2, the time slices and the h blocks of each step on the
+    GSPMD route), and its backward is its transpose: the cotangent summed
+    over the group, then this rank's block. So the backward of each rank's
+    loss L_r gives each rank r a share g_r of the gradient of the sum of
+    all ranks' losses: sum_r g_r = grad sum_r L_r. L_r is the mean loss
+    of the rows of r's data index d, the same on the M x Tt ranks (model x
+    time) of that index, so sum_r L_r = M Tt D L, with L the one-process
+    loss of the whole batch, and mean_r g_r = grad L. Leaf by leaf, with
+    G_d = grad L_d:
+
+      * a leaf above every exchange, used whole (the head): G_d on every
+        rank of index d; the mean over the M Tt copies and the D indices
+        is mean_d G_d;
+      * a direction-sharded BLSTM leaf (model axis of 2): slot k arrives
+        on rank k only, twice G_d's slot k (both ranks' cotangents of
+        direction k's stream are summed), zero in the other slot, and a
+        leaf below a BLSTM layer holds twice the via-its-direction half on
+        each rank (``mgr_tpu/train/step.py:144-161``); the mean over the
+        pair gives G_d;
+      * an H-sharded LSTM leaf (W, U, b of a layer whose H the model axis
+        divides): block m arrives on rank m only, M times G_d's block (the
+        exchange's transpose sums the M ranks' cotangents), zero in the
+        other blocks, and W's and b's from rank t's time slice only, the
+        projection's cotangent Tt times (the time gather's transpose sums
+        the Tt ranks'); summed over the M Tt ranks the blocks and slices
+        make M Tt G_d;
+      * a leaf below a time gather (rgb's CNN, a layer whose recurrence
+        every model rank runs whole): the share of rank t's time slice,
+        and of every model rank, the same M Tt factor in the sum.
+
+    Where the model axis does not divide H every model rank computes the
+    whole layer, and its leaves arrive M Tt times like the head's."""
+    both = collectives.pmean_tree({"loss": loss.reshape(1), **grads}, None)
+    return both.pop("loss").reshape(()), both
 
 
 def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
                         batch: Dict[str, Any], rng: Optional[prng.Key]):
-    """The mesh step's loss and gradients before the optimizer
-    (``local_loss_grad``, ``mgr_tpu/train/step.py:194-213``): this rank's
-    rows of the global ``batch``, the rng folded by the DATA index only
-    (the two ranks of a model group draw the same masks), the loss and
-    gradients under this rank's direction-shard context, then averaged
-    over the data group and, with a model axis, over the model group.
-    Every rank returns the same values. Under ``tracing.debug_nans`` the
-    averaged loss is checked here and the norm of the combined gradients
-    by the optimizer tail, so every rank raises at the same step."""
-    rows = _rank_rows(batch, mesh, model_device(model))
-    rng = None if rng is None else prng.fold_in(rng, mesh.data_index)
+    """The mesh step's loss and gradients before the optimizer, on the
+    mesh's route, then combined over every rank (:func:`_combine`). Every
+    rank returns the same values. Under ``tracing.debug_nans`` the
+    combined loss is checked here and the norm of the combined gradients
+    by the optimizer tail, so every rank raises at the same step.
 
-    def local():
-        with _shard_context(mesh):
-            return _loss_and_grads(model, params, rows, rng)
+    On the shard_map route (``local_loss_grad``, ``mgr_tpu/train/step.py:
+    194-213``) a rank computes on its rows of the global ``batch``, the
+    rng folded by the DATA index only (the two ranks of a model pair draw
+    the same masks), under its direction-shard context. On the GSPMD
+    route (the ``jax.jit`` step that XLA partitions,
+    ``mgr_tpu/train/step.py:282-290``) a rank computes on its rows and
+    time slice of each global microbatch under its H-shard context, with
+    the rng NOT folded: the draws are one process's, made at the global
+    shape (``dispatch.draw_local``)."""
+    dev = model_device(model)
+    if shard_lib.shardmap_axes(mesh.config) is None:
+        whole = {k: batch[k] for k in _keys(batch)}
 
-    loss, grads = _on_every_rank(mesh, local)
-    both = collectives.pmean_tree({"loss": loss.reshape(1), **grads}, mesh.data_group)
-    if mesh.model > 1:
-        both = _combine_model_grads(both, mesh)
-    loss = both.pop("loss").reshape(())
+        def local():
+            with _shard_context(mesh):
+                return _loss_and_grads(model, params, whole, rng,
+                                       local=lambda mb: _rank_rows(mb, mesh, dev))
+    else:
+        rows = _rank_rows(batch, mesh, dev)
+        rng = None if rng is None else prng.fold_in(rng, mesh.data_index)
+
+        def local():
+            with _shard_context(mesh):
+                return _loss_and_grads(model, params, rows, rng)
+
+    loss, grads = _combine(*_on_every_rank(mesh, local))
     tracing.check_finite(loss, "loss")
-    return loss, both
+    return loss, grads
 
 
 def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
@@ -313,16 +384,16 @@ def make_train_step(model: nn.Module, mesh=None) -> Callable[..., Tuple[TrainSta
     controller's scale). metrics: 0-d tensors ``loss`` (mean CTC loss of
     the batch) and ``grad_norm``, left on the device.
 
-    With a ``mesh`` (``parallel.mesh.Mesh``: pure DP, or DP x a model axis
-    of 2) the step takes the GLOBAL batch and computes its loss and
-    gradients with :func:`mesh_loss_and_grads`
-    (``_make_shardmap_train_step``, ``mgr_tpu/train/step.py:164-230``);
-    the Adam and maxnorm tail then runs on every rank's identical
-    replica. A mesh with a model axis above 2 or a time axis raises."""
+    With a ``mesh`` (``parallel.mesh.Mesh``) the step takes the GLOBAL
+    batch and computes its loss and gradients with
+    :func:`mesh_loss_and_grads` on the mesh's route
+    (``_make_shardmap_train_step``, ``mgr_tpu/train/step.py:164-230``, or
+    the GSPMD step, ``:259-290``, which warns once per mesh shape); the
+    Adam and maxnorm tail then runs on every rank's identical replica."""
     tx = opt_lib.keras_adam(model.config.optimizer)
     dev = model_device(model)
-    if mesh is not None:
-        shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
+    if mesh is not None and shard_lib.shardmap_axes(mesh.config) is None:
+        _warn_gspmd(mesh)
 
     def step(state: TrainState, batch: Dict[str, Any], rng: Optional[prng.Key],
              lr_scale: float = 1.0):
@@ -382,12 +453,15 @@ def make_decode_step(
     int32 argmax classes and the bool emit mask: only these reach the
     host, not the (B, T, C) posteriors.
 
-    With a ``mesh`` (``mgr_tpu/train/step.py:378-446``) the step takes
-    the GLOBAL batch: this rank decodes its rows (of both streams, for a
-    fusion model) under its direction-shard context, and ``(best, emit)``
-    of the whole batch, in global row order, comes back on every rank
-    (gathered over the data group). Without ``input_lengths`` every row's
-    length is the inputs' padded T (not ``cfg.maxlen``)."""
+    With a ``mesh`` of the shard_map route (``mgr_tpu/train/step.py:
+    378-446``) the step takes the GLOBAL batch: this rank decodes its rows
+    (of both streams, for a fusion model) under its direction-shard
+    context, and ``(best, emit)`` of the whole batch, in global row order,
+    comes back on every rank (gathered over the data group). Without
+    ``input_lengths`` every row's length is the inputs' padded T (not
+    ``cfg.maxlen``). A mesh of the GSPMD route gets the one-process step,
+    as JAX's falls through to the unsharded ``jax.jit(step)``: each rank
+    decodes the whole batch."""
     blank = model.config.nb_classes - 1 if drop_blank else None
     dev = model_device(model)
 
@@ -400,9 +474,8 @@ def make_decode_step(
             threshold=threshold, trim_frames=trim_frames, blank=blank,
         )
 
-    if mesh is None:
+    if mesh is None or shard_lib.shardmap_axes(mesh.config) is None:
         return step
-    shard_lib.shardmap_axes(mesh.config)  # refuse a mesh the port cannot serve
 
     @torch.inference_mode()
     def mesh_step(inputs, input_lengths: Optional[Any] = None):

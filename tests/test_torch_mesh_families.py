@@ -116,7 +116,7 @@ def test_debug_nans_on_a_mesh_lets_any_other_error_through():
     tracing.debug_nans(True)
     try:
         with pytest.raises(RuntimeError, match="illegal memory access"):
-            step_lib._on_every_rank(SimpleNamespace(model=1, device="cpu"), fault)
+            step_lib._on_every_rank(SimpleNamespace(model=1, time=1, device="cpu"), fault)
     finally:
         tracing.debug_nans(False)
     assert not torch.is_anomaly_enabled()

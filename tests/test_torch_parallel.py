@@ -330,18 +330,15 @@ def test_pure_dp_mesh_matches_single_process_step():
                                         ((4, 1, 1), ("data", None)),
                                         ((2, 4, 1), None), ((2, 2, 2), None)])
 def test_shardmap_axes(shape, axes):
-    cfg = tconfig.MeshConfig(*shape)
-    if axes is None:
-        with pytest.raises(NotImplementedError, match="GSPMD"):
-            sharding.shardmap_axes(cfg)
-    else:
-        assert sharding.shardmap_axes(cfg) == axes
+    """None for a mesh of the GSPMD route, as JAX's ``shardmap_axes``."""
+    assert sharding.shardmap_axes(tconfig.MeshConfig(*shape)) == axes
 
 
 def test_shard_batch_takes_contiguous_rows_by_data_index():
     class M:
         data = 2
         data_index = 1
+        time = 1
 
     batch = {"inputs": np.arange(12).reshape(6, 2), "labels": torch.arange(6)}
     got = sharding.shard_batch(batch, M())
@@ -434,7 +431,7 @@ def test_train_cli_mesh_without_torchrun_names_it(skeletal_corpus, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
         main(["train", "skeletal", "--mesh", "2x2", "--device", "cpu", *skeletal_corpus])
-    with pytest.raises(NotImplementedError, match="GSPMD"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 8"):
         main(["train", "skeletal", "--mesh", "2x4", "--device", "cpu", *skeletal_corpus])
 
 

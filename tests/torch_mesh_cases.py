@@ -1,6 +1,7 @@
 """The cases of the mesh tests of every family
 (``tests/test_torch_mesh_families.py``, ``tests/test_torch_mesh_rgb.py``,
-``tests/test_torch_mesh_curriculum.py``, ``tests/test_torch_mesh_decode.py``):
+``tests/test_torch_mesh_curriculum.py``, ``tests/test_torch_mesh_decode.py``,
+and the GSPMD route's ``tests/test_torch_gspmd.py``):
 each family's config at test size, its seeded weights and a global
 batch; JAX's single-device and shard_map references; one rank launch a
 mesh shape for a list of families; and the checks of the port's mesh
@@ -35,10 +36,16 @@ step against JAX's, with their tolerances:
     since rgb's CNN kernels (100-768 entries) are too small for a share
     per parameter (the per-leaf gradient check covers them).
 
-Noise and dropout are off: the ranks draw from the port's streams, which
-are not JAX's.
+Noise and dropout are off on the shard_map route: its ranks fold the key
+by the data index and draw from the port's streams, which are not JAX's.
+The GSPMD route's cases (``gspmd_*``) have them on: its draws are one
+process's, so a rank replays JAX's draws (recorded by :func:`jax_draws`
+at the global shapes) or draws the port's own, and the step is held to
+JAX's GSPMD step and to the port's single-process step.
 """
 
+import contextlib
+import dataclasses
 import os
 import socket
 import subprocess
@@ -48,6 +55,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.models import build_model as jbuild
@@ -59,9 +67,11 @@ from mgr_tpu.train import optimizer as jopt
 from mgr_tpu.train import step as jstep
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import config as tconfig
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.parallel.spawn import run_ranks
-from test_torch_train import _params_close
+from mgr_tpu_torch.train import step as tstep
+from test_torch_train import _params_close, jax_key
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(__file__))
@@ -339,3 +349,104 @@ def cli(args, procs, cwd):
                           timeout=TIMEOUT_S, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+
+
+# ------------------------------------------------------------ the GSPMD route
+
+GSPMD_MESHES = ((1, 4, 1), (2, 1, 2), (1, 2, 2), (1, 3, 1))
+GSPMD_KEY = prng.fold_in(prng.fold_name(prng.root_key(5), "dropout"), 0)
+ON = dict(input_noise=0.5, dropout=(0.4, 0.5), output_dropout=0.5)
+
+
+def gspmd_cfg(name, dtype="float32"):
+    """A family's preset at test size (as :func:`family_cfg`) with noise and
+    dropout ON: BiLSTM(8)x2 (H=8: blocks of 2 on a model axis of 4, every
+    rank the whole layer on one of 3), early fusion's second stream noisy,
+    late fusion's encoders noisy (its skeletal H=6 is no multiple of 4) and
+    its fusion layer (H=4) dropped out."""
+    cfg, sources = family_cfg(name, dtype)
+    enc = dataclasses.replace(cfg.encoder, **ON)
+    over = {"encoder": enc}
+    if name == "early_fusion":
+        over["second_stream_noise"] = 0.3
+    if name == "late_fusion":
+        over.update(fusion_dropout=0.3, fusion_output_dropout=0.5)
+        sources = {k: v.replace(encoder=dataclasses.replace(v.encoder, **ON))
+                   for k, v in sources.items()}
+    return cfg.replace(**over), sources
+
+
+def gspmd_case(name, dtype="float32", seed=0):
+    cfg, sources = gspmd_cfg(name, dtype)
+    return {"name": name, "dtype": dtype, "cfg": cfg.to_json(), "jcfg": cfg,
+            "sources": None if sources is None else {k: v.to_json() for k, v in sources.items()},
+            "jsources": sources, "params": port_weights(cfg, sources, seed),
+            "batch": family_batch(cfg, seed + 100), "key": (GSPMD_KEY.seed, GSPMD_KEY.path),
+            "draws": None}
+
+
+@contextlib.contextmanager
+def jax_draws():
+    """The port's ``prng.bernoulli`` / ``prng.normal`` drawn by
+    ``jax.random`` on the same fold path (``test_torch_train.jax_streams``),
+    and recorded: yields the dict of (kind, seed, path, shape) -> array
+    that ``torch_parallel_ranks.replay_draws`` replays."""
+    table, real = {}, (prng.bernoulli, prng.normal)
+
+    def bernoulli(key, p, shape, device="cpu"):
+        a = np.array(jax.random.bernoulli(jax_key(key), p, tuple(shape)))
+        table["bernoulli", key.seed, key.path, tuple(shape)] = a
+        return torch.from_numpy(a.copy())
+
+    def normal(key, shape, dtype, device="cpu"):
+        a = np.array(jax.random.normal(jax_key(key), tuple(shape), jnp.float32))
+        table["normal", key.seed, key.path, tuple(shape)] = a
+        return torch.from_numpy(a.copy()).to(dtype)
+
+    prng.bernoulli, prng.normal = bernoulli, normal
+    try:
+        yield table
+    finally:
+        prng.bernoulli, prng.normal = real
+
+
+def port_step(c):
+    """The port's single-process step on the case: the raw loss and
+    gradients, the eval loss, one train step's loss and parameters."""
+    model = bridge.load_params(
+        tbuild(_port(c["jcfg"]), None if c["jsources"] is None else
+               {k: _port(v) for k, v in c["jsources"].items()}, device="cpu"), c["params"])
+    key = prng.Key(*c["key"])
+    batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+    loss, grads = tstep._loss_and_grads(model, dict(model.named_parameters()), batch, key)
+    out = {"loss": float(loss), "grads": {k: g.float().numpy().copy() for k, g in grads.items()},
+           "eval": float(tstep.make_eval_step(model)(c["batch"]))}
+    state, m = tstep.make_train_step(model)(tstep.create_train_state(model), c["batch"], key, 1.0)
+    out.update(step_loss=float(m["loss"]),
+               params={k: v.detach().float().numpy().copy() for k, v in state.params.items()})
+    return out
+
+
+def jax_single_grads(c):
+    """JAX's single-device raw loss and gradients on the case's key."""
+    jmodel = jbuild(c["jcfg"], c["jsources"])
+    loss, grads = jax.jit(lambda p, b, r: jstep._loss_and_grads(jmodel, p, b, rng=r))(
+        _to_jax(c["params"]), _to_jax(c["batch"]), jax_key(prng.Key(*c["key"])))
+    return float(loss), _flat(jax.tree.map(np.asarray, grads))
+
+
+def jax_gspmd_step(c, shape):
+    """JAX's GSPMD train step on a ``shape`` mesh of the virtual CPU
+    devices, set up as ``tests/test_sharding.py:62-101`` sets it up
+    (parameters by ``shard_params``, the optimizer state replicated, the
+    batch by ``shard_batch``): its loss and new parameters."""
+    jmodel = jbuild(c["jcfg"], c["jsources"])
+    mesh = jmake_mesh(cfglib.MeshConfig(*shape))
+    state = _jax_state(c)
+    state = state._replace(
+        params=jshard_params(state.params, mesh),
+        opt_state=jax.tree.map(lambda x: jax.device_put(x, NamedSharding(mesh, P()))
+                               if hasattr(x, "shape") else x, state.opt_state))
+    new, m = jstep.make_train_step(jmodel, mesh=mesh)(
+        state, jshard_batch(_to_jax(c["batch"]), mesh), jax_key(prng.Key(*c["key"])), 1.0)
+    return float(m["loss"]), _flat(jax.tree.map(np.asarray, new.params))

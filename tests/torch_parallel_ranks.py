@@ -17,6 +17,7 @@ import torch.distributed as dist
 
 from mgr_tpu_torch import bridge
 from mgr_tpu_torch.core import checkpoint as ckpt_lib
+from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.core import config as tconfig
 from mgr_tpu_torch.core import tracing
 from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
@@ -165,12 +166,12 @@ def _write_spy():
     return writes
 
 
-def curriculum_rank(rank, world, cfgs_json, corpus, workdir):
-    """``run_curriculum`` over a DATAx1 mesh on the corpus's files: the
-    stamps of the slots this rank wrote, each stage's history and a
-    digest of its final parameters."""
+def curriculum_rank(rank, world, cfgs_json, corpus, workdir, shape=None):
+    """``run_curriculum`` over a ``shape`` mesh (by default DATAx1) on the
+    corpus's files: the stamps of the slots this rank wrote, each stage's
+    history and a digest of its final parameters."""
     cfgs = {k: PipelineConfig.from_json(v) for k, v in cfgs_json.items()}
-    mesh = make_mesh(MeshConfig(world, 1), device="cpu")
+    mesh = make_mesh(MeshConfig(*(shape or (world, 1))), device="cpu")
     writes = _write_spy()
     speech = datasets.build_audio_dataset(corpus["audio_dir"], corpus["audio_labels"],
                                           cfgs["speech"])
@@ -256,6 +257,129 @@ def fit_rank(rank, world, cfg_json, params, corpus, workdir, epochs):
                         for h in res.history],
             "params": _numpy(dict(model.named_parameters())),
             "writes": writes, "step": res.state.step}
+
+
+def replay_draws(draws):
+    """Route ``prng.bernoulli`` and ``prng.normal`` to recorded draws:
+    ``draws`` maps (kind, seed, path, shape) to the array drawn there (in
+    the tests JAX's, on the same fold path). Returns a function that puts
+    the port's own draws back."""
+    real = prng.bernoulli, prng.normal
+
+    def look(kind, key, shape):
+        return torch.from_numpy(draws[kind, key.seed, key.path, tuple(shape)].copy())
+
+    prng.bernoulli = lambda key, p, shape, device="cpu": look("bernoulli", key, shape)
+    prng.normal = lambda key, shape, dtype, device="cpu": look("normal", key, shape).to(dtype)
+
+    def restore():
+        prng.bernoulli, prng.normal = real
+
+    return restore
+
+
+def _count_all_reduces():
+    """Count every ``torch.distributed.all_reduce`` of this rank (the
+    exchanges, the time gathers, their transposes and the combination of
+    the gradients): a one-element list."""
+    count, real = [0], dist.all_reduce
+
+    def spy(*a, **kw):
+        count[0] += 1
+        return real(*a, **kw)
+
+    dist.all_reduce = spy
+    return count
+
+
+def _gspmd_step(model, mesh, batch, key, calls, reduces):
+    """The raw loss and gradients of the mesh step with the calls and
+    all-reduces they made, the mesh eval loss, then one mesh train step."""
+    trainable = model.trainable()
+    frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not trainable[k]}
+    before, n0 = dict(calls), reduces[0]
+    loss, grads = step_lib.mesh_loss_and_grads(model, mesh, dict(model.named_parameters()),
+                                               batch, key)
+    grads = _numpy(grads)
+    r = {"loss": float(loss), "grads": grads, "all_reduces": reduces[0] - n0,
+         "calls": {k: calls[k] - before[k] for k in calls}}
+    r["eval"] = float(step_lib.make_eval_step(model, mesh=mesh)(batch))
+    state = step_lib.create_train_state(model)
+    state, m = step_lib.make_train_step(model, mesh=mesh)(state, batch, key, 1.0)
+    r.update(step_loss=float(m["loss"]), params=_numpy(state.params),
+             frozen=sorted(frozen), frozen_unchanged=all(
+                 torch.equal(p, frozen[k]) for k, p in model.named_parameters() if k in frozen))
+    return r
+
+
+def _nan_step(rank, model, mesh, batch, key, nan_dz):
+    """One mesh train step under ``debug_nans`` with the port's draws from
+    ``key``; with ``nan_dz`` rank 0 alone makes a NaN in the backward of the
+    H-sharded recurrence (its dz), its forward finite. What this rank
+    raised, and after how long."""
+    real = tlstm.hard_sigmoid_grad
+    if nan_dz and rank == 0:
+        tlstm.hard_sigmoid_grad = lambda z: torch.full_like(z, float("nan"))
+    tracing.debug_nans(True)
+    t0 = time.monotonic()
+    try:
+        step_lib.make_train_step(model, mesh=mesh)(step_lib.create_train_state(model), batch,
+                                                   key, 1.0)
+        raised = None
+    except FloatingPointError as err:
+        raised = f"FloatingPointError: {err}"
+    finally:
+        tracing.debug_nans(False)
+        tlstm.hard_sigmoid_grad = real
+    return {"raised": raised, "seconds": time.monotonic() - t0}
+
+
+def gspmd_rank(rank, world, shape, cases, nans=(), fit=None):
+    """On a ``shape`` (data, model, time) mesh of the GSPMD route, for each
+    case (a family's config, weights, global batch, the key of its draws
+    as (seed, path) or None, and ``draws`` to replay or None):
+    :func:`_gspmd_step`, its calls counting the H-sharded scans beside the
+    recurrence wrappers. Then each of ``nans`` (a config, weights, a batch,
+    a key and ``nan_dz``) under ``debug_nans``, and with ``fit`` (a config,
+    weights, a corpus and a workdir) ``fit`` for 2 epochs over the mesh,
+    then resumed to 3: the histories, a digest of the final parameters and
+    the slot writes of this rank."""
+    mesh = make_mesh(MeshConfig(*shape), device="cpu")
+    calls = _spy()
+    calls["hsharded_steps"], real_steps = 0, tlstm._hsharded_steps
+
+    def steps(*a, **kw):
+        calls["hsharded_steps"] += 1
+        return real_steps(*a, **kw)
+
+    tlstm._hsharded_steps = steps
+    reduces = _count_all_reduces()
+    out = {"steps": [], "nans": [], "fit": None}
+    for case in cases:
+        restore = replay_draws(case["draws"]) if case["draws"] else (lambda: None)
+        try:
+            model = _model(case["cfg"], case["params"], case.get("sources"))
+            key = None if case["key"] is None else prng.Key(*case["key"])
+            r = _gspmd_step(model, mesh, case["batch"], key, calls, reduces)
+        finally:
+            restore()
+        out["steps"].append(r)
+    for case in nans:
+        model = _model(case["cfg"], case["params"])
+        out["nans"].append(_nan_step(rank, model, mesh, case["batch"], prng.Key(*case["key"]),
+                                     case["nan_dz"]))
+    if fit is not None:
+        writes = _write_spy()
+        model = _model(fit["cfg"], fit["params"])
+        data = Batcher(*fit["corpus"][:5], train_ids=fit["corpus"][5], val_ids=fit["corpus"][6])
+        first = loop_lib.fit(model, data, workdir=fit["workdir"], epochs=2, mesh=mesh)
+        resumed = loop_lib.fit(_model(fit["cfg"], fit["params"]), data, workdir=fit["workdir"],
+                               epochs=3, resume=True, mesh=mesh)
+        out["fit"] = {"history": [[h[k] for k in ("train_loss", "val_loss")]
+                                  for h in first.history + resumed.history],
+                      "digest": _digest(resumed.state.params), "writes": sorted(set(writes)),
+                      "step": resumed.state.step}
+    return out
 
 
 def collectives_rank(rank, world):
