@@ -69,7 +69,14 @@ with the same draws: the H-sharded recurrence with one exchange a time
 step and no K1/K2 on 1x4 and 1x2x2, K1/K2 on every 2x1x2 rank; the other
 families one step each on 1x4 with their encoders at depth 1; one
 exchange's all-reduce timed; ``fit`` over 1x2x2, its slot decoded bit for
-bit as the ranks' parameters), with ``--profile`` a
+bit as the ranks' parameters), the bench (``mgr_tpu_torch.bench`` at the
+JAX bench's defaults for every pipeline, full width, T=1900: train and
+decode throughput, each with its peak card memory and its launches;
+speech's B=1 ``--latency``; ``python -m mgr_tpu_torch.cli.main bench`` in
+a subprocess), the dryrun (``entry.dryrun_multichip(8)`` and ``(2)``: a
+step over 2x2x2 / 1x2x1, DP, DP x TP2 and late-fusion meshes of gloo ranks
+sharing the card, each held to one process, and the mesh decode bit for
+bit), with ``--profile`` a
 per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
 step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
 remat recompute and backward named apart), a JSON line of the kernels
@@ -77,7 +84,7 @@ remat recompute and backward named apart), a JSON line of the kernels
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
 and rgb paths and their times at those shapes, and their launches on the
 prepare and synthetic paths; every kernel with its launches on the
-mesh_families and gspmd paths), and last ``{"ok": true, "device":
+mesh_families, gspmd, bench and dryrun paths), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -190,6 +197,16 @@ SYN_LEARN_EPOCHS = 1000
 SYN_MIN_ACCURACY = 0.9
 SYN_MID_ROWS = 5000    # the reader's file: 5,000 rows x 39 values beside f32 midpoints
 SYN_AUDIO = dict(n_files=80, frames_per_label=600, max_labels=3, seed=0)
+# The bench phase: every pipeline at its bench defaults (full width, T=1900,
+# the JAX bench's default batch), then speech's B=1 latency, then the speech
+# bench as users start it (the CLI in a subprocess); the dryrun phase's rank
+# counts (2x2x2: the GSPMD route in phase 1; 1x2x1: direction-sharded).
+BENCH_PIPELINES = ("speech", "skeletal", "rgb", "early_fusion", "late_fusion")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "spread",
+              "decode_seqs_per_sec_per_chip", "decode_spread", "pipeline", "batch"}
+LATENCY_KEYS = {"metric", "value", "unit", "vs_baseline", "spread", "pipeline", "batch"}
+BENCH_CLI_TIMEOUT_S = 300
+DRYRUN_RANKS = (8, 2)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
@@ -3327,6 +3344,166 @@ def profile_train_phase(dev, pipeline: str = "speech") -> None:
           idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None, **extra)
 
 
+def _bench_line(argv, keys) -> dict:
+    """``mgr_tpu_torch.bench.main(argv)`` in this process: its one JSON line,
+    which must have the JAX bench's ``keys`` (no ``stale`` key) and
+    positive numbers."""
+    import io
+
+    from mgr_tpu_torch import bench
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = bench.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench {argv}: rc {rc}, lines {lines}")
+    return _checked_bench_line(json.loads(lines[0]), keys, argv)
+
+
+def _checked_bench_line(line, keys, argv) -> dict:
+    rates = [line["value"], line["spread"]["min"], line["spread"]["max"]]
+    if "decode_spread" in line:
+        rates += [line["decode_seqs_per_sec_per_chip"], line["decode_spread"]["min"],
+                  line["decode_spread"]["max"]]
+    if set(line) != keys or not all(np.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"bench {argv}: not the JAX bench's line: {line}")
+    return line
+
+
+def _bench_step_launches(name, dev) -> dict:
+    """The kernels one bench train step and one bench decode step of
+    ``name`` launch, at its bench defaults (the same seeded batch on the
+    card, the same decode call)."""
+    from mgr_tpu_torch import bench
+    from mgr_tpu_torch.core import prng
+    from mgr_tpu_torch.core.config import get_preset
+    from mgr_tpu_torch.models.zoo import build_model
+    from mgr_tpu_torch.ops import dispatch
+    from mgr_tpu_torch.train import step as step_lib
+
+    spec = bench.PIPELINES[name]
+    cfg = get_preset(name).replace(batch_size=spec["batch"])
+    model = build_model(cfg, device=dev)
+    state = step_lib.create_train_state(model)
+    train_step = step_lib.make_train_step(model)
+    batch = bench._make_batch(cfg, spec["batch"], dev)
+    call = bench._decode_call(cfg, model, spec["batch"], spec["threshold"], dev)
+    dispatch.reset_launch_counts()
+    _, m = train_step(state, batch, prng.root_key(0), 1.0)
+    float(m["loss"])
+    train = dispatch.launch_counts()
+    dispatch.reset_launch_counts()
+    best, _ = call()
+    int(best[0, 0])
+    decode = dispatch.launch_counts()
+    del model, state, train_step, batch, call
+    torch.cuda.empty_cache()
+    return {"train_step": train, "decode_step": decode}
+
+
+def bench_phase(dev) -> dict:
+    """The port's bench (``mgr_tpu_torch/bench.py``) as users run it, at the
+    JAX bench's defaults: every pipeline at full width, T=1900, its default
+    batch (speech, skeletal and early fusion 128, late fusion 64, rgb 16),
+    in this process, with its peak card memory; speech's ``--latency``
+    (B=1); and ``python -m mgr_tpu_torch.cli.main bench`` (speech) in a
+    subprocess. Every line has the JAX line's keys and positive rates.
+    Each pipeline's bench run is counted (counts set to 0 before it, read
+    after), and one train step's and one decode step's launches apart: K1-K4
+    at least once a train step, K1 once a decode step, and the run's
+    launches exactly the warm-up and timed calls' worth of them."""
+    from mgr_tpu_torch import bench
+    from mgr_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    calls_train = bench.WARMUP_STEPS + bench.REPEATS * bench.TIMED_STEPS
+    calls_decode = 1 + bench.REPEATS * bench.TIMED_STEPS
+    lines, launches = {}, {}
+    for name in BENCH_PIPELINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        line = _bench_line(["--pipeline", name], BENCH_KEYS)
+        run_s = time.perf_counter() - t0
+        run = dispatch.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if line["pipeline"] != name or line["batch"] != bench.PIPELINES[name]["batch"]:
+            raise AssertionError(f"bench {name}: {line}")
+        per = _bench_step_launches(name, dev)
+        t, d = per["train_step"], per["decode_step"]
+        if min(t[k] for k in KERNELS[:4]) < 1 or d["bilstm_tm_fwd"] < 1 or any(
+                run[k] != calls_train * t[k] + calls_decode * d[k] for k in KERNELS):
+            raise AssertionError(f"bench {name}: launches run {run}, a train step {t}, a "
+                                 f"decode step {d}")
+        print(json.dumps(line), flush=True)
+        lines[name] = {"line": line, "peak_memory_gib": peak / 2**30, "run_s": run_s}
+        launches[name] = {**per, "run": run}
+    dispatch.reset_launch_counts()
+    latency = _bench_line(["--pipeline", "speech", "--latency"], LATENCY_KEYS)
+    launches["speech latency"] = dispatch.launch_counts()
+    if latency["batch"] != 1 or latency["spread"]["calls"] != bench.LATENCY_CALLS or \
+            launches["speech latency"]["bilstm_tm_fwd"] < 1:
+        raise AssertionError(f"bench --latency: {latency}, {launches['speech latency']}")
+    print(json.dumps(latency), flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mgr_tpu_torch.cli.main", "bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=BENCH_CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = proc.stdout.strip().splitlines()
+    if len(out) != 1:
+        raise AssertionError(f"the bench CLI printed {out}")
+    cli = _checked_bench_line(json.loads(out[0]), BENCH_KEYS, ["bench"])
+    print(json.dumps(cli), flush=True)
+    phase("bench", lines=lines, latency=latency,
+          cli={"line": cli, "wall_s": time.perf_counter() - t0},
+          launches=launches, calls_a_run={"train": calls_train, "decode": calls_decode},
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def dryrun_phase(dev) -> dict:
+    """``mgr_tpu_torch.entry.dryrun_multichip`` on the card, at 8 ranks
+    (phase 1 on 2x2x2: the GSPMD route's H-sharded recurrence, no K1/K2)
+    and 2 (phase 1 on 1x2x1: each rank one direction, K5a/K5b), every rank
+    time-sharing this card through gloo; each prints its ``ok`` line. Rank
+    0's launches in each phase must be its route's kernels."""
+    from mgr_tpu_torch.entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    runs, launches = {}, {}
+    for n in DRYRUN_RANKS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = dryrun_multichip(n)
+        wall = time.perf_counter() - t0
+        c = res["launches"]
+        k12, k14, k5 = KERNELS[:2], KERNELS[:4], KERNELS[4:6]
+        gspmd = n % 8 == 0  # phase 1 on 2x2x2; else 1x2x1, direction-sharded
+        expect = {  # phase: (kernels launched, kernels not launched)
+            "1": (("ctc_fwd", "ctc_bwd") + (() if gspmd else k5), k12 + (k5 if gspmd else ())),
+            "2": (k14, k5),
+            "3": (k5 + ("ctc_fwd", "ctc_bwd"), k12),
+            "4": (("bilstm_tm_fwd",), ("bilstm_tm_bwd", "ctc_fwd", "ctc_bwd") + k5),
+            "5": (k14, k5),
+        }
+        wrong = {k: c[k] for k, (yes, no) in expect.items()
+                 if not all(c[k][x] > 0 for x in yes) or any(c[k][x] for x in no)}
+        if wrong:
+            raise AssertionError(f"dryrun_multichip({n}): rank 0 took the wrong kernels in "
+                                 f"phases {wrong}")
+        runs[str(n)] = {"line": res["line"], "wall_s": wall, "loss": res["loss"],
+                        "split_leaves_checked": res["split_leaves_checked"],
+                        **{k: res[k] for k in ("dp", "tp", "late_fusion", "decode_emitted")}}
+        launches.update({f"{n} ranks phase {k}": v for k, v in c.items()})
+    phase("dryrun", backend="gloo", ranks_share_one_card=True, runs=runs, launches_rank0=launches,
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3352,6 +3529,8 @@ def main() -> int:
     mesh = mesh_phase(dev)
     families = mesh_families_phase(dev)
     gspmd = gspmd_phase(dev)
+    benched = bench_phase(dev)
+    dryrun = dryrun_phase(dev)
     if args.profile:
         profile_phase(dev)
         profile_train_phase(dev)
@@ -3378,7 +3557,9 @@ def main() -> int:
     # step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
     # shapes those meshes give them; and from rank 0 of each path of the
     # gspmd phase (speech's mesh step on each mesh, each family's on 1x4,
-    # the fit over 1x2x2).
+    # the fit over 1x2x2); from each pipeline's bench run (and one bench
+    # train step and one decode step of it), speech's latency run; and
+    # from rank 0 of each phase of the dryrun at 8 and 2 ranks.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
     k5_at = {"lstm_tm_fwd": ("fwd_ms", "fwd_plain_ms", "bound_fwd"),
              "lstm_tm_bwd": ("bwd_ms", "bwd_plain_ms", "bound_bwd")}
@@ -3396,6 +3577,9 @@ def main() -> int:
              "launches_synthetic": synthetic[name]} if name in KERNELS[:4] else {}),
          "launches_mesh_families": {path: c[name] for path, c in families["launches"].items()},
          "launches_gspmd": {path: c[name] for path, c in gspmd.items()},
+         "launches_bench": {path: {k: c[k][name] for k in c} if "train_step" in c else c[name]
+                            for path, c in benched.items()},
+         "launches_dryrun": {path: c[name] for path, c in dryrun.items()},
          **({"at_family_shapes": {shape: {"ms": t[k5_at[name][0]],
                                           "plain_ms": t[k5_at[name][1]], **t[k5_at[name][2]]}
                                   for shape, t in families["k5"].items()}}

@@ -23,6 +23,7 @@ data-preparation commands (``:347-391``): ``prepare-audio``,
         --out-dir rois
     python -m mgr_tpu_torch.cli.main mix --audio-train ... --audio-val ... --skeletal-train ... \
         --skeletal-val ... --train-labels ... --val-labels ... --out-root mixed
+    python -m mgr_tpu_torch.cli.main bench [--pipeline speech] [--batch B] [--latency]
 
 A workdir holds ``<pipeline>_config.json`` and the slots
 (``mgr_tpu_torch.core.checkpoint``); ``train`` writes them. A workdir the
@@ -71,6 +72,10 @@ one process, as the JAX CLI decodes without a mesh on a host that lacks
 the devices; rank 0 writes the MLF (a stored mesh of the GSPMD route
 decodes with the one-process step on every rank, as JAX's does).
 ``evaluate`` runs in one process, as in JAX.
+
+``bench`` is ``python -m mgr_tpu_torch.bench`` (``mgr_tpu_torch/bench.py``)
+with the same flags: one JSON line of one pipeline's train and decode
+throughput, or with ``--latency`` its B=1 decode latency, on ``--device``.
 """
 
 from __future__ import annotations
@@ -79,6 +84,8 @@ import argparse
 import json
 import sys
 from typing import Optional
+
+from mgr_tpu_torch import bench
 
 PIPELINES = ["speech", "skeletal", "rgb", "early_fusion", "late_fusion"]
 FUSION = ("early_fusion", "late_fusion")
@@ -551,6 +558,11 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--out-root", required=True)
     pm.add_argument("--n-moved", type=int, default=95)
     pm.set_defaults(fn=cmd_mix)
+
+    pb = sub.add_parser("bench", help="train and decode throughput, or B=1 latency, "
+                                      "of one pipeline on one card")
+    bench.add_arguments(pb)
+    pb.set_defaults(fn=bench.run)
     return p
 
 

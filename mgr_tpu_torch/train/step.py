@@ -339,13 +339,13 @@ def _combine(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
     return both.pop("loss").reshape(()), both
 
 
-def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
+def rank_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
                         batch: Dict[str, Any], rng: Optional[prng.Key]):
-    """The mesh step's loss and gradients before the optimizer, on the
-    mesh's route, then combined over every rank (:func:`_combine`). Every
-    rank returns the same values. Under ``tracing.debug_nans`` the
-    combined loss is checked here and the norm of the combined gradients
-    by the optimizer tail, so every rank raises at the same step.
+    """This rank's loss and gradients of a mesh step, on the mesh's route,
+    before :func:`_combine` (every rank of the mesh calls it together: the
+    route's exchanges run inside). A leaf this rank computes a part of
+    holds that part's gradient and zeros elsewhere: one direction's slot on
+    a model axis of 2, one block of the hidden units on the GSPMD route.
 
     On the shard_map route (``local_loss_grad``, ``mgr_tpu/train/step.py:
     194-213``) a rank computes on its rows of the global ``batch``, the
@@ -372,7 +372,18 @@ def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
             with _shard_context(mesh):
                 return _loss_and_grads(model, params, rows, rng)
 
-    loss, grads = _combine(*_on_every_rank(mesh, local))
+    return _on_every_rank(mesh, local)
+
+
+def mesh_loss_and_grads(model: nn.Module, mesh, params: Dict[str, torch.Tensor],
+                        batch: Dict[str, Any], rng: Optional[prng.Key]):
+    """The mesh step's loss and gradients before the optimizer: each
+    rank's (:func:`rank_loss_and_grads`), combined over every rank
+    (:func:`_combine`). Every rank returns the same values. Under
+    ``tracing.debug_nans`` the combined loss is checked here and the norm
+    of the combined gradients by the optimizer tail, so every rank raises
+    at the same step."""
+    loss, grads = _combine(*rank_loss_and_grads(model, mesh, params, batch, rng))
     tracing.check_finite(loss, "loss")
     return loss, grads
 

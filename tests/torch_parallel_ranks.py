@@ -441,6 +441,24 @@ SMALL_PRESETS = {
 }
 
 
+def dryrun_perturbed_rank(rank, world, device_type):
+    """A rank of ``entry.dryrun_multichip`` whose one-process reference is
+    handed perturbed rows (row 0's inputs doubled): the run's self-check
+    must fail it."""
+    from mgr_tpu_torch import entry
+
+    real = entry._one_process_step
+
+    def perturbed(cfg, batch, key, device, sources=None):
+        batch = dict(batch)
+        batch["inputs"] = batch["inputs"].clone()
+        batch["inputs"][0] *= 2.0
+        return real(cfg, batch, key, device, sources)
+
+    entry._one_process_step = perturbed
+    return entry._dryrun_rank(rank, world, device_type)
+
+
 if __name__ == "__main__":
     # The port's CLI with every preset at test size, as torchrun starts it
     # in each rank.
