@@ -38,9 +38,15 @@ its defaults for 2 epochs; a learning run on the example's corpus and
 widths with noise and dropout 0 that must decode its train split to an
 accuracy of at least 0.9; then a synthetic speech corpus of 80 per-file
 CSVs read by the parser and by ``np.loadtxt``, and ``train speech``,
-``decode speech`` and ``score`` through the CLI at full width), the fusion kernels (K1/K2 at the late-fusion BiLSTM's H=100, K3/K4
-at the fusion presets' K=22, N=35, against their plain versions and
-timed), the fusion slice (early fusion trained by ``fit`` and decoded;
+``decode speech`` and ``score`` through the CLI at full width), the examples
+slice (the four learning drivers of ``mgr_tpu_torch/examples`` at full
+width and T=1900 for 2 epochs on a few files: the convergence and
+generalization checks' late-fusion stage, the measured curriculum with its
+accuracy probes and a forced finetune leg, and the A/B's biased arm
+through ``python -m``; each JSON row's keys and finite losses, K1-K4
+counted per driver), the fusion kernels (K1/K2 at the late-fusion
+BiLSTM's H=100, K3/K4 at the fusion presets' K=22, N=35, against their
+plain versions and timed), the fusion slice (early fusion trained by ``fit`` and decoded;
 speech and skeletal donors trained, grafted into late fusion, ``fit``
 over the frozen encoders, decode and evaluate; each family's step
 launches and wall, its kernel step against the plain one, a learning
@@ -83,8 +89,8 @@ remat recompute and backward named apart), a JSON line of the kernels
 (each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
 and rgb paths and their times at those shapes, and their launches on the
-prepare and synthetic paths; every kernel with its launches on the
-mesh_families, gspmd, bench and dryrun paths), and last ``{"ok": true, "device":
+prepare, synthetic and examples paths; every kernel with its launches
+on the mesh_families, gspmd, bench and dryrun paths), and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -197,6 +203,36 @@ SYN_LEARN_EPOCHS = 1000
 SYN_MIN_ACCURACY = 0.9
 SYN_MID_ROWS = 5000    # the reader's file: 5,000 rows x 39 values beside f32 midpoints
 SYN_AUDIO = dict(n_files=80, frames_per_label=600, max_labels=3, seed=0)
+# The examples phase: the four learning drivers at full width and T=1900
+# (hidden scale 1), 2 epochs on a few files each, through the paths of the
+# JAX package's toy environments: the convergence and generalization checks'
+# late-fusion stage (pretrains, graft, frozen head; the convergence check's
+# anneal leg with unfrozen encoders), the measured curriculum with its
+# accuracy probes and the finetune leg forced by an impossible late-fusion
+# target, and the A/B's biased arm through ``python -m`` in a subprocess.
+EXAMPLES_ENV = {
+    "convergence_check": {
+        "MGR_TPU_CONV_ONLY": "late_fusion", "MGR_TPU_CONV_FILES": "10",
+        "MGR_TPU_CONV_EPOCHS": "2", "MGR_TPU_CONV_PRETRAIN": "2", "MGR_TPU_CONV_BATCH": "4",
+        "MGR_TPU_CONV_FUSION_FPL": "90", "MGR_TPU_CONV_FUSION_LABELS": "4",
+        "MGR_TPU_CONV_LR2": "1e-3", "MGR_TPU_CONV_EPOCHS2": "1", "MGR_TPU_CONV_FINETUNE": "1",
+        "MGR_TPU_CONV_GUARD": "1", "MGR_TPU_CONV_PLATEAU": "0.5:2:1e-4:1e-3",
+        "MGR_TPU_CONV_BLANK_BIAS": "-3"},
+    "generalization_check": {
+        "MGR_TPU_GEN_ONLY": "late_fusion", "MGR_TPU_GEN_FILES": "10",
+        "MGR_TPU_GEN_EPOCHS": "2", "MGR_TPU_GEN_BATCH": "4", "MGR_TPU_GEN_FUSION_BATCH": "2",
+        "MGR_TPU_GEN_FPL": "90", "MGR_TPU_GEN_LABELS": "4", "MGR_TPU_GEN_SYNC": "1",
+        "MGR_TPU_GEN_PATIENCE": "2", "MGR_TPU_GEN_RLR": "late_fusion:0.5/1/1e-5"},
+    "curriculum_bench": {
+        "MGR_TPU_CB_MEASURED": "1", "MGR_TPU_CB_NTRAIN": "8", "MGR_TPU_CB_NVAL": "4",
+        "MGR_TPU_CB_EPOCHS": "2", "MGR_TPU_CB_BATCH": "4",
+        "MGR_TPU_CB_ACC_TARGET": "speech:0.0,late_fusion:2.0", "MGR_TPU_CB_ACC_EVERY": "1",
+        "MGR_TPU_CB_BLANK_BIAS": "-3", "MGR_TPU_CB_FINETUNE_EPOCHS": "1"},
+    "skeletal_bias_ab": {
+        "MGR_TPU_AB_FILES": "10", "MGR_TPU_AB_MAXLEN": "1900", "MGR_TPU_AB_SCALE": "1",
+        "MGR_TPU_AB_BATCH": "4", "MGR_TPU_AB_EPOCHS1": "2", "MGR_TPU_AB_EPOCHS2": "1"},
+}
+EXAMPLES_TIMEOUT_S = 300  # the A/B's subprocess
 # The bench phase: every pipeline at its bench defaults (full width, T=1900,
 # the JAX bench's default batch), then speech's B=1 latency, then the speech
 # bench as users start it (the CLI in a subprocess); the dryrun phase's rank
@@ -1249,6 +1285,91 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
         if min(launches[k] for k in FIT_KERNELS) <= 0:
             raise AssertionError(f"the synthetic path did not launch K1-K4: {launches}")
     return launches
+
+
+def _finite_losses(row) -> list:
+    """The losses of a driver's JSON row (every ``best_*_loss``, nested)."""
+    if not isinstance(row, dict):
+        return []
+    return [v for k, v in row.items() if k.startswith("best_") and k.endswith("_loss")] + \
+        [x for v in row.values() for x in _finite_losses(v)]
+
+
+def examples_phase(dev) -> dict:
+    """The port's four learning drivers (``mgr_tpu_torch/examples``) at full
+    width and T=1900 for 2 epochs on a few files (``EXAMPLES_ENV``): the
+    convergence and generalization checks' late-fusion stage and the
+    measured curriculum in this process, each run counted (counts set to 0
+    before it, read after), and the A/B's biased arm through ``python -m``
+    in a subprocess, started first. Each JSON row has the JAX script's keys
+    and finite losses; the curriculum's finetune leg ran. Returns each
+    in-process driver's launches."""
+    from unittest import mock
+
+    from mgr_tpu_torch.examples import (convergence_check, curriculum_bench,
+                                        generalization_check)
+    from mgr_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rows, launches, walls = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        ab_env = {**os.environ, **EXAMPLES_ENV["skeletal_bias_ab"],
+                  "MGR_TPU_AB_ROOT": os.path.join(root, "ab_corpus"),
+                  "MGR_TPU_AB_WORKDIR": os.path.join(root, "ab_wd")}
+        with subprocess.Popen(
+                [sys.executable, "-m", "mgr_tpu_torch.examples.skeletal_bias_ab", "biased",
+                 "--device", dev.type],
+                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=ab_env) as proc:
+            try:
+                for name, driver in (("convergence_check", convergence_check),
+                                     ("generalization_check", generalization_check),
+                                     ("curriculum_bench", curriculum_bench)):
+                    env = dict(EXAMPLES_ENV[name])
+                    if name == "convergence_check":
+                        env["MGR_TPU_CONV_ROOT"] = os.path.join(root, "conv")
+                    dispatch.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    with mock.patch.dict(os.environ, env):
+                        rows[name] = driver.main(device=str(dev))
+                    walls[name] = time.perf_counter() - t0
+                    launches[name] = dispatch.launch_counts()
+                stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            except BaseException:
+                proc.kill()
+                raise
+        walls["skeletal_bias_ab (subprocess)"] = time.perf_counter() - t_phase
+        if proc.returncode != 0:
+            raise AssertionError(f"skeletal_bias_ab exited {proc.returncode}: "
+                                 f"{stderr[-2000:]}")
+        rows["skeletal_bias_ab"] = json.loads(stdout.strip().splitlines()[-1])
+    want = {
+        "convergence_check": ("late_fusion", {"train_accuracy", "train_wer",
+                                              "train_accuracy_no_threshold",
+                                              "encoder_train_accuracy", "anneal_epochs",
+                                              "finetune_encoders", "best_train_loss"}),
+        "generalization_check": (None, {"pretrain_speech", "pretrain_skeletal", "late_fusion"}),
+        "curriculum_bench": ("stages", {"speech", "skeletal", "late_fusion"}),
+        "skeletal_bias_ab": (None, {"arm", "head_blank_bias", "train_accuracy",
+                                    "best_train_loss"}),
+    }
+    for name, (sub, keys) in want.items():
+        row = rows[name] if sub is None else rows[name].get(sub, {})
+        losses = _finite_losses(rows[name])
+        if not keys <= set(row) or not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: {rows[name]}")
+    lf = rows["curriculum_bench"]["stages"]["late_fusion"]
+    if lf.get("finetune_epochs") != 1 or lf.get("reached_accuracy_target") is not False \
+            or rows["convergence_check"]["late_fusion"]["finetune_encoders"] is not True:
+        raise AssertionError(f"the finetune legs did not run: {rows}")
+    for name, c in launches.items():
+        if min(c[k] for k in KERNELS[:4]) <= 0:
+            raise AssertionError(f"{name} did not launch K1-K4: {c}")
+    phase("examples", T=1900, hidden_scale=1, rows=rows, wall_s=walls, launches=launches,
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
 
 def _two_stream_corpus(cfg, n, seed):
     """n files of seeded random audio (T, 39) and skeletal (T, 20)
@@ -3521,6 +3642,7 @@ def main() -> int:
     training = train_phase(dev)
     fit_path = fit_path_phase(dev)
     synthetic = synthetic_phase(dev, fastcsv_build_s)
+    examples = examples_phase(dev)
     fusion_shapes = fusion_kernels_phase(dev)
     fusion = fusion_phase(dev)
     rgb_shapes = rgb_kernels_phase(dev)
@@ -3552,9 +3674,10 @@ def main() -> int:
     # through the CLI on the device-resident corpus, then decode of a
     # msgpack workdir) and from the synthetic path (the learning run's
     # fit, decode and evaluate, then train and decode speech through the
-    # CLI on the synthetic corpus); every kernel also from rank 0 of each
-    # path of the mesh_families phase (each family's mesh train and eval
-    # step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
+    # CLI on the synthetic corpus) and from each learning driver of the
+    # examples path (its stages' fits, probes and evaluations); every
+    # kernel also from rank 0 of each path of the mesh_families phase
+    # (each family's mesh train and eval step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
     # shapes those meshes give them; and from rank 0 of each path of the
     # gspmd phase (speech's mesh step on each mesh, each family's on 1x4,
     # the fit over 1x2x2); from each pipeline's bench run (and one bench
@@ -3574,7 +3697,9 @@ def main() -> int:
          **({"launches_rgb": rgb[name], "at_rgb_shape": rgb_shapes[name]}
             if name in rgb_shapes else {}),
          **({"launches_prepare": prepare[name], "launches_fit_path": fit_path[name],
-             "launches_synthetic": synthetic[name]} if name in KERNELS[:4] else {}),
+             "launches_synthetic": synthetic[name],
+             "launches_examples": {path: c[name] for path, c in examples.items()}}
+            if name in KERNELS[:4] else {}),
          "launches_mesh_families": {path: c[name] for path, c in families["launches"].items()},
          "launches_gspmd": {path: c[name] for path, c in gspmd.items()},
          "launches_bench": {path: {k: c[k][name] for k in c} if "train_step" in c else c[name]

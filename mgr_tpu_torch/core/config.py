@@ -257,3 +257,19 @@ def get_preset(name: str, **overrides: Any) -> PipelineConfig:
         raise KeyError(f"unknown pipeline {name!r}; choose from {sorted(PRESETS)}")
     cfg = PRESETS[name]()
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def parse_stage_table(raw: str, stage: str, default=None):
+    """The per-stage grammar of the learning drivers' environment knobs
+    (``mgr_tpu/core/config.py::parse_stage_table``): a bare float applies
+    to every stage, ``"name:val,name:val"`` names stages. Returns
+    ``default`` when ``raw`` is empty or ``stage`` is absent."""
+    if not raw:
+        return default
+    if ":" not in raw:
+        return float(raw)
+    for part in raw.split(","):
+        name, _, val = part.partition(":")
+        if name.strip() == stage and val.strip():
+            return float(val)
+    return default

@@ -17,10 +17,8 @@ the epochs (default 300). At these defaults (input noise and dropout
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import sys
 import tempfile
 from typing import Optional
 
@@ -29,6 +27,7 @@ from mgr_tpu_torch.data import datasets, synthetic, vocab
 from mgr_tpu_torch.decode import Decoder, mlf, read_mlf, score_sequences
 from mgr_tpu_torch.decode.decoder import MLF_FILENAMES
 from mgr_tpu_torch.decode.evaluate import evaluate_accuracy
+from mgr_tpu_torch.examples import common
 from mgr_tpu_torch.models import build_model
 from mgr_tpu_torch.train.loop import fit
 
@@ -101,12 +100,5 @@ def main(workdir: Optional[str] = None, device: str = "cuda") -> dict:
 
 
 if __name__ == "__main__":
-    # The port stands alone: any import of JAX or the JAX package fails.
-    for _name in ("jax", "flax", "mgr_tpu"):
-        sys.modules[_name] = None
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("workdir", nargs="?", default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (default: the first card, through the kernels) or cpu")
-    args = parser.parse_args()
-    main(args.workdir, args.device)
+    common.run_cli(main, __doc__.split("\n\n")[0],
+                   positional={"name": "workdir", "default": None})
