@@ -40,11 +40,12 @@ accuracy of at least 0.9; then a synthetic speech corpus of 80 per-file
 CSVs read by the parser and by ``np.loadtxt``, and ``train speech``,
 ``decode speech`` and ``score`` through the CLI at full width), the examples
 slice (the four learning drivers of ``mgr_tpu_torch/examples`` at full
-width and T=1900 for 2 epochs on a few files: the convergence and
-generalization checks' late-fusion stage, the measured curriculum with its
-accuracy probes and a forced finetune leg, and the A/B's biased arm
-through ``python -m``; each JSON row's keys and finite losses, K1-K4
-counted per driver), the fusion kernels (K1/K2 at the late-fusion
+width for 2 epochs on a few files: the convergence and generalization
+checks' late-fusion stage at T=1900, the convergence check's early-fusion
+and rgb stages at their corpora's longest content, the measured curriculum
+with its accuracy probes and a forced finetune leg, and the A/B's biased
+arm through ``python -m``; each JSON row's keys and finite losses, K1-K4
+counted per run), the fusion kernels (K1/K2 at the late-fusion
 BiLSTM's H=100, K3/K4 at the fusion presets' K=22, N=35, against their
 plain versions and timed), the fusion slice (early fusion trained by ``fit`` and decoded;
 speech and skeletal donors trained, grafted into late fusion, ``fit``
@@ -210,6 +211,9 @@ SYN_AUDIO = dict(n_files=80, frames_per_label=600, max_labels=3, seed=0)
 # anneal leg with unfrozen encoders), the measured curriculum with its
 # accuracy probes and the finetune leg forced by an impossible late-fusion
 # target, and the A/B's biased arm through ``python -m`` in a subprocess.
+# Also the convergence check's early-fusion and rgb stages at their
+# corpora's longest content (4 gestures of 24 skeletal frames, or of 16
+# video frames), full width. A run's driver is the name before the colon.
 EXAMPLES_ENV = {
     "convergence_check": {
         "MGR_TPU_CONV_ONLY": "late_fusion", "MGR_TPU_CONV_FILES": "10",
@@ -218,6 +222,13 @@ EXAMPLES_ENV = {
         "MGR_TPU_CONV_LR2": "1e-3", "MGR_TPU_CONV_EPOCHS2": "1", "MGR_TPU_CONV_FINETUNE": "1",
         "MGR_TPU_CONV_GUARD": "1", "MGR_TPU_CONV_PLATEAU": "0.5:2:1e-4:1e-3",
         "MGR_TPU_CONV_BLANK_BIAS": "-3"},
+    "convergence_check:early_fusion": {
+        "MGR_TPU_CONV_ONLY": "early_fusion", "MGR_TPU_CONV_FILES": "10",
+        "MGR_TPU_CONV_EPOCHS": "2", "MGR_TPU_CONV_MAXLEN": "96", "MGR_TPU_CONV_BATCH": "4"},
+    "convergence_check:rgb": {
+        "MGR_TPU_CONV_ONLY": "rgb", "MGR_TPU_CONV_RGB_FILES": "10",
+        "MGR_TPU_CONV_EPOCHS": "2", "MGR_TPU_CONV_RGB_MAXLEN": "64",
+        "MGR_TPU_CONV_RGB_BATCH": "4"},
     "generalization_check": {
         "MGR_TPU_GEN_ONLY": "late_fusion", "MGR_TPU_GEN_FILES": "10",
         "MGR_TPU_GEN_EPOCHS": "2", "MGR_TPU_GEN_BATCH": "4", "MGR_TPU_GEN_FUSION_BATCH": "2",
@@ -1297,13 +1308,14 @@ def _finite_losses(row) -> list:
 
 def examples_phase(dev) -> dict:
     """The port's four learning drivers (``mgr_tpu_torch/examples``) at full
-    width and T=1900 for 2 epochs on a few files (``EXAMPLES_ENV``): the
-    convergence and generalization checks' late-fusion stage and the
-    measured curriculum in this process, each run counted (counts set to 0
-    before it, read after), and the A/B's biased arm through ``python -m``
-    in a subprocess, started first. Each JSON row has the JAX script's keys
-    and finite losses; the curriculum's finetune leg ran. Returns each
-    in-process driver's launches."""
+    width for 2 epochs on a few files (``EXAMPLES_ENV``): the convergence
+    and generalization checks' late-fusion stage (T=1900), the convergence
+    check's early-fusion (T=96) and rgb (T=64) stages and the measured
+    curriculum in this process, each run counted (counts set to 0 before
+    it, read after), and the A/B's biased arm through ``python -m`` in a
+    subprocess, started first. Each JSON row has the JAX script's keys and
+    finite losses; the curriculum's finetune leg ran. Returns each
+    in-process run's launches."""
     from unittest import mock
 
     from mgr_tpu_torch.examples import (convergence_check, curriculum_bench,
@@ -1323,12 +1335,16 @@ def examples_phase(dev) -> dict:
                 cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=ab_env) as proc:
             try:
-                for name, driver in (("convergence_check", convergence_check),
-                                     ("generalization_check", generalization_check),
-                                     ("curriculum_bench", curriculum_bench)):
-                    env = dict(EXAMPLES_ENV[name])
-                    if name == "convergence_check":
-                        env["MGR_TPU_CONV_ROOT"] = os.path.join(root, "conv")
+                drivers = {"convergence_check": convergence_check,
+                           "generalization_check": generalization_check,
+                           "curriculum_bench": curriculum_bench}
+                for name, env in EXAMPLES_ENV.items():
+                    driver = drivers.get(name.split(":")[0])
+                    if driver is None:
+                        continue  # the A/B: the subprocess
+                    env = dict(env)
+                    if name.startswith("convergence_check"):
+                        env["MGR_TPU_CONV_ROOT"] = os.path.join(root, name.replace(":", "_"))
                     dispatch.reset_launch_counts()
                     t0 = time.perf_counter()
                     with mock.patch.dict(os.environ, env):
@@ -1349,6 +1365,9 @@ def examples_phase(dev) -> dict:
                                               "train_accuracy_no_threshold",
                                               "encoder_train_accuracy", "anneal_epochs",
                                               "finetune_encoders", "best_train_loss"}),
+        "convergence_check:early_fusion": ("early_fusion", {"train_accuracy", "train_wer",
+                                                            "best_train_loss"}),
+        "convergence_check:rgb": ("rgb", {"train_accuracy", "train_wer", "best_train_loss"}),
         "generalization_check": (None, {"pretrain_speech", "pretrain_skeletal", "late_fusion"}),
         "curriculum_bench": ("stages", {"speech", "skeletal", "late_fusion"}),
         "skeletal_bias_ab": (None, {"arm", "head_blank_bias", "train_accuracy",
@@ -1366,7 +1385,8 @@ def examples_phase(dev) -> dict:
     for name, c in launches.items():
         if min(c[k] for k in KERNELS[:4]) <= 0:
             raise AssertionError(f"{name} did not launch K1-K4: {c}")
-    phase("examples", T=1900, hidden_scale=1, rows=rows, wall_s=walls, launches=launches,
+    phase("examples", T={"late_fusion, curriculum, A/B": 1900, "early_fusion": 96, "rgb": 64},
+          hidden_scale=1, rows=rows, wall_s=walls, launches=launches,
           seconds=time.perf_counter() - t_phase)
     return launches
 

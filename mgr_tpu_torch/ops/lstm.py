@@ -188,12 +188,10 @@ def _cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     """One step of the cell: f32 pre-activations z (..., 4H) and the f32
     carry c (..., H) -> the new (h, c), f32."""
     H = c.shape[-1]
-    i = hard_sigmoid(z[..., 0 * H:1 * H])
-    f = hard_sigmoid(z[..., 1 * H:2 * H])
+    s = hard_sigmoid(z)  # the i, f and o gates in one pass (g's block unused)
     g = torch.tanh(z[..., 2 * H:3 * H])
-    o = hard_sigmoid(z[..., 3 * H:4 * H])
-    c = f * c + i * g
-    return o * torch.tanh(c), c
+    c = s[..., 1 * H:2 * H] * c + s[..., 0 * H:1 * H] * g
+    return s[..., 3 * H:4 * H] * torch.tanh(c), c
 
 
 def lstm_scan_tm_plain(
@@ -214,13 +212,14 @@ def lstm_scan_tm_plain(
     T, B, _, H = xp.shape
     cd = xp.dtype
     Uc = U1.to(cd).reshape(H, 4 * H)
+    xf = xp.float().reshape(T, B, 4 * H)
     hs = torch.empty((T, B, H), dtype=cd, device=xp.device)
     cs = torch.empty_like(hs) if store_c else None
     h = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
     c = torch.zeros_like(h)
     for s in range(T):
         t = T - 1 - s if reverse else s
-        z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h.to(cd), Uc)
+        z = xf[t] + matmul_f32(h.to(cd), Uc)
         h, c = _cell(z, c)
         hs[t] = h.to(cd)
         if store_c:
@@ -282,6 +281,10 @@ def _lstm_dz(
     T, B, _, H = xp.shape
     cd = xp.dtype
     Uc = U1.to(cd).reshape(H, 4 * H)
+    UcT = Uc.t()
+    # Whole-stream casts and gate passes once, outside the walk: each
+    # element's value is the one a per-step cast or per-gate call gives.
+    xf, hc, cf, dhf = xp.float().reshape(T, B, 4 * H), hs.to(cd), cs.float(), dhs.float()
     dz = torch.empty((T, B, 4 * H), dtype=cd, device=xp.device)
     dh_c = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
     dc_c = torch.zeros_like(dh_c)
@@ -290,24 +293,24 @@ def _lstm_dz(
         t = s if reverse else T - 1 - s
         t_pre = t + 1 if reverse else t - 1
         has_pre = 0 <= t_pre < T
-        h_pre = hs[t_pre].to(cd) if has_pre else zero
-        c_pre = cs[t_pre].float() if has_pre else zero.float()
-        z = xp[t].float().reshape(B, 4 * H) + matmul_f32(h_pre, Uc)
-        z_i, z_f, z_g, z_o = (z[:, g * H:(g + 1) * H] for g in range(4))
-        i, f, o = hard_sigmoid(z_i), hard_sigmoid(z_f), hard_sigmoid(z_o)
-        g_ = torch.tanh(z_g)
-        tanh_c = torch.tanh(cs[t].float())
-        dh = dhs[t].float() + dh_c
+        h_pre = hc[t_pre] if has_pre else zero
+        c_pre = cf[t_pre] if has_pre else zero.float()
+        z = xf[t] + matmul_f32(h_pre, Uc)
+        sig, slope = hard_sigmoid(z), hard_sigmoid_grad(z)
+        i, f, o = sig[:, :H], sig[:, H:2 * H], sig[:, 3 * H:]
+        g_ = torch.tanh(z[:, 2 * H:3 * H])
+        tanh_c = torch.tanh(cf[t])
+        dh = dhf[t] + dh_c
         do = dh * tanh_c
         dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
         dz_t = torch.cat([
-            (dc * g_) * hard_sigmoid_grad(z_i),
-            (dc * c_pre) * hard_sigmoid_grad(z_f),
+            (dc * g_) * slope[:, :H],
+            (dc * c_pre) * slope[:, H:2 * H],
             (dc * i) * (1.0 - g_ * g_),
-            do * hard_sigmoid_grad(z_o),
+            do * slope[:, 3 * H:],
         ], dim=1).to(cd)
         dz[t] = dz_t
-        dh_c = matmul_f32(dz_t, Uc.t())
+        dh_c = matmul_f32(dz_t, UcT)
         dc_c = dc * f
     return dz.reshape(T, B, 4, H)
 

@@ -5,7 +5,7 @@ each, the frozen encoders' step, the bridge of a JAX late-fusion tree and
 `train`/`decode`/`evaluate early_fusion` through both CLIs.
 
 The JAX draws are substituted on the same fold paths
-(``test_torch_train.jax_streams``); bf16 runs JAX with
+(``torch_jax_draws.jax_streams``); bf16 runs JAX with
 ``mgr_tpu.ops.dispatch.MODE = "pallas"`` (the Pallas kernels in interpret
 mode), f32 its XLA path.
 
@@ -53,7 +53,8 @@ from mgr_tpu_torch.data import synthetic
 from mgr_tpu_torch.kernels import bilstm_tm as k1
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.train import step as tstep
-from test_torch_train import _params_close, jax_key, jax_streams  # noqa: F401
+from test_torch_train import _params_close
+from torch_jax_draws import jax_key, jax_streams  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -43,6 +43,7 @@ from mgr_tpu_torch.kernels import lstm_scan as k6
 from mgr_tpu_torch.models.encoder import Encoder
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops import lstm as tlstm
+from torch_jax_draws import jax_key, replay_jax_draws
 
 torch.set_num_threads(1)
 
@@ -67,31 +68,11 @@ def jax_backend(mode):
         jdispatch.set_mode(before)
 
 
-def jax_key(key: prng.Key):
-    """The JAX key on the same fold path as a port key."""
-    k = jprng.root_key(key.seed)
-    for e in key.path:
-        k = jprng.fold_name(k, e) if isinstance(e, str) else jax.random.fold_in(k, e)
-    return k
-
-
 @pytest.fixture
 def jax_streams(monkeypatch):
     """Route the port's draws through jax.random on the same paths;
     returns the list of (kind, path, shape) drawn."""
-    calls = []
-
-    def bernoulli(key, p, shape, device="cpu"):
-        calls.append(("bernoulli", key.path, tuple(shape)))
-        return torch.from_numpy(np.array(jax.random.bernoulli(jax_key(key), p, shape)))
-
-    def normal(key, shape, dtype, device="cpu"):
-        calls.append(("normal", key.path, tuple(shape)))
-        return torch.from_numpy(np.array(jax.random.normal(jax_key(key), shape, jnp.float32)))
-
-    monkeypatch.setattr(prng, "bernoulli", bernoulli)
-    monkeypatch.setattr(prng, "normal", normal)
-    return calls
+    return replay_jax_draws(monkeypatch, with_shape=True)
 
 
 def _bi_params(seed=0, in_dim=F_IN, hidden=H):

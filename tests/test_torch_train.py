@@ -5,8 +5,9 @@ the same weights, batches and random masks.
 JAX's key streams cannot be reproduced in torch, so the tests that
 compare draws substitute the port's ``prng.bernoulli`` / ``prng.normal``
 with ``jax.random`` draws on the same fold path (the ``jax_streams``
-fixture): a port key is the path itself, replayed here through
-``mgr_tpu.core.prng``. The production path has no masks argument.
+fixture of ``tests/torch_jax_draws.py``): a port key is the path itself,
+replayed there through ``mgr_tpu.core.prng``. The production path has no
+masks argument.
 
 Tolerances, each with its reason:
   * Adam state, updates and parameters: 1e-6 relative, 1e-8 absolute
@@ -59,6 +60,7 @@ from mgr_tpu_torch.ops import lstm as tlstm
 from mgr_tpu_torch.train import loop as tloop
 from mgr_tpu_torch.train import optimizer as topt
 from mgr_tpu_torch.train import step as tstep
+from torch_jax_draws import jax_key, jax_streams  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -67,34 +69,6 @@ TOL_ADAM = 1e-6
 TOL_LOSS_BF16 = 1e-3
 TOL_GRAD_BF16 = 1e-2
 TOL_F32 = 1e-4
-
-
-def jax_key(key: prng.Key):
-    """The JAX key on the same fold path as a port key."""
-    k = jprng.root_key(key.seed)
-    for e in key.path:
-        k = jprng.fold_name(k, e) if isinstance(e, str) else jax.random.fold_in(k, e)
-    return k
-
-
-@pytest.fixture
-def jax_streams(monkeypatch):
-    """Route the port's draws through jax.random on the same paths;
-    returns the list of (kind, path) drawn."""
-    calls = []
-
-    def bernoulli(key, p, shape, device="cpu"):
-        calls.append(("bernoulli", key.path))
-        return torch.from_numpy(np.array(jax.random.bernoulli(jax_key(key), p, shape)))
-
-    def normal(key, shape, dtype, device="cpu"):
-        calls.append(("normal", key.path))
-        assert dtype == torch.float32
-        return torch.from_numpy(np.array(jax.random.normal(jax_key(key), shape, jnp.float32)))
-
-    monkeypatch.setattr(prng, "bernoulli", bernoulli)
-    monkeypatch.setattr(prng, "normal", normal)
-    return calls
 
 
 def _port(cfg):

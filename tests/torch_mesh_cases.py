@@ -71,7 +71,8 @@ from mgr_tpu_torch.core import prng
 from mgr_tpu_torch.models.zoo import build_model as tbuild
 from mgr_tpu_torch.parallel.spawn import run_ranks
 from mgr_tpu_torch.train import step as tstep
-from test_torch_train import _params_close, jax_key
+from test_torch_train import _params_close
+from torch_jax_draws import jax_bernoulli, jax_key, jax_normal
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(__file__))
@@ -388,18 +389,18 @@ def gspmd_case(name, dtype="float32", seed=0):
 @contextlib.contextmanager
 def jax_draws():
     """The port's ``prng.bernoulli`` / ``prng.normal`` drawn by
-    ``jax.random`` on the same fold path (``test_torch_train.jax_streams``),
+    ``jax.random`` on the same fold path (``torch_jax_draws.replay_jax_draws``),
     and recorded: yields the dict of (kind, seed, path, shape) -> array
     that ``torch_parallel_ranks.replay_draws`` replays."""
     table, real = {}, (prng.bernoulli, prng.normal)
 
     def bernoulli(key, p, shape, device="cpu"):
-        a = np.array(jax.random.bernoulli(jax_key(key), p, tuple(shape)))
+        a = jax_bernoulli(key, p, shape)
         table["bernoulli", key.seed, key.path, tuple(shape)] = a
         return torch.from_numpy(a.copy())
 
     def normal(key, shape, dtype, device="cpu"):
-        a = np.array(jax.random.normal(jax_key(key), tuple(shape), jnp.float32))
+        a = jax_normal(key, shape)
         table["normal", key.seed, key.path, tuple(shape)] = a
         return torch.from_numpy(a.copy()).to(dtype)
 
