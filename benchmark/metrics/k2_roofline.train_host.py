@@ -1,0 +1,7 @@
+"""k2_roofline.train_host: K2 (lstm_bwd_kernel) launches' summed least time
+(roofline.lstm_bound at the cell's shape) over their device time, %."""
+from benchmark import readers
+
+
+def read(record, events):
+    return readers.lstm_roofline_pct(record, events, backward=True)
