@@ -10,7 +10,7 @@ on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H), and prepares a
 corpus from raw recordings (WAVs, Kinect CSVs, videos) with the
 featurizers on the card, then trains and decodes it.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
 
 Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
 adjoint), K3 (CTC forward, timed without the alpha store at B=128 and with
@@ -83,10 +83,7 @@ speech's B=1 ``--latency``; ``python -m mgr_tpu_torch.cli.main bench`` in
 a subprocess), the dryrun (``entry.dryrun_multichip(8)`` and ``(2)``: a
 step over 2x2x2 / 1x2x1, DP, DP x TP2 and late-fusion meshes of gloo ranks
 sharing the card, each held to one process, and the mesh decode bit for
-bit), with ``--profile`` a
-per-layer breakdown of a decode step at B=1, 32 and 128 and of a train
-step (speech and late fusion at B=32, rgb at B=8 with its CNN's forward,
-remat recompute and backward named apart), a JSON line of the kernels
+bit), a JSON line of the kernels
 (each with its bound and, for K3/K4, the time of
 ``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
 and rgb paths and their times at those shapes, and their launches on the
@@ -3182,173 +3179,6 @@ def _device_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def profile_phase(dev) -> None:
-    """Where a decode step's time goes, at B=1, 32 and 128: CUDA-event
-    times of each layer of one step (the model's own functions, called in
-    its order), the host-clock wall of the real decode step, and the
-    device's idle share of a profiled step."""
-    from mgr_tpu_torch.core.config import get_preset
-    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm
-    from mgr_tpu_torch.ops.ctc import ctc_loss_from_logits
-    from mgr_tpu_torch.ops.decoding import best_path_decode
-    from mgr_tpu_torch.ops.lstm import input_projection
-    from mgr_tpu_torch.decode.decoder import DECODE_SPECS
-    from mgr_tpu_torch.models.zoo import build_model
-    from mgr_tpu_torch.train.step import make_decode_step
-
-    cfg = get_preset("speech")
-    spec = DECODE_SPECS["speech"]
-    T, trim, cd = cfg.maxlen, cfg.ctc.trim_frames, torch.bfloat16
-    model = build_model(cfg, seed=SEED, device=dev)
-    step = make_decode_step(model, threshold=spec.threshold, trim_frames=spec.trim_frames)
-    rng = np.random.default_rng(SEED + 3)
-    feats = rng.standard_normal((128, T, cfg.num_feats), dtype=np.float32)
-    labels = torch.from_numpy(rng.integers(0, cfg.nb_classes - 1, (128, cfg.max_label_len),
-                                           dtype=np.int32)).to(dev)
-    lab_len = torch.full((128,), cfg.max_label_len, dtype=torch.int32, device=dev)
-    in_len = torch.full((128,), T - trim, dtype=torch.int32, device=dev)
-
-    def timed_step(x_np, B):
-        marks = []
-
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            marks.append((name, e))
-
-        with torch.inference_mode():
-            mark("start")
-            x = torch.from_numpy(x_np).to(dev)
-            mark("input copy to the card")
-            h, outs = x.transpose(0, 1), []
-            for i in range(cfg.encoder.depth):
-                layer = getattr(model.encoder, f"blstm_{i}")
-                xp0 = input_projection(h, layer.W[0], layer.b[0], cd)
-                xp1 = input_projection(h, layer.W[1], layer.b[1], cd)
-                mark(f"projection, layer {i} (2 dirs)")
-                hs0, hs1 = bilstm_tm(xp0, xp1, layer.U)
-                mark(f"K1, layer {i}")
-                h = torch.cat([hs0, hs1], dim=-1).to(cd)
-                mark(f"concat + cast, layer {i}")
-                outs.append(h)
-            logits_tm = model.head(outs[-2] + outs[-1], cd)
-            best, emit = best_path_decode(
-                torch.softmax(logits_tm.transpose(0, 1), dim=-1), None,
-                threshold=spec.threshold, trim_frames=spec.trim_frames)
-            mark("residual + head + softmax + best-path")
-            best.cpu(), emit.cpu()
-            mark("copy of (best, emit) to the host")
-            ctc_loss_from_logits(logits_tm, labels[:B], in_len[:B], lab_len[:B],
-                                 trim_frames=trim, time_major=True)
-            mark("eval only: log-softmax + K3")
-            torch.cuda.synchronize()
-            if not torch.equal(logits_tm, model.apply_tm(x)):
-                raise AssertionError("the profiled layers are not the model's forward")
-        return {name: marks[k - 1][1].elapsed_time(e)
-                for k, (name, e) in enumerate(marks) if k > 0}
-
-    def real_step(x_np):
-        best, emit = step(x_np)
-        best.cpu(), emit.cpu()
-
-    for B, n in ((1, 21), (32, 7), (128, 7)):
-        x_np = feats[:B]
-        for _ in range(2):
-            real_step(x_np)  # warm-up
-        walls = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            real_step(x_np)
-            walls.append(1e3 * (time.perf_counter() - t0))
-        layers = [timed_step(x_np, B) for _ in range(3)]
-        layers_ms = {k: float(np.median([lay[k] for lay in layers])) for k in layers[0]}
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            real_step(x_np)
-            torch.cuda.synchronize()
-            prof_wall_us = 1e6 * (time.perf_counter() - t0)
-        dev_us = _device_us(prof)
-        phase("profile", pipeline="speech", B=B, T=T, step_wall_ms_median=float(np.median(walls)),
-              n=n, layers_ms=layers_ms, profiled_wall_ms=prof_wall_us / 1e3,
-              device_ms=dev_us / 1e3,
-              idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None)
-
-
-@contextlib.contextmanager
-def timed_calls(marks: list, head_width: int = 44):
-    """Wrap the train step's kernels and GEMMs so each call records a pair
-    of CUDA events under a label (profiling only: the package has no such
-    hook). Labels: K1 / K2 per layer (layer 0 is the first K1 of a step,
-    the second K2), K3, K4, dU GEMM, projection GEMMs (with their widths)
-    and head GEMMs; for rgb the CNN frontend (its first call is the
-    forward, the second the remat recompute) and its cuDNN convs."""
-    from mgr_tpu_torch.kernels import bilstm_tm as k1, ctc as k3
-    from mgr_tpu_torch.models import layers
-    from mgr_tpu_torch.ops import lstm as lstm_lib
-
-    counts = {}
-
-    def wrap(fn, label_of):
-        def inner(*a, **kw):
-            label = label_of(*a, **kw)
-            n = counts.get(label, 0)
-            counts[label] = n + 1
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            try:
-                return fn(*a, **kw)
-            finally:  # a checkpoint's recompute stops by raising once it has what it needs
-                end.record()
-                marks.append((label, n, start, end))
-        return inner
-
-    mm, conv = lstm_lib._MatmulF32, layers._ConvValid
-    saved = (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
-             lstm_lib.recurrent_weight_grad, mm.forward, mm.backward, layers.CNN.forward,
-             conv.forward, conv.backward)
-
-    def gemm(kind):
-        def label(ctx, *a):
-            w = a[1] if kind == "forward" else ctx.saved_tensors[1]
-            if w.shape[-1] == head_width:
-                return f"head GEMM {kind}"
-            return f"projection GEMM {kind} ({w.shape[0]} -> {w.shape[-1]})"
-        return label
-
-    k1.bilstm_tm_streams = wrap(saved[0], lambda *a, **k: "K1")
-    k1.bilstm_tm_bwd = wrap(saved[1], lambda *a, **k: "K2")
-    k3.ctc_alpha_loss = wrap(saved[2], lambda *a, **k: "K3 (with alpha store)")
-    k3.ctc_alpha_bwd = wrap(saved[3], lambda *a, **k: "K4")
-    lstm_lib.recurrent_weight_grad = wrap(saved[4], lambda *a, **k: "dU GEMM")
-    mm.forward = staticmethod(wrap(saved[5], gemm("forward")))
-    mm.backward = staticmethod(wrap(saved[6], gemm("backward")))
-    layers.CNN.forward = wrap(saved[7], lambda *a, **k: "CNN frontend")
-    conv.forward = staticmethod(wrap(saved[8], lambda *a, **k: "cuDNN conv forward (3 convs)"))
-    conv.backward = staticmethod(wrap(saved[9], lambda *a, **k: "cuDNN conv backward (3 convs)"))
-    try:
-        yield
-    finally:
-        (k1.bilstm_tm_streams, k1.bilstm_tm_bwd, k3.ctc_alpha_loss, k3.ctc_alpha_bwd,
-         lstm_lib.recurrent_weight_grad) = saved[:5]
-        mm.forward, mm.backward = staticmethod(saved[5]), staticmethod(saved[6])
-        layers.CNN.forward = saved[7]
-        conv.forward, conv.backward = staticmethod(saved[8]), staticmethod(saved[9])
-
-
-# The K1 / K2 calls of one train step, in call order, by pipeline.
-K1_LAYERS = {"speech": ("layer 0", "layer 1"), "rgb": ("layer 0, H=512", "layer 1, H=512"),
-             "late_fusion": ("speech layer 0 (frozen)", "speech layer 1 (frozen)",
-                             "skeletal layer 0 (frozen)", "skeletal layer 1 (frozen)",
-                             "fusion layer")}
-K2_LAYERS = {"speech": ("layer 1", "layer 0"), "rgb": ("layer 1, H=512", "layer 0, H=512"),
-             "late_fusion": ("fusion layer",)}
-# The CNN frontend's calls in one rgb train step: the forward (under the
-# checkpoint: nothing stored), then the recompute in the backward.
-CNN_CALLS = ("forward (convs + bias/relu/pool)", "remat recompute (convs + bias/relu/pool)")
-
-
 def _video_batch(cfg, B, seed):
     """A batch of B seeded videos as ``LazyVideoBatcher`` gives it: (B, T,
     D, D, 1) f32 pixels through ``(x - 128) / 255``, 1..N labels each."""
@@ -3363,126 +3193,6 @@ def _video_batch(cfg, B, seed):
         labels[i, :k] = rng.integers(0, cfg.nb_classes - 1, size=k)
     return {"inputs": x, "labels": labels, "label_length": lab_len,
             "input_length": np.full((B,), T - cfg.ctc.trim_frames, np.int32)}
-
-
-def profile_train_phase(dev, pipeline: str = "speech") -> None:
-    """Where a train step's time goes at the preset's batch (B=32; rgb B=8),
-    T=1900: CUDA-event times of the input's copy to the card, the forward,
-    the backward and the optimizer tail of one step (the step's own
-    functions, called in its order), and within them of each kernel and
-    GEMM; the log-softmax backward at the step's shape on its own; the
-    host-clock wall and the peak memory of the real step; the device's idle
-    share of a profiled step (device rows only). ``pipeline``: speech; late
-    fusion (its frozen encoders' K1 in the forward, K2 for the fusion layer
-    alone); or rgb (the CNN frontend's forward, remat recompute and
-    backward named apart, and the step's wall and peak memory without
-    remat beside them)."""
-    from mgr_tpu_torch.core import prng
-    from mgr_tpu_torch.core.config import get_preset
-    from mgr_tpu_torch.models.zoo import build_model
-    from mgr_tpu_torch.train import optimizer as opt_lib
-    from mgr_tpu_torch.train import step as step_lib
-
-    cfg = get_preset(pipeline)
-    B = cfg.batch_size
-    if pipeline == "rgb":
-        batch = _video_batch(cfg, B, SEED + 8)
-    else:
-        corpus = _speech_corpus if pipeline == "speech" else _two_stream_corpus
-        feats, labels, lab_len, in_len = corpus(cfg, B, SEED + 8)
-        batch = {"labels": labels, "input_length": in_len, "label_length": lab_len,
-                 **({"inputs": feats} if pipeline == "speech" else
-                    {"inputs": feats[0], "inputs2": feats[1]})}
-    model = build_model(cfg, seed=SEED, device=dev)
-    state = step_lib.create_train_state(model)
-    tx = opt_lib.keras_adam(cfg.optimizer)
-    train_step = step_lib.make_train_step(model)
-    key = prng.fold_name(prng.root_key(SEED), "dropout")
-    for i in range(2):
-        state, m = train_step(state, batch, prng.fold_in(key, i))  # warm-up
-    float(m["loss"])
-
-    def one_step(i):
-        marks = []
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[4].record()
-        tb = step_lib.batch_to_device(batch, dev)
-        with timed_calls(marks, cfg.nb_classes):
-            for p in state.params.values():
-                p.grad = None
-            ev[0].record()
-            with torch.enable_grad():
-                loss = step_lib._loss_from_batch(model, tb, train=True,
-                                                 rng=prng.fold_in(key, 100 + i))
-                ev[1].record()
-                loss.backward()
-            ev[2].record()
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in state.params.items()}  # frozen: no .grad, as the step
-            step_lib._apply_updates(model, state, tx, loss.detach(), grads, 1.0)
-            ev[3].record()
-        torch.cuda.synchronize()
-        out = {"input copy to the card (H2D)": ev[4].elapsed_time(ev[0]),
-               "forward (total)": ev[0].elapsed_time(ev[1]),
-               "backward (total)": ev[1].elapsed_time(ev[2]),
-               "optimizer tail (clip, Adam, maxnorm, grad norm)": ev[2].elapsed_time(ev[3])}
-        for label, n, start, end in marks:
-            layers = {"K1": K1_LAYERS, "K2": K2_LAYERS, "CNN frontend": {pipeline: CNN_CALLS}
-                      }.get(label)
-            name = f"{label}, {layers[pipeline][n]}" if layers else label
-            if label.startswith("cuDNN conv forward"):
-                name = f"{label}, {'forward' if n < 3 else 'remat recompute'}"
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
-            if label == "CNN frontend" and n == 1:  # the backward's last part: the CNN's
-                out["CNN backward (convs + bias/relu/pool)"] = end.elapsed_time(ev[2])
-        return out
-
-    steps = [one_step(i) for i in range(3)]
-    layers_ms = {k: float(np.median([s[k] for s in steps])) for k in steps[0]}
-    # Log-softmax backward at the step's shape (T', B, 44), on its own.
-    logits = torch.randn((cfg.maxlen - cfg.ctc.trim_frames, B, cfg.nb_classes),
-                         device=dev, requires_grad=True)
-    lsm = torch.log_softmax(logits, dim=-1)
-    g = torch.randn_like(lsm)
-    layers_ms["log-softmax backward (alone, same shape)"] = cuda_time_ms(
-        lambda: torch.autograd.grad(lsm, logits, g, retain_graph=True), reps=20)
-    def walls_and_peak(model, state, n):
-        """Host-clock walls (ms) of n real steps and their peak memory (GB)."""
-        train_step = step_lib.make_train_step(model)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        walls = []
-        for i in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = train_step(state, batch, prng.fold_in(key, 200 + i))
-            float(m["loss"])
-            walls.append(1e3 * (time.perf_counter() - t0))
-        return state, walls, torch.cuda.max_memory_allocated(dev) / 2**30
-
-    state, walls, peak_gb = walls_and_peak(model, state, 5)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch, prng.fold_in(key, 300))
-        float(m["loss"])
-        torch.cuda.synchronize()
-        prof_wall_us = 1e6 * (time.perf_counter() - t0)
-    dev_us = _device_us(prof)
-    extra = {}
-    if pipeline == "rgb":  # the same step with the frontend's activations stored
-        plain_cfg = cfg.replace(cnn=dataclasses.replace(cfg.cnn, remat=False))
-        stored = build_model(plain_cfg, seed=SEED, device=dev)
-        stored.load_state_dict(model.state_dict())
-        del model, state
-        torch.cuda.empty_cache()
-        _, nr_walls, nr_peak = walls_and_peak(stored, step_lib.create_train_state(stored), 4)
-        extra["without_remat"] = {"step_wall_ms_median": float(np.median(nr_walls[1:])),
-                                  "peak_mem_gb": nr_peak}
-    phase("profile_train", pipeline=pipeline, B=B, T=cfg.maxlen,
-          step_wall_ms_median=float(np.median(walls)), n=len(walls), peak_mem_gb=peak_gb,
-          layers_ms=layers_ms, profiled_wall_ms=prof_wall_us / 1e3, device_ms=dev_us / 1e3,
-          idle_share=(1.0 - dev_us / prof_wall_us) if dev_us > 0 else None, **extra)
 
 
 def _bench_line(argv, keys) -> dict:
@@ -3646,11 +3356,7 @@ def dryrun_phase(dev) -> dict:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="also print where a decode step's time goes (B=1, 32, 128) "
-                             "and a train step's (speech, late fusion and rgb)")
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
     fastcsv_build_s = build_phase()
@@ -3673,11 +3379,6 @@ def main() -> int:
     gspmd = gspmd_phase(dev)
     benched = bench_phase(dev)
     dryrun = dryrun_phase(dev)
-    if args.profile:
-        profile_phase(dev)
-        profile_train_phase(dev)
-        profile_train_phase(dev, "late_fusion")
-        profile_train_phase(dev, "rgb")
     from mgr_tpu_torch.ops import dispatch
 
     replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,

@@ -1,8 +1,18 @@
 """Profiling and numerics debugging (``mgr_tpu/core/tracing.py``), on
 PyTorch's own tools.
 
-  * ``annotate(name)``: a named range (``torch.profiler.record_function``)
-    that shows in a trace.
+  * ``annotate(name)``: the port's one span. While a profiler runs it is
+    ``torch.profiler.record_function(name)``, a named range in the trace;
+    otherwise a shared no-op, which costs one check. The program's spans
+    are named ``mgr.<layer>.<part>``: ``mgr.lstm.projection``
+    (``ops/lstm.py::input_projection``), ``mgr.cnn.frontend``
+    (``models/layers.py::cnn_frontend``, its remat recompute too),
+    ``mgr.step.optimizer`` (``train/step.py::_apply_updates``),
+    ``mgr.decode.input`` and ``mgr.decode.forward`` (the decode step of
+    ``train/step.py::make_decode_step``) and ``mgr.decode.tokens``
+    (``decode/decoder.py::Decoder.decode_batches``). A backward op carries
+    the sequence number of the forward op that made it, so a trace reader
+    can charge a span's backward to it too.
   * ``trace(logdir)``: a ``torch.profiler`` trace of a block, the host's
     ops and, where there is a card, its kernels and copies, written to
     ``logdir`` by ``tensorboard_trace_handler`` (a ``*.pt.trace.json``
@@ -30,12 +40,18 @@ import contextlib
 from typing import Iterator, Optional
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 _debug_nans = False
+_NO_SPAN = contextlib.nullcontext()
 
 
 def annotate(name: str):
-    return torch.profiler.record_function(name)
+    """``record_function(name)`` while a profiler runs, else the shared
+    no-op context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
+from mgr_tpu_torch.core import tracing
 from mgr_tpu_torch.data import vocab as vocab_lib
 from mgr_tpu_torch.decode import mlf as mlf_lib
 from mgr_tpu_torch.ops.decoding import best_path_decode, emitted_sequences
@@ -115,10 +116,11 @@ class Decoder:
             lengths = np.asarray(batch["input_length"]) if use_lengths else None
             if self.decode_fn is not None:
                 best, emit = self.decode_fn(batch_inputs(batch), lengths)
-                seqs = [
-                    vocab_lib.ids_to_tokens(s, self.spec.vocab)
-                    for s in emitted_sequences(best, emit)
-                ]
+                with tracing.annotate("mgr.decode.tokens"):
+                    seqs = [
+                        vocab_lib.ids_to_tokens(s, self.spec.vocab)
+                        for s in emitted_sequences(best, emit)
+                    ]
             else:
                 seqs = decode_probs(self.predict_fn(batch_inputs(batch)), self.spec, lengths)
             results.extend(zip(file_ids, seqs))

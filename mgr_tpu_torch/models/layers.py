@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.core import prng, tracing
 from mgr_tpu_torch.core.config import CNNConfig
 from mgr_tpu_torch.ops import dispatch
 from mgr_tpu_torch.ops.lstm import matmul_f32
@@ -155,13 +155,14 @@ def cnn_frontend(params: Params, x: torch.Tensor, cfg: CNNConfig,
     ``reduce_window``). The features are flattened in (h, w, c) order, as
     JAX flattens NHWC."""
     B, T, H, W, C = x.shape
-    y = x.reshape(B * T, H, W, C).to(compute_dtype).permute(0, 3, 1, 2)
-    for i, p in enumerate(cfg.pool_sizes):
-        w = params[f"conv_{i}"].to(compute_dtype).permute(3, 2, 0, 1)
-        y = _ConvValid.apply(y, w.contiguous(memory_format=torch.channels_last))
-        y = F.relu(y + params[f"bias_{i}"].to(compute_dtype)[:, None, None])
-        y = F.max_pool2d(y, p)  # floor: a partial edge window dropped, as VALID drops it
-    return y.permute(0, 2, 3, 1).reshape(B, T, -1).float()
+    with tracing.annotate("mgr.cnn.frontend"):
+        y = x.reshape(B * T, H, W, C).to(compute_dtype).permute(0, 3, 1, 2)
+        for i, p in enumerate(cfg.pool_sizes):
+            w = params[f"conv_{i}"].to(compute_dtype).permute(3, 2, 0, 1)
+            y = _ConvValid.apply(y, w.contiguous(memory_format=torch.channels_last))
+            y = F.relu(y + params[f"bias_{i}"].to(compute_dtype)[:, None, None])
+            y = F.max_pool2d(y, p)  # floor: a partial edge window dropped, as VALID drops it
+        return y.permute(0, 2, 3, 1).reshape(B, T, -1).float()
 
 
 class CNN(nn.Module):

@@ -55,7 +55,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.core import prng, tracing
 from mgr_tpu_torch.kernels import bilstm_tm as _kernel
 from mgr_tpu_torch.kernels import lstm_scan as _scan
 from mgr_tpu_torch.ops import dispatch
@@ -161,16 +161,17 @@ def input_projection(
     dropout: gate g sees ``x * gate_scale[g]`` (rounded in the compute
     dtype), as the JAX einsum ``gtbf,fgh->tbgh`` does."""
     F, _, H = W.shape
-    xc, Wc = x_tm.to(compute_dtype), W.to(compute_dtype)
-    if gate_scale is None:
-        xp = matmul_f32(xc, Wc.reshape(F, 4 * H))
-    else:
-        xp = torch.cat(
-            [matmul_f32(xc * gate_scale[g], Wc[:, g, :]) for g in range(4)], dim=-1
+    with tracing.annotate("mgr.lstm.projection"):
+        xc, Wc = x_tm.to(compute_dtype), W.to(compute_dtype)
+        if gate_scale is None:
+            xp = matmul_f32(xc, Wc.reshape(F, 4 * H))
+        else:
+            xp = torch.cat(
+                [matmul_f32(xc * gate_scale[g], Wc[:, g, :]) for g in range(4)], dim=-1
+            )
+        return (xp + b.reshape(4 * H)).to(compute_dtype).reshape(
+            *x_tm.shape[:-1], 4, H
         )
-    return (xp + b.reshape(4 * H)).to(compute_dtype).reshape(
-        *x_tm.shape[:-1], 4, H
-    )
 
 
 def dropout_scale(

@@ -279,16 +279,17 @@ def _apply_updates(model: nn.Module, state: TrainState, tx: opt_lib.KerasAdam,
                    lr_scale: float):
     """Freeze mask, Adam, lr scale, maxnorm, and the global norm of the
     masked gradients (``mgr_tpu/train/step.py:128-141``)."""
-    grads = opt_lib.freeze_mask_grads(grads, model.trainable())
-    with torch.no_grad():
-        grad_norm = opt_lib.global_norm(grads)
-    tracing.check_finite(grad_norm, "gradient norm")
-    updates, opt_state = tx.update(grads, state.opt_state)
-    with torch.no_grad():
-        new = {k: p + updates[k] * lr_scale for k, p in state.params.items()}
-        new = opt_lib.apply_maxnorm(new, model.config.optimizer.maxnorm)
-        for k, p in state.params.items():
-            p.copy_(new[k])
+    with tracing.annotate("mgr.step.optimizer"):
+        grads = opt_lib.freeze_mask_grads(grads, model.trainable())
+        with torch.no_grad():
+            grad_norm = opt_lib.global_norm(grads)
+        tracing.check_finite(grad_norm, "gradient norm")
+        updates, opt_state = tx.update(grads, state.opt_state)
+        with torch.no_grad():
+            new = {k: p + updates[k] * lr_scale for k, p in state.params.items()}
+            new = opt_lib.apply_maxnorm(new, model.config.optimizer.maxnorm)
+            for k, p in state.params.items():
+                p.copy_(new[k])
     state.step += 1
     state.opt_state = opt_state
     for p in state.params.values():
@@ -478,12 +479,15 @@ def make_decode_step(
 
     @torch.inference_mode()
     def step(inputs, input_lengths: Optional[Any] = None):
-        probs = torch.softmax(model(to_device(inputs, dev)), dim=-1)
-        lengths = None if input_lengths is None else to_device(input_lengths, dev)
-        return best_path_decode(
-            probs, lengths,
-            threshold=threshold, trim_frames=trim_frames, blank=blank,
-        )
+        with tracing.annotate("mgr.decode.input"):
+            x = to_device(inputs, dev)
+            lengths = None if input_lengths is None else to_device(input_lengths, dev)
+        with tracing.annotate("mgr.decode.forward"):
+            probs = torch.softmax(model(x), dim=-1)
+            return best_path_decode(
+                probs, lengths,
+                threshold=threshold, trim_frames=trim_frames, blank=blank,
+            )
 
     if mesh is None or shard_lib.shardmap_axes(mesh.config) is None:
         return step
