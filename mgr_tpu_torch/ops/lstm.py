@@ -150,28 +150,92 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _mm_f32(x, w)
 
 
+def _projection_f32(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gate_scale: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """(..., F) x (F, 4, H) + (4, H) -> (..., 4H) in f32: the operands as
+    given, f32 sums, the bias added in f32."""
+    F, _, H = w.shape
+    if gate_scale is None:
+        xp = _mm_f32(x, w.reshape(F, 4 * H))
+    else:
+        xp = torch.cat([_mm_f32(x * gate_scale[g], w[:, g, :]) for g in range(4)], dim=-1)
+    return xp + b.reshape(4 * H)
+
+
+class _Projection(torch.autograd.Function):
+    """:func:`project` under autograd: the GEMM (or the four per-gate
+    GEMMs), the f32 bias add and the rounding to ``out_dtype`` as one
+    node, so its backward receives the cotangent in ``out_dtype``.
+
+    The backward multiplies in the cotangent's dtype where x and w hold
+    it too (a bf16 cotangent of bf16 operands: bf16 tensor cores on the
+    card) and in f32 otherwise, always with f32 sums; the products are
+    exact either way, so this is the backward of a dot with
+    ``preferred_element_type=float32``. dx and dW are rounded once to
+    their operand's dtype; db is the f32 sum of the cotangent. With
+    ``gate_scale`` each gate's dx is scaled by its mask and the four are
+    summed in dx's dtype, gate 3 first, as autograd sums them."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gate_scale, out_dtype):
+        ctx.save_for_backward(x, w, gate_scale)
+        return _projection_f32(x, w, b, gate_scale).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, gate_scale = ctx.saved_tensors
+        F, _, H = w.shape
+        cd = g.dtype if x.dtype == w.dtype == g.dtype else torch.float32
+        g2, wc = g.reshape(-1, 4 * H).to(cd), w.to(cd)
+        dx = dw = db = None
+        if gate_scale is None:
+            if ctx.needs_input_grad[0]:
+                dx = _mm_f32(g2, wc.reshape(F, 4 * H).t()).reshape(x.shape).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _mm_f32(x.reshape(-1, F).to(cd).t(), g2).reshape(F, 4, H).to(w.dtype)
+        else:
+            gs = [g2[:, k * H:(k + 1) * H] for k in range(4)]
+            if ctx.needs_input_grad[0]:
+                parts = [_mm_f32(gs[k], wc[:, k, :].t()).reshape(x.shape).to(x.dtype)
+                         * gate_scale[k] for k in range(4)]
+                dx = parts[3] + parts[2] + parts[1] + parts[0]
+            if ctx.needs_input_grad[1]:
+                dw = torch.stack([_mm_f32((x * gate_scale[k]).reshape(-1, F).to(cd).t(), gs[k])
+                                  for k in range(4)], dim=1).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g2.sum(0, dtype=torch.float32).reshape(4, H)
+        return dx, dw, db, None, None
+
+
+def project(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
+    gate_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The input projection of every caller: x (..., F) and w (F, 4, H)
+    in the compute dtype, b (4, H) -> (..., 4H) in ``out_dtype``, f32
+    sums, the bias added in f32 first. ``gate_scale`` (4, ...), in the
+    compute dtype, is per-gate input dropout: gate g sees
+    ``x * gate_scale[g]`` (rounded in the compute dtype), as the JAX
+    einsum ``gtbf,fgh->tbgh`` does. Differentiable through
+    :class:`_Projection` whenever autograd records."""
+    if _records_grad(x, w, b):
+        return _Projection.apply(x, w, b, gate_scale, out_dtype)
+    return _projection_f32(x, w, b, gate_scale).to(out_dtype)
+
+
 def input_projection(
     x_tm: torch.Tensor, W: torch.Tensor, b: torch.Tensor, compute_dtype,
     gate_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One direction's projection: (T, B, F) x (F, 4, H) + (4, H) ->
-    (T, B, 4, H) in the compute dtype, bias added in f32 first.
-
-    ``gate_scale`` (4, B, F), in the compute dtype, is per-gate input
-    dropout: gate g sees ``x * gate_scale[g]`` (rounded in the compute
-    dtype), as the JAX einsum ``gtbf,fgh->tbgh`` does."""
-    F, _, H = W.shape
+    (T, B, 4, H) in the compute dtype, bias added in f32 first
+    (:func:`project`; ``gate_scale`` (4, B, F))."""
+    H = W.shape[-1]
     with tracing.annotate("mgr.lstm.projection"):
-        xc, Wc = x_tm.to(compute_dtype), W.to(compute_dtype)
-        if gate_scale is None:
-            xp = matmul_f32(xc, Wc.reshape(F, 4 * H))
-        else:
-            xp = torch.cat(
-                [matmul_f32(xc * gate_scale[g], Wc[:, g, :]) for g in range(4)], dim=-1
-            )
-        return (xp + b.reshape(4 * H)).to(compute_dtype).reshape(
-            *x_tm.shape[:-1], 4, H
-        )
+        xp = project(x_tm.to(compute_dtype), W.to(compute_dtype), b, compute_dtype,
+                     gate_scale)
+        return xp.reshape(*x_tm.shape[:-1], 4, H)
 
 
 def dropout_scale(
@@ -716,16 +780,11 @@ def input_projection_bm(
         scale = dropout_scale(rng, 1.0 - dropout, shape, compute_dtype, x2.device)
         if not per_gate:
             xc = xc * scale
-    out = []
-    for d in range(D):
-        if dropping and per_gate:
-            xp = torch.cat([matmul_f32(xc[d] * scale[g, d], Wc[d, :, g]) for g in range(4)],
-                           dim=-1)
-        else:
-            xp = matmul_f32(xc[d], Wc[d].reshape(F, 4 * H))
-        out.append(xp + b[d].reshape(4 * H))
-    xp = torch.stack(out).reshape(D, B, T, 4, H)
-    return xp if dropping and per_gate else xp.to(compute_dtype)
+    gated = dropping and per_gate
+    out_dtype = torch.float32 if gated else compute_dtype
+    xp = torch.stack([project(xc[d], Wc[d], b[d], out_dtype, scale[:, d] if gated else None)
+                      for d in range(D)])
+    return xp.reshape(D, B, T, 4, H)
 
 
 def recurrent_scan(

@@ -23,7 +23,10 @@ shapes and sum orders). K6a/K6b (the batch-major entries of the same
 sources) with K1's tolerance for h and c and K2's for dz (relative
 Frobenius) and dU, bit-equal to K1/K2's directions (K5's for D=1) on the
 same, time-flipped, projections; the batch-major layers on the card
-against the CPU: outputs 3e-2, gradients 5e-2 relative Frobenius.
+against the CPU: outputs 3e-2, gradients 5e-2 relative Frobenius. The
+input projection's bf16 backward: its f32 sums within 1e-5 of the largest
+entry of the TF32-off f32 product of the same bf16 values (f32 sums in
+another order), dx and dW those sums rounded once.
 
 The tensor-core design of K1/K2 (split-K over 8 warps, fixed-order
 reduction, per-direction split barrier) is held at its edges with the
@@ -45,6 +48,7 @@ and the same launches.
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -337,6 +341,113 @@ def test_train_autograd_functions_on_the_card(cuda):
     for k, want in grads["cpu"].items():
         rel = float((grads["cuda"][k] - want).norm() / want.norm().clamp_min(1e-12))
         assert rel <= 5e-2, (k, rel)
+
+
+F32_GEMMS = ("sgemm", "gemm_f32f32")  # cuBLAS's f32 GEMMs outside the tensor cores
+
+
+def _card_kernels(fn, tmp_path):
+    """The names of the kernels the card ran in ``fn()``, read from the
+    chrome trace of a ``torch.profiler`` session around it, and what
+    ``fn`` returned. A session whose trace holds no kernel at all is run
+    again, twice at most: CUPTI has been seen to deliver no device event
+    for a short session."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace_{attempt}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        if names:
+            break
+    return names, out
+
+
+def _within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor, slack: float) -> bool:
+    """Each entry of ``got`` (bf16 values) within one bf16 ulp of ``want``
+    (f32) rounded to bf16, beyond ``slack``: the bound on the f32 sums'
+    difference, which is relative to the largest entry and so exceeds an
+    ulp of the smallest ones."""
+    r = want.cpu().to(torch.bfloat16).float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return bool(((got.cpu().float() - r).abs() <= ulp + slack).all())
+
+
+@pytest.mark.parametrize("dtype,per_gate", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                            (torch.float32, False)],
+                         ids=["bf16", "bf16-per-gate", "f32"])
+def test_projection_backward_on_the_card(cuda, dtype, per_gate, tmp_path):
+    """``input_projection``'s backward at T=64, B=32, F=1000, H=500 on
+    dropout-scaled operands. In bf16 it multiplies the bf16 operands on
+    tensor cores with f32 sums (no f32 GEMM kernel runs): its f32 sums
+    within 1e-5 of the largest entry of the f32, TF32-off product of the
+    same values, dx and dW those sums rounded once, so within one bf16 ulp
+    of that product rounded (beyond the sums' 1e-5), db within 1e-5; with
+    per-gate masks within 1e-2 of the same step on the CPU. In f32 it keeps
+    the f32 product."""
+    T, B, F, H = 64, 32, 1000, 500
+    rng = np.random.default_rng(20)
+
+    def on(a, dt=torch.float32, dev=cuda):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    keep = rng.random((4, B, F) if per_gate else (B, F)) < 0.6
+    host = [rng.standard_normal((T, B, F)), rng.uniform(-0.05, 0.05, (F, 4, H)),
+            rng.standard_normal((4, H)), rng.standard_normal((T, B, 4, H)), keep / 0.6]
+
+    def run(dev):
+        x, W, b, g, scale = (on(a, dt, dev) for a, dt in
+                             zip(host, (dtype, torch.float32, torch.float32, dtype, dtype)))
+        xs = (x if per_gate else x * scale).requires_grad_()
+        W.requires_grad_()
+        b.requires_grad_()
+        out = tlstm.input_projection(xs, W, b, dtype, gate_scale=scale if per_gate else None)
+        return (xs, W, b, g), out
+
+    def backward():
+        (xs, W, b, g), out = run(cuda)
+        out.backward(g)
+        return xs, W, b, g
+
+    kernels, (xs, W, b, g) = _card_kernels(backward, tmp_path)
+    gemms = sorted(n for n in kernels if "gemm" in n or "nvjet" in n)
+    assert gemms, kernels
+    f32_gemms = [n for n in gemms if any(k in n for k in F32_GEMMS)]
+    assert bool(f32_gemms) == (dtype == torch.float32), gemms
+
+    if per_gate:
+        (xc, Wc, bc, gc), outc = run(torch.device("cpu"))
+        outc.backward(gc)
+        for got, want in ((xs.grad, xc.grad), (W.grad, Wc.grad), (b.grad, bc.grad)):
+            err = float((got.cpu().float() - want.float()).abs().max())
+            assert err <= 1e-2 * float(want.float().abs().max()), err
+        return
+    g2 = g.float().reshape(-1, 4 * H)
+    x2, w2 = xs.detach().float().reshape(-1, F), W.detach().to(dtype).float().reshape(F, 4 * H)
+    want = {"dx": g2 @ w2.t(), "dW": x2.t() @ g2, "db": g2.sum(0)}  # TF32 off (fixture)
+
+    def slack(ref):
+        return 1e-5 * float(ref.abs().max())
+
+    def close(got, ref):
+        return float((got.float() - ref).abs().max()) <= slack(ref)
+
+    got = {"dx": xs.grad.reshape(-1, F), "dW": W.grad.reshape(F, 4 * H),
+           "db": b.grad.reshape(4 * H)}
+    assert got["db"].dtype == torch.float32 and close(got["db"], want["db"])
+    if dtype == torch.float32:
+        assert close(got["dx"], want["dx"]) and close(got["dW"], want["dW"])
+        return
+    gb, wb, xb = g.reshape(-1, 4 * H), w2.to(dtype), x2.to(dtype)
+    sums = {"dx": tlstm._mm_f32(gb, wb.t()), "dW": tlstm._mm_f32(xb.t(), gb)}  # the backward's
+    assert xs.grad.dtype == dtype
+    for k in ("dx", "dW"):
+        assert close(sums[k], want[k]), k
+        assert torch.equal(got[k].float(), sums[k].to(dtype).float()), k
+        assert _within_one_bf16_ulp(got[k], want[k], slack(want[k])), k
 
 
 @pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16)])

@@ -151,6 +151,60 @@ def test_projection_adds_bias_in_f32_before_rounding():
     assert (rounded_first.float().numpy().reshape(want.shape) != want).any()
 
 
+def _projection_by_parts(xc, Wc, b, compute_dtype, gate_scale):
+    """The projection as separate autograd nodes: ``matmul_f32`` (one, or
+    one a gate), the f32 bias add, the rounding to the compute dtype."""
+    F, _, H = Wc.shape
+    if gate_scale is None:
+        xp = tlstm.matmul_f32(xc, Wc.reshape(F, 4 * H))
+    else:
+        xp = torch.cat([tlstm.matmul_f32(xc * gate_scale[g], Wc[:, g, :]) for g in range(4)],
+                       dim=-1)
+    return (xp + b.reshape(4 * H)).to(compute_dtype).reshape(*xc.shape[:-1], 4, H)
+
+
+@pytest.mark.parametrize("per_gate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_projection_backward_matches_the_composition_of_parts(per_gate, dtype, monkeypatch):
+    """``input_projection``'s one autograd node gives the gradients of the
+    composition of its parts: dx and dW bit for bit, db to the order of
+    f32 sums; its backward receives the cotangent in the compute dtype."""
+    rng = np.random.default_rng(21)
+    f_in = 40
+    x = torch.from_numpy(rng.standard_normal((T, B, f_in)).astype(np.float32)).to(dtype)
+    W = torch.from_numpy(rng.standard_normal((f_in, 4, H)).astype(np.float32) * 0.05)
+    b = torch.from_numpy(rng.standard_normal((4, H)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((T, B, 4, H)).astype(np.float32)).to(dtype)
+    keep = torch.from_numpy(rng.random((4, B, f_in)) < 0.6)
+    scale = (keep / 0.6).to(dtype) if per_gate else None
+
+    seen = []
+    backward = tlstm._Projection.backward
+
+    def spy(ctx, cot):
+        seen.append(cot.dtype)
+        return backward(ctx, cot)
+
+    monkeypatch.setattr(tlstm._Projection, "backward", staticmethod(spy))
+
+    def grads(fn):
+        xs, Ws, bs = (t.clone().requires_grad_() for t in (x, W, b))
+        out = fn(xs, Ws, bs)
+        assert out.dtype == dtype and out.shape == (T, B, 4, H)
+        out.backward(g)
+        return out.detach(), xs.grad, Ws.grad, bs.grad
+
+    got = grads(lambda xs, Ws, bs: tlstm.input_projection(xs, Ws, bs, dtype, gate_scale=scale))
+    assert seen == [dtype]
+    want = grads(lambda xs, Ws, bs: _projection_by_parts(
+        xs.to(dtype), Ws.to(dtype), bs, dtype, scale))
+    assert seen == [dtype]
+    for a, w in zip(got[:3], want[:3]):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert got[3].dtype == torch.float32
+    _close(got[3].numpy(), want[3].numpy(), 1e-6)
+
+
 def test_init_matches_keras_conventions():
     p = tlstm.init_bilstm_params(torch.Generator().manual_seed(0), F_IN, H)
     assert p["W"].shape == (2, F_IN, 4, H) and p["U"].shape == (2, H, 4, H)

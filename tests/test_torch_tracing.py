@@ -92,11 +92,15 @@ def test_train_step_spans_and_the_backward_link(tmp_path):
     for e in ops:
         if not e["args"].get(FWD):
             forward.setdefault(e["args"][SEQ], []).append(e)
-    backward = [e for e in ops if e["name"] == "_MatmulF32Backward"]
-    assert len(backward) == 5 and all(e["args"][FWD] for e in backward)  # 4 projections, head
-    made = [[f for f in forward[e["args"][SEQ]] if f["name"] == "_MatmulF32"] for e in backward]
-    assert all(len(m) == 1 for m in made)
-    assert sum(any(_inside(m[0], p) for p in proj) for m in made) == 4
+    def made_by(name):
+        backward = [e for e in ops if e["name"] == f"{name}Backward"]
+        assert all(e["args"][FWD] for e in backward)
+        made = [[f for f in forward[e["args"][SEQ]] if f["name"] == name] for e in backward]
+        assert all(len(m) == 1 for m in made)
+        return [sum(_inside(m[0], p) for p in proj) for m in made]
+
+    assert made_by("_Projection") == [1] * 4  # two layers x two directions
+    assert made_by("_MatmulF32") == [0]  # the head
 
 
 def test_rgb_frontend_span_covers_the_remat_recompute(tmp_path):
