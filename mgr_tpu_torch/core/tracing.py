@@ -9,10 +9,12 @@ PyTorch's own tools.
     (``models/layers.py::cnn_frontend``, its remat recompute too),
     ``mgr.step.optimizer`` (``train/step.py::_apply_updates``),
     ``mgr.decode.input`` and ``mgr.decode.forward`` (the decode step of
-    ``train/step.py::make_decode_step``) and ``mgr.decode.tokens``
-    (``decode/decoder.py::Decoder.decode_batches``). A backward op carries
-    the sequence number of the forward op that made it, so a trace reader
-    can charge a span's backward to it too.
+    ``train/step.py::make_decode_step``), ``mgr.decode.tokens``
+    (``decode/decoder.py::Decoder.decode_batches``), and late fusion's
+    ``mgr.fusion.towers`` (its two encoders) and ``mgr.fusion.layer`` (the
+    concat and the fusion BiLSTM; ``models/zoo.py::LateFusionModel``). A
+    backward op carries the sequence number of the forward op that made
+    it, so a trace reader can charge a span's backward to it too.
   * ``trace(logdir)``: a ``torch.profiler`` trace of a block, the host's
     ops and, where there is a card, its kernels and copies, written to
     ``logdir`` by ``tensorboard_trace_handler`` (a ``*.pt.trace.json``

@@ -43,7 +43,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from mgr_tpu_torch.core import prng
+from mgr_tpu_torch.core import prng, tracing
 from mgr_tpu_torch.core.config import PipelineConfig, get_preset
 from mgr_tpu_torch.models import layers
 from mgr_tpu_torch.models.encoder import BiLSTM, Encoder
@@ -209,17 +209,21 @@ class LateFusionModel(_Model):
         with ``fold_name(rng, "enc_a")``, the skeletal one under
         ``second_stream_noise`` with ``"enc_s"``; the fusion layer's input
         dropout ``fusion_dropout`` from ``"fusion_drop"``; the head's
-        ``fusion_output_dropout``."""
+        ``fusion_output_dropout``. The two encoders run inside the span
+        ``mgr.fusion.towers``, the concat and the fusion layer inside
+        ``mgr.fusion.layer``."""
         cfg = self.config
         x_a, x_s = inputs
-        res_a = self._encode("speech", x_a, cfg.encoder.input_noise, train=train,
-                             rng=_sub(rng, "enc_a"))
-        res_s = self._encode("skeletal", x_s, cfg.second_stream_noise, train=train,
-                             rng=_sub(rng, "enc_s"))
-        h = self.fusion(dispatch.local_time(torch.cat([res_a, res_s], dim=-1)),
-                        rng=_sub(rng, "fusion_drop"),
-                        dropout=cfg.fusion_dropout, train=train,
-                        compute_dtype=self.compute_dtype)
+        with tracing.annotate("mgr.fusion.towers"):
+            res_a = self._encode("speech", x_a, cfg.encoder.input_noise, train=train,
+                                 rng=_sub(rng, "enc_a"))
+            res_s = self._encode("skeletal", x_s, cfg.second_stream_noise, train=train,
+                                 rng=_sub(rng, "enc_s"))
+        with tracing.annotate("mgr.fusion.layer"):
+            h = self.fusion(dispatch.local_time(torch.cat([res_a, res_s], dim=-1)),
+                            rng=_sub(rng, "fusion_drop"),
+                            dropout=cfg.fusion_dropout, train=train,
+                            compute_dtype=self.compute_dtype)
         return self._head_apply(h, cfg.fusion_output_dropout, train=train, rng=rng)
 
     def trainable(self) -> Dict[str, bool]:
