@@ -121,6 +121,7 @@ KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd"
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
 B_K2 = 32                                   # the preset's train batch
 B_STEP = (1, 32, 128)  # K1/K2 per-step cost: B=1 is the floor (barrier + latency)
+B_TILINGS = (32, 64, 96, 128, 256)  # K2 timed in both tilings (one and two batch groups)
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
 B_K4 = 32
 TOL_K1_H = 3e-2        # max |h| diff: bf16 h stream, f32 sums in another order
@@ -504,7 +505,11 @@ def k2_phase(dev) -> dict:
     """K2 against its plain version at B=32, T=1900, H=500, then the edge
     shapes K1 is checked at (B=1, a partial tile B=130, three launches
     B=520, an odd H), and at B=1 and B=128 (T=1900), where it is timed
-    beside B=32; two launches bit-identical."""
+    beside B=32; two launches bit-identical. Then both tilings (one and
+    two batch groups, each forced through the wrapper's rule) timed at
+    B_TILINGS, T=1900, their dz bit for bit the same: the numbers behind
+    ``bilstm_tm.GROUPED_MIN_B``."""
+    from mgr_tpu_torch.kernels import bilstm_tm as k2mod
     from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
     from mgr_tpu_torch.ops.lstm import (
         bilstm_scan_tm_bwd_plain, init_bilstm_params, recurrent_weight_grad)
@@ -559,12 +564,34 @@ def k2_phase(dev) -> dict:
     plain_ms = cuda_time_ms(
         lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=1)
     lim = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=True, store_c=False)
+    tilings = {}
+    rule = k2mod.bwd_groups
+    try:
+        for B in B_TILINGS:
+            x, u, st, dh = timed[B] if B in timed else case(T_K1, B, H_K1)[:4]
+            dz = {}
+            for g in (1, 2):
+                k2mod.bwd_groups = lambda *a, g=g, **k: g
+                dz[g] = bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1])
+                ms_g = cuda_time_ms(lambda: bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1]),
+                                    reps=3)
+                tilings.setdefault(f"B={B}", {})[f"groups={g}"] = {
+                    "ms": ms_g, "ms_per_step": ms_g / T_K1}
+            if not all(torch.equal(a, b) for a, b in zip(dz[1], dz[2])):
+                raise AssertionError(f"K2: the two tilings give other dz bits at B={B}")
+            tilings[f"B={B}"]["rule"] = rule(B, H_K1, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+    finally:
+        k2mod.bwd_groups = rule
+    if max(worst.values()) > TOL_K2_REL:
+        raise AssertionError(f"K2 disagrees with its plain version: {worst} > {TOL_K2_REL}")
     phase("k2_bilstm_tm_bwd", B=B_K2, T=T_K1, H=H_K1, max_abs_err_dz=abs_err,
           max_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
           bit_identical_launches=True, ms=ms, plain_ms=plain_ms, **lim,
           per_B={f"B={b}": v for b, v in per_b.items()},
-          step_floor_ms=per_b[1]["ms_per_step"])
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+          step_floor_ms=per_b[1]["ms_per_step"], tilings=tilings)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "ms_b128": per_b[B_K1]["ms"]}
 
 
 def _ctc_batch(rng, B, T, K, N):

@@ -13,10 +13,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of 4 bytes (through L1: only for data no block writes during
-// the launch) and of 16 bytes at L2 only.
+// cp.async of 4 and 8 bytes (through L1: only for data no block writes
+// during the launch) and of 16 bytes at L2 only.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

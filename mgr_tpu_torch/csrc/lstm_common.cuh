@@ -31,7 +31,7 @@
 
 namespace lstm {
 
-constexpr int JS = 8;                 // hidden units per block
+constexpr int JS = 8;                 // hidden units per block (K1; K2 over one batch group)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int RT = 32;                // batch rows per tile: two m16 tiles; a thread per (row, unit)
@@ -43,6 +43,25 @@ constexpr int RED_PITCH = 40;         // floats per row of a warp's partial z: 3
                                       // so the fragment stores are free of bank conflicts
 constexpr int RED_Z_FLOATS = WARPS * RT * RED_PITCH;
 constexpr int BAR_STRIDE = 32;        // words between two barrier counters (own 128 B line)
+
+// A block's tiling of the gate math and of the z product, by its hidden
+// units JS_: a tile is RT rows x JS_ units, a thread per (row, unit). A
+// warp's z product makes two m16n8 products a gate and k16 step: two m16
+// tiles of one n8 tile (JS_ = 8: K1, and K2 over one batch group) or one
+// m16 tile of two n8 tiles (JS_ = 16: K2 over batch groups). acc[p] below
+// is product p of the two.
+template <int JS_>
+struct Tiling {
+  static constexpr int RT = THREADS / JS_;  // rows a tile
+  static constexpr int MT = RT / 16;        // m16 tiles a tile
+  static constexpr int NT = JS_ / 8;        // n8 tiles a gate
+  static constexpr int RED_PITCH = 4 * JS_ + 8;  // floats a row of a warp's partial z: 8 mod
+                                                 // 32 words, so the fragment stores are free
+                                                 // of bank conflicts
+  static constexpr int RED_Z_FLOATS = WARPS * RT * RED_PITCH;
+  static_assert(MT * NT == 2, "two m16n8 products a gate and k16 step");
+};
+static_assert(Tiling<JS>::RT == RT && Tiling<JS>::RED_PITCH == RED_PITCH, "K1's tiling");
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~size_t(15); }
 
@@ -177,28 +196,34 @@ __device__ __forceinline__ uint2 u_col_frag(const __nv_bfloat16* Ud, int ks, int
   return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
 }
 
-// Partial z fragments of one warp into red [WARPS][RT][RED_PITCH].
+// Partial z fragments of one warp into red [WARPS][RT][RED_PITCH] (Tiling<JS_>).
+template <int JS_ = JS>
 __device__ __forceinline__ void store_z_partial(float* red, const float (&acc)[2][4][4]) {
+  using TL = Tiling<JS_>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, c4 = lane & 3;
-  float* base = red + warp * RT * RED_PITCH;
+  float* base = red + warp * TL::RT * TL::RED_PITCH;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int p = 0; p < 2; ++p) {
+    const int mt = TL::MT == 2 ? p : 0, n = TL::NT == 2 ? p : 0;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      float* p = base + (mt * 16 + g8) * RED_PITCH + g * JS + 2 * c4;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][g][0], acc[mt][g][1]);
-      *reinterpret_cast<float2*>(p + 8 * RED_PITCH) = make_float2(acc[mt][g][2], acc[mt][g][3]);
+      float* q = base + (mt * 16 + g8) * TL::RED_PITCH + g * JS_ + 8 * n + 2 * c4;
+      *reinterpret_cast<float2*>(q) = make_float2(acc[p][g][0], acc[p][g][1]);
+      *reinterpret_cast<float2*>(q + 8 * TL::RED_PITCH) = make_float2(acc[p][g][2], acc[p][g][3]);
     }
+  }
 }
 
 // The product's value at (tile row r, gate g, unit j): the warps' partial
 // sums added in warp order.
+template <int JS_ = JS>
 __device__ __forceinline__ float z_sum(const float* red, int r, int g, int j) {
-  const float* p = red + r * RED_PITCH + g * JS + j;
+  using TL = Tiling<JS_>;
+  const float* p = red + r * TL::RED_PITCH + g * JS_ + j;
   float s = p[0];
 #pragma unroll
-  for (int w = 1; w < WARPS; ++w) s += p[w * RT * RED_PITCH];
+  for (int w = 1; w < WARPS; ++w) s += p[w * TL::RT * TL::RED_PITCH];
   return s;
 }
 

@@ -15,6 +15,11 @@ A CPU tensor goes to the plain versions in ``ops.lstm``; a CUDA tensor
 launches the kernel or raises. Like ``pallas_bilstm_tm`` the kernels take
 bf16 operands whatever the compute dtype and keep the h and c streams in
 bf16.
+
+K2's source runs in one of two tilings, which :func:`bwd_groups` chooses
+from the shape and the card: one batch group (8-unit slices over all rows)
+or two (16-unit slices, each block gathering its own group's rows). A row's
+dz does not depend on the tiling.
 """
 
 from __future__ import annotations
@@ -35,6 +40,37 @@ ONE_NAME = "lstm_tm_fwd"
 ONE_BWD_NAME = "lstm_tm_bwd"
 
 
+# K2's tiling: two batch groups from this many rows on (:func:`bwd_groups`).
+# Up to 32 rows (B=1, rgb's 16, the preset's 32) K2 keeps the one-group
+# tiling those paths were measured with, though two groups timed faster at
+# every B from 32 to 256 on an H100 (PERF.md §6).
+GROUPED_MIN_B = 33
+
+
+def bwd_grid(H: int, groups: int, dirs: int = 2) -> int:
+    """Blocks of a K2-template launch (``csrc/bilstm_tm_bwd.cu``) at width
+    H: directions x batch groups x unit slices, a slice 8 units in one
+    group and 16 in two."""
+    return dirs * groups * -(-H // (8 if groups == 1 else 16))
+
+
+def bwd_groups(B: int, H: int, sms: int, dirs: int = 2) -> int:
+    """Batch groups of a K2-template launch over B rows at width H and
+    ``dirs`` directions on a card of ``sms`` SMs: 2 from GROUPED_MIN_B rows
+    on, where the grid of two groups fits one block an SM (the launch is
+    cooperative); else 1. Two groups halve the rows whose dz each block
+    gathers and whose z it recomputes a step. Their shared memory fits
+    every H the kernel takes (at most 230,400 bytes, at H=512), so the SM
+    count is the only fallback."""
+    if B < GROUPED_MIN_B or bwd_grid(H, 2, dirs) > sms:
+        return 1
+    return 2
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     """The library of ``entry``'s source, with ``entry``'s C signature:
     ``n_ptrs`` pointers (the last is the barrier scratch), ``n_ints`` ints,
@@ -48,16 +84,18 @@ def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     words = getattr(lib, f"{source}_barrier_words")
-    words.argtypes = [ctypes.c_int]
+    words.argtypes = [ctypes.c_int] * (2 if source == BWD_NAME else 1)  # K2's: B, groups
     words.restype = ctypes.c_int
     return lib
 
 
-def _barrier(lib: ctypes.CDLL, entry: str, B: int, device: torch.device) -> torch.Tensor:
-    """The split barrier's counters for one call of ``entry`` at batch B:
-    zeroed int32 words on ``device`` (a counter per direction and launch of
-    at most 256 rows), fresh for every call, so no call sees another's."""
-    n = getattr(lib, f"{dispatch.SOURCES[entry]}_barrier_words")(B)
+def _barrier(lib: ctypes.CDLL, entry: str, B: int, device: torch.device,
+             *groups: int) -> torch.Tensor:
+    """The split barrier's counters for one call of ``entry`` at batch B
+    (and K2's ``groups``): zeroed int32 words on ``device`` (a counter per
+    direction, group and launch), fresh for every call, so no call sees
+    another's."""
+    n = getattr(lib, f"{dispatch.SOURCES[entry]}_barrier_words")(B, *groups)
     return torch.zeros(n, dtype=torch.int32, device=device)
 
 
@@ -167,15 +205,16 @@ def bilstm_tm_bwd(
     Hk = xp0k.shape[-1]
     dz0 = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp0.device)
     dz1 = torch.empty_like(dz0)
-    lib = _lib(BWD_NAME, 12)
+    groups = bwd_groups(B, Hk, _sms(xp0))
+    lib = _lib(BWD_NAME, 12, 5)
     err = lib.bilstm_tm_bwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
-        *(s.data_ptr() for s in streams),
-        dz0.data_ptr(), dz1.data_ptr(), _barrier(lib, BWD_NAME, B, xp0.device).data_ptr(),
-        T, B, Hk, *_device_and_stream(xp0),
+        *(s.data_ptr() for s in streams), dz0.data_ptr(), dz1.data_ptr(),
+        _barrier(lib, BWD_NAME, B, xp0.device, groups).data_ptr(),
+        T, B, Hk, groups, *_device_and_stream(xp0),
     )
     build.check(lib, BWD_NAME, err)
-    dispatch.count_launch(BWD_NAME)
+    dispatch.count_launch(BWD_NAME, grouped=groups > 1)
     return dz0[..., :H], dz1[..., :H]
 
 
@@ -262,14 +301,15 @@ def lstm_tm_bwd(
     streams = _even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    lib = _lib(ONE_BWD_NAME, 7, 5)
+    groups = bwd_groups(B, Hk, _sms(xp), dirs=1)
+    lib = _lib(ONE_BWD_NAME, 7, 6)
     err = lib.lstm_tm_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),
-        _barrier(lib, ONE_BWD_NAME, B, xp.device).data_ptr(),
-        T, B, Hk, int(reverse), *_device_and_stream(xp),
+        _barrier(lib, ONE_BWD_NAME, B, xp.device, groups).data_ptr(),
+        T, B, Hk, int(reverse), groups, *_device_and_stream(xp),
     )
     build.check(lib, BWD_NAME, err, ONE_BWD_NAME)
-    dispatch.count_launch(ONE_BWD_NAME)
+    dispatch.count_launch(ONE_BWD_NAME, grouped=groups > 1)
     return dz[..., :H]
 
 

@@ -87,14 +87,15 @@ def lstm_scan_bwd(
     streams = _k1._even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((D, B, T, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    lib = _k1._lib(BWD_NAME, 7, 5)
+    groups = _k1.bwd_groups(B, Hk, _k1._sms(xp), dirs=D)
+    lib = _k1._lib(BWD_NAME, 7, 6)
     err = lib.lstm_scan_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),
-        _k1._barrier(lib, BWD_NAME, B, xp.device).data_ptr(),
-        D, T, B, Hk, *_k1._device_and_stream(xp),
+        _k1._barrier(lib, BWD_NAME, B, xp.device, groups).data_ptr(),
+        D, T, B, Hk, groups, *_k1._device_and_stream(xp),
     )
     build.check(lib, dispatch.SOURCES[BWD_NAME], err, BWD_NAME)
-    dispatch.count_launch(BWD_NAME)
+    dispatch.count_launch(BWD_NAME, grouped=groups > 1)
     return dz[..., :H]
 
 

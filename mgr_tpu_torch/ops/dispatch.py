@@ -9,7 +9,8 @@ plain version: the kernel launches or the wrapper raises.
 Each kernel wrapper adds one to its counter where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels (``chip_smoke.py`` resets the counters, drives the
-serving, training and mesh paths and reads them back).
+serving, training and mesh paths and reads them back). The entries of K2's
+source also count the launches that took the tiling of two batch groups.
 
 The direction-shard context is the counterpart of ``direction_shard`` /
 ``direction_shard_axis``: the mesh steps of the shard_map route set it,
@@ -41,6 +42,11 @@ SOURCES = {"bilstm_tm_fwd": "bilstm_tm_fwd", "bilstm_tm_bwd": "bilstm_tm_bwd",
            "lstm_scan_fwd": "bilstm_tm_fwd", "lstm_scan_bwd": "bilstm_tm_bwd"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# The entries of K2's source (K2, K5b, K6b) and, apart from _launches, their
+# launches that ran in two batch groups (``kernels/bilstm_tm.py::bwd_groups``).
+GROUPED = ("bilstm_tm_bwd", "lstm_tm_bwd", "lstm_scan_bwd")
+_grouped: Dict[str, int] = {name: 0 for name in GROUPED}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,14 +192,22 @@ def on_card(*tensors: torch.Tensor) -> bool:
     )
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, *, grouped: bool = False) -> None:
     _launches[name] += 1
+    if grouped:
+        _grouped[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _grouped):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
+
+
+def grouped_counts() -> Dict[str, int]:
+    """Launches of K2's source that ran in two batch groups, by entry."""
+    return dict(_grouped)

@@ -45,6 +45,17 @@ against the CPU's FFT), kinematics' floored and truncated columns exactly
 and the rest 1e-5, ROI crops 1e-3 on the 0-255 scale. ``fit`` on the
 corpus held on the card against ``fit`` on host batches: the same bits
 and the same launches.
+
+K2's two tilings (``kernels/bilstm_tm.py::bwd_groups``: one batch group
+up to 32 rows, two from 33): K2 against its plain version on both sides of
+the threshold and across launches (B = 65, 128, 129, 200 at H=500; B=128
+at H=512 and H=100; B=520 at H=16, five launches of 128 rows); a grouped
+launch's dz bit for bit the dz of the one-group tiling run on the same
+rows in 32-row slices (a row's dz does not depend on the tiling); K5b and
+K6b bit-equal to K2's direction at B=128; two launches at B=128
+bit-identical; the grouped counter at B=128 and not at B=16 or 32; and a
+train step of speech at B=128 (both K2 launches grouped) and of rgb at
+B=16 (neither).
 """
 
 import contextlib
@@ -187,7 +198,11 @@ def _ctc_case(rng, B, T, K, N):
     return labels, in_len, lab_len
 
 
-@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 520, 16)])
+@pytest.mark.parametrize("T,B,H", [
+    (24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 520, 16),
+    (12, 65, 500), (12, 128, 500), (12, 129, 500), (12, 200, 500),  # two batch groups
+    (12, 128, 512), (12, 128, 100),
+])
 def test_k2_matches_plain_version(cuda, T, B, H):
     rng = np.random.default_rng(H + 1)
     bf = torch.bfloat16
@@ -196,8 +211,10 @@ def test_k2_matches_plain_version(cuda, T, B, H):
     streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
     dhs = torch.from_numpy(rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
     before = dispatch.launch_counts()["bilstm_tm_bwd"]
+    grouped = dispatch.grouped_counts()["bilstm_tm_bwd"]
     got = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
     assert dispatch.launch_counts()["bilstm_tm_bwd"] == before + 1
+    assert dispatch.grouped_counts()["bilstm_tm_bwd"] == grouped + (B >= k1.GROUPED_MIN_B)
     want = tlstm.bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
     for g, w in zip(got, want):
         assert g.shape == (T, B, 4, H) and g.dtype == bf
@@ -206,6 +223,48 @@ def test_k2_matches_plain_version(cuda, T, B, H):
     dU = tlstm.recurrent_weight_grad(streams[0], streams[1], *got)
     rel = float((dU - want[2]).norm() / want[2].norm())
     assert rel <= TOL_K2_REL
+
+
+@pytest.mark.parametrize("T,B,H", [(12, 128, 500), (12, 200, 512)])
+def test_k2_groups_give_the_bits_of_one_group_slices(cuda, T, B, H):
+    """A row's dz does not depend on K2's tiling: the grouped launch over
+    all B rows gives, bit for bit, the dz of the one-group tiling run on
+    the same rows 32 at a time."""
+    (xp, U, dhs), streams, dz, _ = _k1_k2_case(cuda, T, B, H, seed=B + H)
+    grouped = dispatch.grouped_counts()["bilstm_tm_bwd"]
+    for b0 in range(0, B, 32):
+        rows = slice(b0, min(B, b0 + 32))
+        part = k1.bilstm_tm_bwd(xp[0][:, rows], xp[1][:, rows], U,
+                                *(s[:, rows] for s in streams), dhs[0][:, rows], dhs[1][:, rows])
+        for d in range(2):
+            assert torch.equal(part[d], dz[d][:, rows]), (b0, d)
+    assert dispatch.grouped_counts()["bilstm_tm_bwd"] == grouped  # the slices took one group
+
+
+@pytest.mark.parametrize("B", [16, 32, 128])
+def test_k2_grouped_counter(cuda, B):
+    """K2, K5b and K6b count a grouped launch from 33 rows on, and none
+    at B=16 or B=32, where the one-group tiling keeps the per-step floor."""
+    T, H = 8, 500
+    rng = np.random.default_rng(B)
+    bf = torch.bfloat16
+    xp = torch.from_numpy(0.5 * rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(
+        cuda, bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(B), 4, H)["U"].to(cuda, bf)
+    dhs = torch.from_numpy(0.1 * rng.standard_normal((2, T, B, H)).astype(np.float32)).to(
+        cuda, bf)
+    streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    dispatch.reset_launch_counts()
+    k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    k1.lstm_tm_bwd(xp[0], U[0], streams[0], streams[2], dhs[0], reverse=False)
+    bm = xp[:1].transpose(1, 2).contiguous()
+    hs, cs = k6.lstm_scan_streams(bm, U[:1], store_c=True)
+    k6.lstm_scan_bwd(bm, U[:1], hs, cs, dhs[:1].transpose(1, 2).contiguous())
+    one = int(B > 32)
+    assert dispatch.grouped_counts() == {"bilstm_tm_bwd": one, "lstm_tm_bwd": one,
+                                         "lstm_scan_bwd": one}
+    counts = dispatch.launch_counts()
+    assert counts["bilstm_tm_bwd"] == counts["lstm_tm_bwd"] == counts["lstm_scan_bwd"] == 1
 
 
 @pytest.mark.parametrize("B,T,K,N", [(4, 24, 6, 4), (7, 400, 44, 150)])
@@ -450,7 +509,8 @@ def test_projection_backward_on_the_card(cuda, dtype, per_gate, tmp_path):
         assert _within_one_bf16_ulp(got[k], want[k], slack(want[k])), k
 
 
-@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16)])
+@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16),
+                                   (12, 128, 500)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_k5_matches_plain_version_and_k1_k2(cuda, T, B, H, reverse):
     rng = np.random.default_rng(H + 2)
@@ -568,7 +628,8 @@ def test_mesh_step_with_ranks_sharing_the_card(cuda, shape):
         assert (counts["bilstm_tm_fwd"] > 0) != one and (counts["bilstm_tm_bwd"] > 0) != one
 
 
-@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16)])
+@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16),
+                                   (12, 128, 500)])
 @pytest.mark.parametrize("D", [1, 2])
 def test_k6_matches_plain_version_and_k1_k2(cuda, T, B, H, D):
     rng = np.random.default_rng(H + 3)
@@ -685,8 +746,9 @@ def test_k1_k2_tensor_core_design_edges(cuda, T, B, H):
         (err_h, err_dz, err_dU)
 
 
-def test_k1_k2_two_launches_are_bit_identical(cuda):
-    (xp, U, dhs), streams, dz, _ = _k1_k2_case(cuda, 24, 32, 500, seed=5)
+@pytest.mark.parametrize("B", [32, 128])
+def test_k1_k2_two_launches_are_bit_identical(cuda, B):
+    (xp, U, dhs), streams, dz, _ = _k1_k2_case(cuda, 24, B, 500, seed=5)
     again = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
     assert all(torch.equal(a, b) for a, b in zip(streams, again))
     dz_again = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
@@ -904,6 +966,33 @@ def test_rgb_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch):
     for k, want in p_grads.items():
         rel = float((grads[k] - want).norm() / want.norm().clamp_min(1e-12))
         assert rel <= 5e-2, (k, rel)
+
+
+@pytest.mark.parametrize("name,B", [("speech", 128), ("rgb", 16)])
+def test_train_step_k2_tiling_by_batch(cuda, name, B):
+    """One train step at the preset's widths (speech H=500, rgb H=512) and
+    the benchmark cells' batches, at T=40: K2 twice, both launches grouped
+    at B=128 and neither at B=16; the loss finite."""
+    cfg = get_preset(name).replace(maxlen=40, batch_size=B)
+    model = build_model(cfg, seed=7, device=cuda)
+    rng = np.random.default_rng(8)
+    if name == "rgb":
+        x = ((rng.integers(0, 256, (B, 40, 60, 60, 1)) - 128.0) / 255.0).astype(np.float32)
+    else:
+        x = rng.standard_normal((B, 40, cfg.num_feats)).astype(np.float32)
+    labels = np.full((B, cfg.max_label_len), -1, np.int32)
+    labels[:, :3] = rng.integers(0, cfg.nb_classes - 1, size=(B, 3))
+    batch = {"inputs": x, "labels": labels,
+             "input_length": np.full((B,), 38, np.int32),
+             "label_length": np.full((B,), 3, np.int32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    state = step_lib.create_train_state(model)
+    step = step_lib.make_train_step(model)
+    dispatch.reset_launch_counts()
+    state, m = step(state, batch, prng.root_key(5))
+    assert np.isfinite(float(m["loss"]))
+    assert dispatch.launch_counts()["bilstm_tm_bwd"] == 2
+    assert dispatch.grouped_counts()["bilstm_tm_bwd"] == (2 if B > 32 else 0)
 
 
 @contextlib.contextmanager
