@@ -1,94 +1,90 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels,
-holds each against its plain PyTorch version at the speech shapes, then
-serves and trains the speech BLSTM+CTC pipeline end to end through the
-kernels (``fit`` on the device-resident corpus and on host batches, its
-knobs, and the ``train``/``decode`` CLI on a JAX-format workdir), on one
-process and over meshes of ranks that share the card,
-then trains and serves the two fusion families (early fusion, and late
-fusion over frozen grafted encoders) and the rgb family (the CNN frontend
-on 60x60 frames, BiLSTM(512)x2: K1/K2 at their widest H), and prepares a
-corpus from raw recordings (WAVs, Kinect CSVs, videos) with the
-featurizers on the card, then trains and decodes it.
+"""The port's full-width run on one GPU, for three jobs: it builds the
+kernels, times them for the kernel table (``PERF.md`` section 6), and
+drives every path of the port at full width through them, each held to
+its plain-version or one-process counterpart. Each kernel timed is also
+held to the plain version timed beside it, on the same outputs, and two
+of its launches to the same bits; the ``cuda`` tests (``python -m pytest
+tests/ -m cuda`` on the card, ``tests/test_torch_cuda.py``) hold the
+kernels at their edge shapes, in every layout and against each other. The
+port's speed is the benchmark's (``benchmark/run.py``).
 
     python3 chip_smoke.py
 
-Phases, one line each: device, build, K1 (BiLSTM recurrence), K2 (its
-adjoint), K3 (CTC forward, timed without the alpha store at B=128 and with
-it at B=32), K4 (its adjoint; two launches of each of K1-K4 bit-identical),
-K5a/K5b (the single-direction recurrence and its adjoint) and
-K6a/K6b (the batch-major scan of D directions and its adjoint) against
-their plain versions (K5 and K6 also against K1's and K2's streams), the
-batch-major layer API (a train-mode ``bilstm_layer`` stack and an
-``lstm_layer`` at the speech encoder's width, forward and backward), the
-serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer), the
-training slice (``fit`` at full speech width, a train step through the
-kernels against the same step through the plain versions, a learning
-check), the fit path (``fit``'s host and device-resident data paths at
-full width, bit-identical, with their input copy and gather timed; epoch
-walls with synchronous and asynchronous checkpoints, the slots' bytes
-equal; ``sync_every=2``; then ``train speech --cache-dir --trace-dir
---async-checkpoints`` through the CLI, the trace holding K1-K4, a decode
-of a msgpack slot written in the JAX package's layout against the
-``.pt`` slot's MLF, and ``--debug-nans`` raising on a corpus with NaNs),
-the synthetic slice (the C++ CSV reader, built by the host compiler beside
-the kernels, bit for bit against libc's ``strtof`` on decimals beside
-float32 rounding midpoints, where ``np.loadtxt``'s misses are counted; the
-ported example ``python -m mgr_tpu_torch.examples.synthetic_end_to_end`` at
-its defaults for 2 epochs; a learning run on the example's corpus and
-widths with noise and dropout 0 that must decode its train split to an
-accuracy of at least 0.9; then a synthetic speech corpus of 80 per-file
-CSVs read by the parser and by ``np.loadtxt``, and ``train speech``,
-``decode speech`` and ``score`` through the CLI at full width), the examples
-slice (the four learning drivers of ``mgr_tpu_torch/examples`` at full
-width for 2 epochs on a few files: the convergence and generalization
-checks' late-fusion stage at T=1900, the convergence check's early-fusion
-and rgb stages at their corpora's longest content, the measured curriculum
-with its accuracy probes and a forced finetune leg, and the A/B's biased
-arm through ``python -m``; each JSON row's keys and finite losses, K1-K4
-counted per run), the fusion kernels (K1/K2 at the late-fusion
-BiLSTM's H=100, K3/K4 at the fusion presets' K=22, N=35, against their
-plain versions and timed), the fusion slice (early fusion trained by ``fit`` and decoded;
-speech and skeletal donors trained, grafted into late fusion, ``fit``
-over the frozen encoders, decode and evaluate; each family's step
-launches and wall, its kernel step against the plain one, a learning
-check), the rgb kernels (K1/K2 at H=512, T=1900, B=8 and 256, K3/K4 at
-K=22, N=28, against their plain versions and timed), the rgb slice (40
-seeded videos on disk, ``fit`` at full width with remat, decode to MLF,
-evaluate, B=1 ``infer rgb``; the step's launches, wall and peak memory,
-its kernel step against the plain one, a learning check), the prepare
-slice (seeded raw recordings at the reference's sizes: 8 WAVs of 95 s, 8
-Kinect CSVs of 1,900 frames, 8 annotation files, 2 videos of 1,900 480x640
-frames; ``prepare-audio``, ``prepare-skeletal --split-at``, ``prepare-rgb``
-and ``mix`` through the port's CLI, each command's host and device seconds
-per file; each featurizer's card output against its CPU output on one
-full-size file; ``train speech`` for one epoch and ``decode speech`` on the
-prepared corpus through the kernels), the mesh slice
-(a mesh train and eval step at full speech width on 2x1, 1x2 and 2x2
-meshes of gloo ranks that time-share the one card, against the
-single-process step, and ``fit`` over the 2x2 mesh), the mesh slice of
-every family (early fusion, late fusion and rgb on 2x2 and rgb on 2x1 at
-full width against the single-process step, speech and late fusion
-decoded over both meshes, ``run_curriculum`` over 2x1, and K5a/K5b at
-the shapes those meshes give them), the GSPMD slice (speech at full width
-with noise and dropout on over 1x4, 2x1x2 and 1x2x2 meshes of gloo ranks
-sharing the card, two train steps each against the single-process step
-with the same draws: the H-sharded recurrence with one exchange a time
-step and no K1/K2 on 1x4 and 1x2x2, K1/K2 on every 2x1x2 rank; the other
-families one step each on 1x4 with their encoders at depth 1; one
-exchange's all-reduce timed; ``fit`` over 1x2x2, its slot decoded bit for
-bit as the ranks' parameters), the bench (``mgr_tpu_torch.bench`` at the
-JAX bench's defaults for every pipeline, full width, T=1900: train and
-decode throughput, each with its peak card memory and its launches;
-speech's B=1 ``--latency``; ``python -m mgr_tpu_torch.cli.main bench`` in
-a subprocess), the dryrun (``entry.dryrun_multichip(8)`` and ``(2)``: a
-step over 2x2x2 / 1x2x1, DP, DP x TP2 and late-fusion meshes of gloo ranks
-sharing the card, each held to one process, and the mesh decode bit for
-bit), a JSON line of the kernels
-(each with its bound and, for K3/K4, the time of
-``torch.nn.functional.ctc_loss``; K1-K4 with their launches on the fusion
-and rgb paths and their times at those shapes, and their launches on the
-prepare, synthetic and examples paths; every kernel with its launches
-on the mesh_families, gspmd, bench and dryrun paths), and last ``{"ok": true, "device":
+Phases, one JSON line each, each with its own seconds (``seconds``, which
+budgets the script against its time limit and measures no path):
+
+- device; build (the four kernel sources by nvcc and the host CSV parser,
+  started together; each library's tensor-core instructions counted in
+  its SASS: K1/K2 must have some);
+- the kernel table: K1 (BiLSTM recurrence) and K2 (its adjoint) per step
+  at B=1, 32 and 128, K2 also in both of its tilings from B=32 to 256; K3
+  (CTC forward) loss only at B=128 and with the alpha store at B=32; K4
+  (its adjoint); K5a/K5b (one direction) at B=32 and 128 and at the
+  shapes the family meshes give them; K6a/K6b (the batch-major scan);
+  later the fusion kernels (K1/K2 at H=100, K3/K4 at K=22, N=35) and the
+  rgb kernels (K1/K2 at H=512, B=8 and 256, K3/K4 at K=22, N=28). Each
+  beside its plain version, whose outputs it must match within the
+  tolerances below (and ``torch.nn.functional.ctc_loss`` for K3/K4), and
+  its least time on this card from ``benchmark/roofline.py`` (the CTC
+  bounds from the lattice states the labels visit); K2's two tilings give
+  the same dz bits;
+- the batch-major layer API (a train-mode ``bilstm_layer`` stack and an
+  ``lstm_layer`` at the speech encoder's width, forward and backward,
+  against K1 and the plain versions);
+- the serving slice (decode -> MLF -> evaluate -> eval loss -> B=1 infer;
+  logits and loss against the plain path);
+- the training slice (``fit`` at full speech width, a train step through
+  the kernels against the same step through the plain versions, a
+  learning check);
+- the fit path (``fit``'s host and device-resident data paths,
+  bit-identical; synchronous and asynchronous checkpoints, the slots'
+  bytes equal; ``sync_every=2``; then ``train speech --cache-dir
+  --trace-dir --async-checkpoints`` through the CLI, the trace holding
+  K1-K4, a decode of a msgpack slot written in the JAX package's layout
+  against the ``.pt`` slot's MLF, and ``--debug-nans`` raising on a
+  corpus with NaNs);
+- the synthetic slice (the C++ CSV reader bit for bit against libc's
+  ``strtof`` on decimals beside float32 rounding midpoints; the ported
+  example ``python -m mgr_tpu_torch.examples.synthetic_end_to_end`` at its
+  defaults for 2 epochs; a learning run on the example's corpus with noise
+  and dropout 0 that must decode its train split to an accuracy of at
+  least 0.9; a synthetic speech corpus of 80 CSVs through ``train
+  speech``, ``decode speech`` and ``score`` at full width);
+- the examples slice (the four learning drivers of
+  ``mgr_tpu_torch/examples`` at full width for 2 epochs on a few files;
+  each JSON row's keys and finite losses, K1-K4 counted per run);
+- the fusion slice (early fusion trained by ``fit`` and decoded; speech
+  and skeletal donors trained, grafted into late fusion, ``fit`` over the
+  frozen encoders, decode and evaluate; each family's step launches, its
+  kernel step against the plain one, a learning check);
+- the rgb slice (40 seeded videos on disk, ``fit`` with remat, decode to
+  MLF, evaluate, B=1 ``infer rgb``; the step's launches and peak memory,
+  its kernel step against the plain one, a learning check);
+- the prepare slice (seeded raw recordings at the reference's sizes:
+  ``prepare-audio``, ``prepare-skeletal --split-at``, ``prepare-rgb`` and
+  ``mix`` through the CLI; each featurizer's card output against its CPU
+  output; ``train speech`` and ``decode speech`` on the prepared corpus);
+- the mesh slice (a mesh train and eval step at full speech width on 2x1,
+  1x2 and 2x2 meshes of gloo ranks that time-share the one card, against
+  the single-process step, and ``fit`` over the 2x2 mesh);
+- the mesh slice of every family (early fusion, late fusion and rgb on
+  2x2 and rgb on 2x1 against the single-process step, speech and late
+  fusion decoded over both meshes, ``run_curriculum`` over 2x1);
+- the GSPMD slice (speech with noise and dropout on over 1x4, 2x1x2 and
+  1x2x2 meshes of gloo ranks sharing the card, one train step each
+  against the single-process step with the same draws, its launches and
+  all-reduces; the other families one step each on 1x4 with their
+  encoders at depth 1; ``fit`` over 1x2x2, its slot decoded bit for bit
+  as the ranks' parameters);
+- the bench (``mgr_tpu_torch.bench`` at the JAX bench's defaults for
+  every pipeline, speech's ``--latency`` and the CLI's ``bench`` in a
+  subprocess: each line has the JAX line's keys and positive rates, its
+  launches those of its steps);
+- the dryrun (``entry.dryrun_multichip(8)`` and ``(2)`` on gloo ranks
+  sharing the card, each rank 0's launches its route's kernels);
+
+then a JSON line of the kernel table (each kernel's times and bounds and
+its launches on every path) and last ``{"ok": true, "device":
 {"platform": "gpu", ...}}``. Any failed phase or rank raises, so the exit
 code is not 0 and the last line is never printed. There is no CPU
 fallback: without a CUDA device the script fails.
@@ -99,6 +95,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -114,6 +111,8 @@ for _name in ("jax", "flax", "msgpack", "pandas", "mgr_tpu"):
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from benchmark.roofline import ctc_bound, ctc_visits, lstm_bound  # noqa: E402
 
 SEED = 0
 KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd", "lstm_tm_bwd",
@@ -146,7 +145,10 @@ N_NAN_FILES = 5        # `train --debug-nans` at B=2: 2 train batches, every fil
 FIT_KERNELS = {"bilstm_tm_fwd": "lstm_fwd_kernel", "bilstm_tm_bwd": "lstm_bwd_kernel",
                "ctc_fwd": "ctc_fwd_kernel", "ctc_bwd": "ctc_bwd_kernel"}
 B_K5 = (32, 128)       # K5 at the preset's batch (a 1x2 mesh rank) and at B=128
-K6_CASES = ((2, 32), (2, 128), (1, 32))  # (directions, B) of K6 at T=1900, H=500
+K5_FAM_SHAPES = ((4, 512), (16, 100), (16, 500), (16, 300))  # (rows a rank, H) of K5
+                       # on 2x2: rgb, the fusion layer, early fusion and the speech
+                       # encoder, the skeletal encoder
+B_K6 = (32, 128)       # K6 of both directions at T=1900, H=500
 MESHES = ((2, 1), (1, 2), (2, 2))  # (data, model): DP only, TP only, DP x TP
 N_MESH_TRAIN, N_MESH_VAL = 64, 32  # fit over the 2x2 mesh: 2 train + 1 val batch
 MESH_TIMEOUT_S = 420   # per mesh run, ranks started to ranks joined
@@ -157,24 +159,20 @@ FAM_MESHES = ((2, 2), (2, 1))
 FAM_TRAIN = {(2, 2): ("early_fusion", "late_fusion", "rgb"), (2, 1): ("rgb",)}
 FAM_DECODE = {"speech": 128, "late_fusion": 32}  # global B of each mesh decode
 FAM_SEED = {"early_fusion": 40, "late_fusion": 41, "rgb": 42, "speech": 43}
-K5_FAM_SHAPES = ((4, 512), (16, 100), (16, 500), (16, 300))  # (rows a rank, H) of K5
-                       # on 2x2: rgb, the fusion layer, early fusion and the speech
-                       # encoder, the skeletal encoder
 # The gspmd phase: speech at full width with noise and dropout on (one key),
 # global B=8, on the GSPMD route's meshes (data, model, time): H-blocks of
 # 125 (1x4), time slices of 950 with K1/K2 on every rank (2x1x2), H over 2
-# and time (1x2x2, not the direction-sharded route); two train steps each
-# (the first held against one process, both timed). The other families one
-# step each on 1x4 at global B=2 (rgb's H=512 in blocks of 128), their
-# encoders cut to depth 1: gloo's all-reduce over 4 ranks takes ~6 ms on
-# the one-card machine, and a step of depth 2 makes 7,600 of them. fit
-# over 1x2x2 on 8 + 8 files (1 train + 1 val batch).
+# and time (1x2x2, not the direction-sharded route); one train step each,
+# held against one process. The other families one step each on 1x4 at
+# global B=2 (rgb's H=512 in blocks of 128), their encoders cut to depth 1:
+# gloo's all-reduce over 4 ranks takes ~6 ms on the one-card machine, and a
+# step of depth 2 makes 7,600 of them. fit over 1x2x2 on 8 + 8 files (1
+# train + 1 val batch).
 GSPMD_MESHES = ((1, 4, 1), (2, 1, 2), (1, 2, 2))
 GSPMD_B, GSPMD_FAM_B = 8, 2
 GSPMD_FAM_MESH, GSPMD_FIT_MESH = (1, 4, 1), (1, 2, 2)
 GSPMD_FAM_DEPTH = 1
 N_GSPMD_TRAIN, N_GSPMD_VAL = 8, 8
-N_EXCHANGE = 50        # all-reduces timed at the exchange's shape, per rank
 GSPMD_TIMEOUT_S = 600  # per mesh run, ranks started to ranks joined
 N_FUS_TRAIN, N_FUS_VAL, FUS_EPOCHS = 64, 32, 2  # the fusion slice: 2 train + 1 val batch
 H_FUS = 100            # the late-fusion BiLSTM over the 1600-wide encoder concat
@@ -197,7 +195,7 @@ TOL_ROI = 1e-3         # ROI crops on the 0-255 scale (f32 products in another o
 # The synthetic slice: the example's corpus and widths (B=2, T=64, BiLSTM(16)x2)
 # with input noise and dropout 0, trained until it decodes its train split
 # (the JAX package reaches accuracy 1.0 at 1000 epochs in f32 on the CPU);
-# the speech corpus the CSV reader was timed on (80 files, ~36 MB).
+# the speech corpus read by the CSV reader and by np.loadtxt (80 files, ~36 MB).
 SYN_LEARN_EPOCHS = 1000
 SYN_MIN_ACCURACY = 0.9
 SYN_MID_ROWS = 5000    # the reader's file: 5,000 rows x 39 values beside f32 midpoints
@@ -252,22 +250,21 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "spread",
 LATENCY_KEYS = {"metric", "value", "unit", "vs_baseline", "spread", "pipeline", "batch"}
 BENCH_CLI_TIMEOUT_S = 300
 DRYRUN_RANKS = (8, 2)
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
-# the least time of a kernel is the larger of its bytes over the memory rate
-# and its operations over the peak of their type.
-HBM_BYTES_S = 3.35e12
-BF16_FLOPS = 989e12    # the recurrences multiply bf16 values (f32 sums)
-F32_FLOPS = 67e12      # the CTC recursions: f32 outside the tensor cores
-CTC_FWD_OPS = 13       # f32 ops per lattice state and step: max of 3 (2), 3 subtractions,
-                       # 3 exp, 2 adds, log, add, + emission
-CTC_BWD_OPS = 17       # the same beta recursion, + the occupancy (add, sub, exp) and its sum
+
+_since = [time.perf_counter()]  # when the last phase line was printed
 
 
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """A phase's JSON line, with the seconds since the last one: its own
+    time when ``main`` runs the phases in turn, which budgets the script
+    against its time limit and measures no path."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": name, **fields, "seconds": now - _since[0]}), flush=True)
+    _since[0] = now
 
 
 def cuda_time_ms(fn, reps: int) -> float:
+    """ms a call of ``fn``: CUDA events around ``reps`` calls."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -277,42 +274,87 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float, peak: float) -> dict:
-    """The least time the card could take: bytes moved (each input read
-    once, each output written once) over the memory rate, or operations
-    over the peak rate of their type, whichever is larger."""
-    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / peak
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+def _timed(fn):
+    """fn()'s result and its time in ms (CUDA events around one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
-def lstm_bound(T, B, H, *, dirs, backward, store_c):
-    """K1/K5a (forward: one (B,H)x(H,4H) product per step and direction)
-    and K2/K5b (backward: two), bf16 operands."""
-    products = 2 if backward else 1
-    ops = dirs * T * products * 2 * B * H * 4 * H
-    xp, stream, u = T * B * 4 * H * 2, T * B * H * 2, H * 4 * H * 2
-    if backward:  # xp, U, hs, cs, dhs in; dz out
-        nbytes = dirs * (xp + u + 3 * stream + xp)
-    else:  # xp, U in; hs (and cs) out
-        nbytes = dirs * (xp + u + (2 if store_c else 1) * stream)
-    return bound(nbytes, ops, BF16_FLOPS)
+def _tensors(out) -> tuple:
+    return out if isinstance(out, (tuple, list)) else (out,)
 
 
-def ctc_bound(lp, in_len, lab_len, N, *, backward, store=False):
-    """K3 (loss only, or with ``store`` the alpha store too) / K4, from this
-    run's lengths: the recursion visits 2L+1 lattice states for each of a
-    sequence's valid frames."""
-    T, B, K = lp.shape
-    visits = float((in_len.double() * (2 * lab_len.double() + 1)).sum())
-    lp_bytes, lens = T * B * K * 4, B * N * 4 + 2 * B * 4
-    alpha_bytes = T * B * (2 * N + 1) * 4  # alpha_phi (T, B, N+1) and alpha_emit (T, B, N)
-    if backward:  # lp, both alpha stores, labels, lengths, two seeds in; d lp out
-        nbytes = lp_bytes + alpha_bytes + lens + 2 * B * 4 + lp_bytes
-        return bound(nbytes, CTC_BWD_OPS * visits, F32_FLOPS)
-    # lp, labels, lengths in; the loss (and the alphas) out
-    nbytes = lp_bytes + lens + B * 4 + (alpha_bytes if store else 0)
-    return bound(nbytes, CTC_FWD_OPS * visits, F32_FLOPS)
+def _timing(kernel, plain, lim: dict, what: str, check, reps: int = 5) -> dict:
+    """A kernel's ms a launch beside its plain version's (one call) and its
+    least time on this card (``benchmark/roofline.py``), and the share of
+    that least time the kernel reaches. The outputs timed are held to each
+    other: ``check(what, got, want)`` returns the errors it read and raises
+    past a tolerance; a second launch must give the first one's bits. The
+    kernel's first call, the one checked, pays its first-call costs before
+    the timed ones."""
+    got = kernel()
+    ms = cuda_time_ms(kernel, reps)
+    want, plain_ms = _timed(plain)
+    errors = check(what, got, want)
+    if not all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(kernel()))):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    return {"ms": ms, "plain_ms": plain_ms, **lim, "share": lim["bound_ms"] / ms, **errors}
+
+
+def _held(what: str, got, errors: dict, tol: float) -> dict:
+    """``errors``, once every output in ``got`` is finite and every error
+    within ``tol``; else raises."""
+    if not all(torch.isfinite(g.float()).all() for g in _tensors(got)) or \
+            not max(errors.values()) <= tol:
+        raise AssertionError(f"{what} disagrees with its plain version: {errors} (tol {tol})")
+    return {**errors, "tol": tol}
+
+
+def _streams_check(what: str, got, want) -> dict:
+    """K1/K5a/K6a: each stored stream (h, and c) within TOL_K1_H."""
+    return _held(what, got, {"max_abs_err_h_c": max(
+        float((g.float() - w.float()).abs().max())
+        for g, w in zip(_tensors(got), _tensors(want)))}, TOL_K1_H)
+
+
+def _dz_check(what: str, dz, dz_want, dU, dU_want, *, fro: bool) -> dict:
+    """K2/K5b/K6b: each dz within TOL_K2_REL of its largest |dz| (with
+    ``fro`` in relative Frobenius norm: a recomputed z within an ulp of
+    +-2.5 gets the hard sigmoid's slope 0.2 on one side and 0 on the
+    other, which moves that one dz entry by its own size), and dU in
+    relative Frobenius norm."""
+    def rel(g, w):
+        d, w = g.float() - w.float(), w.float()
+        return float(d.norm() / w.norm()) if fro else float(d.abs().max() / w.abs().max())
+    errors = {"dz_fro_rel" if fro else "dz_max_rel": max(rel(g, w) for g, w in zip(dz, dz_want)),
+              "dU_fro_rel": float((dU - dU_want).norm() / dU_want.norm())}
+    return _held(what, dz, errors, TOL_K2_REL)
+
+
+def _ctc_fwd_check(what: str, got, want) -> dict:
+    """K3: the loss (and the stored alphas) relative to max(1, |.|)."""
+    return _held(what, got, {"max_rel_err": max(
+        float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+        for g, w in zip(_tensors(got), _tensors(want)))}, TOL_K3_REL)
+
+
+def _ctc_bwd_check(in_len):
+    """K4: d log_probs within TOL_K4, zero past each length, and each valid
+    frame's gradient summing to -1 within TOL_FRAME_SUM (the occupancies of
+    a frame sum to 1; the seeds are the loss's)."""
+    def check(what, got, want):
+        valid = torch.arange(got.shape[0], device=got.device)[:, None] < in_len[None, :]
+        frame_sum = float((got.sum(-1)[valid] + 1.0).abs().max())
+        errors = _held(what, got, {"max_abs_err": float((got - want).abs().max())}, TOL_K4)
+        if frame_sum > TOL_FRAME_SUM or not bool((got[~valid] == 0).all()):
+            raise AssertionError(f"{what}: frame sums off by {frame_sum} (tol {TOL_FRAME_SUM}) "
+                                 "or a nonzero gradient past a length")
+        return {**errors, "frame_sum_err": frame_sum, "tol_frame_sum": TOL_FRAME_SUM}
+    return check
 
 
 def library_ctc_ms(lp, labels, in_len, lab_len, blank, *, backward: bool) -> float:
@@ -349,28 +391,20 @@ def device_phase() -> str:
     return name
 
 
-def build_phase() -> float:
+def build_phase() -> None:
     """Builds the kernels (one nvcc per source) and the host CSV parser
-    (the host C++ compiler), all started together; returns the parser's
-    build seconds."""
+    (the host C++ compiler), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mgr_tpu_torch.kernels import build
 
     from mgr_tpu_torch.ops import dispatch
 
-    def host_build() -> float:
-        t = time.perf_counter()
-        build.load_host("fastcsv")
-        return time.perf_counter() - t
-
     sources = sorted({dispatch.SOURCES[name] for name in KERNELS})
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        host = pool.submit(host_build)
+        host = pool.submit(build.load_host, "fastcsv")
         build.load_all(sources)  # one nvcc per source, all started together
-        fastcsv_s = host.result()
-    secs = time.perf_counter() - t0
+        host.result()
     ptxas = {
         name: [ln.strip() for ln in build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
@@ -388,210 +422,108 @@ def build_phase() -> float:
     for name in ("bilstm_tm_fwd", "bilstm_tm_bwd"):
         if sass[name]["HMMA"] + sass[name]["HGMMA"] == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its SASS: {sass[name]}")
-    phase("build", seconds=secs, fastcsv_build_s=fastcsv_s, ptxas=ptxas,
-          sass_tensor_core_instructions=sass)
-    return fastcsv_s
+    phase("build", ptxas=ptxas, sass_tensor_core_instructions=sass)
+
+
+def _lstm_inputs(dev, lead, H, dirs=2):
+    """Seeded bf16 inputs of a recurrence launch, made on the card: the
+    projections (dirs, *lead, 4, H) with a unit forget bias, as after the
+    projection, U (dirs, H, 4, H) and the cotangents of h (dirs, *lead, H).
+    ``lead`` is (T, B) for the time-major kernels, (B, T) for K6."""
+    from mgr_tpu_torch.ops.lstm import init_bilstm_params
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    xp = 0.5 * torch.randn((dirs, *lead, 4, H), generator=gen, device=dev)
+    xp[..., 1, :] += 1.0
+    U = init_bilstm_params(torch.Generator().manual_seed(SEED), 8, H)["U"][:dirs]
+    dhs = 1e-2 * torch.randn((dirs, *lead, H), generator=gen, device=dev)
+    bf = torch.bfloat16
+    return xp.to(bf), U.to(dev, bf), dhs.to(bf)
 
 
 def k1_phase(dev) -> dict:
+    """K1 at T=1900, H=500, timed and checked beside its plain version at
+    B_STEP (B=1: the per-step floor of barrier and latency; the train
+    batch; B=128)."""
     from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm
-    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_plain, init_bilstm_params
+    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_plain
 
-    rng = np.random.default_rng(SEED)
-    xps = []
-    for _ in range(2):
-        xp = 0.5 * rng.standard_normal((T_K1, B_K1, 4, H_K1), dtype=np.float32)
-        xp[:, :, 1, :] += 1.0  # unit forget bias, as after the projection
-        xps.append(torch.from_numpy(xp).to(dev, torch.bfloat16))
-    gen = torch.Generator().manual_seed(SEED)
-    U = init_bilstm_params(gen, 8, H_K1)["U"].to(dev, torch.bfloat16)
-
-    got = bilstm_tm(xps[0], xps[1], U)
-    want = bilstm_scan_tm_plain(xps[0], xps[1], U)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    # Edge shapes of the same kernel: B=1 (infer), a partial second batch
-    # tile (B=130), three launches of at most 256 rows (B=520), an odd H
-    # (padded by the wrapper); c streams stored.
-    for T, B, H in ((64, 1, 500), (64, 130, 300), (32, 520, 64), (64, 3, 7)):
-        xe = torch.from_numpy(
-            0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
-        ).to(dev, torch.bfloat16)
-        Ue = init_bilstm_params(gen, 8, H)["U"].to(dev, torch.bfloat16)
-        ge = bilstm_tm(xe[0], xe[1], Ue, store_c=True)
-        we = bilstm_scan_tm_plain(xe[0], xe[1], Ue, store_c=True)
-        torch.cuda.synchronize()
-        err = max([err] + [float((g - w).abs().max()) for g, w in zip(ge, we)])
-    if not all(torch.isfinite(g).all() for g in got) or err > TOL_K1_H:
-        raise AssertionError(f"K1 disagrees with its plain version: max |dh| {err} > {TOL_K1_H}")
-    again = bilstm_tm(xps[0], xps[1], U)
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("K1: two launches on the same inputs differ")
-    plain_ms = cuda_time_ms(lambda: bilstm_scan_tm_plain(xps[0], xps[1], U), reps=1)
-    lim = lstm_bound(T_K1, B_K1, H_K1, dirs=2, backward=False, store_c=False)
-    # Per-step cost at B=1 (the floor: barrier and latency), the train batch
-    # (the shape at which fit's launches are counted) and B=128.
     per_b = {}
     for B in B_STEP:
-        xb = [x[:, :B].contiguous() for x in xps]
-        ms_b = cuda_time_ms(lambda: bilstm_tm(xb[0], xb[1], U), reps=5)
-        per_b[B] = {"ms": ms_b, "ms_per_step": ms_b / T_K1,
-                    **lstm_bound(T_K1, B, H_K1, dirs=2, backward=False, store_c=False)}
-    ms = per_b[B_K1]["ms"]
-    phase("k1_bilstm_tm_fwd", B=B_K1, T=T_K1, H=H_K1, max_abs_err_h=err,
-          tol=TOL_K1_H, bit_identical_launches=True, ms=ms, plain_ms=plain_ms, **lim,
-          per_B={f"B={b}": v for b, v in per_b.items()},
-          step_floor_ms=per_b[1]["ms_per_step"])
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
-            "ms_b32": per_b[B_K2]["ms"]}
+        xp, U, _ = _lstm_inputs(dev, (T_K1, B), H_K1)
+        per_b[f"B={B}"] = t = _timing(
+            lambda: bilstm_tm(xp[0], xp[1], U), lambda: bilstm_scan_tm_plain(xp[0], xp[1], U),
+            lstm_bound(T_K1, B, H_K1, dirs=2, backward=False, store_c=False),
+            f"K1 at B={B}", _streams_check)
+        t["ms_per_step"] = t["ms"] / T_K1
+    out = {**per_b[f"B={B_K1}"], "library_ms": None, "per_B": per_b}
+    phase("k1_bilstm_tm_fwd", T=T_K1, H=H_K1, **out)
+    return out
 
 
 def k3_phase(dev) -> dict:
-    """K3 loss-only against its plain version at B=128, T'=1898, K=44,
-    N=150, timed; two launches bit-identical; and timed with the alpha
-    store at the train batch (B=32), the launch the train path makes (its
-    alphas are held to the plain version's in the k4 phase)."""
+    """K3 at T'=1898, K=44, N=150: loss only at B=128, timed and checked
+    beside its plain version, and beside ``ctc_loss``; and with the alpha
+    store at the train batch (B=32), the launch the train path makes."""
     from mgr_tpu_torch.kernels.ctc import NAME, ctc_alpha_loss, launch_shape
     from mgr_tpu_torch.ops.ctc import ctc_alpha_loss_plain
 
-    rng = np.random.default_rng(SEED + 1)
-    logits = rng.standard_normal((T_K3, B_K3, K_K3), dtype=np.float32)
-    lp = torch.log_softmax(torch.from_numpy(logits).to(dev), dim=-1)
     blank = K_K3 - 1
-    lab_len = rng.integers(1, N_K3 + 1, size=B_K3)
-    lab_len[0], lab_len[1], lab_len[2] = 0, N_K3, 1  # all-blank, full, single
-    in_len = rng.integers(2 * N_K3 + 2, T_K3 + 1, size=B_K3)
-    in_len[1] = T_K3
-    labels = np.full((B_K3, N_K3), -1, np.int32)
-    for b in range(B_K3):
-        seq = rng.integers(0, blank, size=lab_len[b])
-        if b % 3 == 0 and lab_len[b] > 1:  # runs of repeated labels
-            seq[1::2] = seq[0::2][: len(seq[1::2])]
-        labels[b, : lab_len[b]] = seq
-    args = [torch.from_numpy(a).to(dev) for a in
-            (labels, in_len.astype(np.int32), lab_len.astype(np.int32))]
-
-    got = ctc_alpha_loss(lp, *args, blank)
-    want = ctc_alpha_loss_plain(lp, *args, blank)
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    rel = float((diff / want.abs().clamp_min(1.0)).max())
-    if not torch.isfinite(got).all() or rel > TOL_K3_REL:
-        raise AssertionError(f"K3 disagrees with its plain version: rel {rel} > {TOL_K3_REL}")
-    lp32, args32 = lp[:, :B_K4].contiguous(), [a[:B_K4].contiguous() for a in args]
-    stored = ctc_alpha_loss(lp32, *args32, blank, store_alphas=True)
-    if not (torch.equal(got, ctc_alpha_loss(lp, *args, blank)) and all(
-            torch.equal(a, b) for a, b in
-            zip(stored, ctc_alpha_loss(lp32, *args32, blank, store_alphas=True)))):
-        raise AssertionError("K3: two launches on the same inputs differ")
-    ms = cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank), reps=20)
-    plain_ms = cuda_time_ms(lambda: ctc_alpha_loss_plain(lp, *args, blank), reps=1)
-    lib_ms = library_ctc_ms(lp, *args, blank, backward=False)
-    lim = ctc_bound(lp, args[1], args[2], N_K3, backward=False)
-    store_ms = cuda_time_ms(
-        lambda: ctc_alpha_loss(lp32, *args32, blank, store_alphas=True), reps=20)
-    store_lim = ctc_bound(lp32, args32[1], args32[2], N_K3, backward=False, store=True)
-    phase("k3_ctc_fwd", B=B_K3, T=T_K3, K=K_K3, N=N_K3,
-          max_abs_err_loss=float(diff.max()), max_rel_err_loss=rel, tol_rel=TOL_K3_REL,
-          bit_identical_launches=True, launch=launch_shape(NAME, N_K3, K_K3),
-          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim,
-          with_alpha_store={"B": B_K4, "ms": store_ms, **store_lim,
-                            "share": store_lim["bound_ms"] / store_ms})
-    return {"max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms, **lim,
-            "library_ms": lib_ms}
+    lp, args, visits = _ctc_inputs(dev, B_K3, K_K3, N_K3, SEED + 1)
+    out = {**_timing(lambda: ctc_alpha_loss(lp, *args, blank),
+                     lambda: ctc_alpha_loss_plain(lp, *args, blank),
+                     ctc_bound(T_K3, B_K3, K_K3, N_K3, visits, backward=False),
+                     "K3", _ctc_fwd_check, reps=20),
+           "library_ms": library_ctc_ms(lp, *args, blank, backward=False)}
+    store = _ctc_at_shape(dev, SEED + 6, B_K4, K_K3, N_K3)["ctc_fwd"]
+    phase("k3_ctc_fwd", B=B_K3, T=T_K3, K=K_K3, N=N_K3, launch=launch_shape(NAME, N_K3, K_K3),
+          **out, with_alpha_store={"B": B_K4, **store})
+    return out
 
 
 def k2_phase(dev) -> dict:
-    """K2 against its plain version at B=32, T=1900, H=500, then the edge
-    shapes K1 is checked at (B=1, a partial tile B=130, three launches
-    B=520, an odd H), and at B=1 and B=128 (T=1900), where it is timed
-    beside B=32; two launches bit-identical. Then both tilings (one and
-    two batch groups, each forced through the wrapper's rule) timed at
-    B_TILINGS, T=1900, their dz bit for bit the same: the numbers behind
-    ``bilstm_tm.GROUPED_MIN_B``."""
+    """K2 at T=1900, H=500, timed and checked beside its plain version at
+    B_STEP; then in both tilings (one and two batch groups, each forced
+    through the wrapper's rule) at B_TILINGS, their dz bit for bit the
+    same: the numbers behind ``bilstm_tm.GROUPED_MIN_B``."""
     from mgr_tpu_torch.kernels import bilstm_tm as k2mod
-    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
-    from mgr_tpu_torch.ops.lstm import (
-        bilstm_scan_tm_bwd_plain, init_bilstm_params, recurrent_weight_grad)
+    from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_bwd_plain, recurrent_weight_grad
 
-    rng = np.random.default_rng(SEED + 5)
-    gen = torch.Generator().manual_seed(SEED + 5)
-    bf = torch.bfloat16
-    worst = {"dz": 0.0, "dU": 0.0}
+    def inputs(B):
+        xp, U, dhs = _lstm_inputs(dev, (T_K1, B), H_K1)
+        streams = k2mod.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+        return (xp[0], xp[1], U, *streams, dhs[0], dhs[1])
 
-    def case(T, B, H):
-        xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
-        xp[:, :, :, 1, :] += 1.0
-        xp = torch.from_numpy(xp).to(dev, bf)
-        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
-        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-        dhs = torch.from_numpy(
-            1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
-        got = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
-        want = bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
-        dU = recurrent_weight_grad(streams[0], streams[1], *got)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want[:2]):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"K2 gave non-finite dz at {(T, B, H)}")
-            rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
-            worst["dz"] = max(worst["dz"], rel)
-        worst["dU"] = max(worst["dU"], float((dU - want[2]).norm() / want[2].norm()))
-        return xp, U, streams, dhs, got, want
-
-    xp, U, streams, dhs, got, want = case(T_K1, B_K2, H_K1)
-    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want[:2]))
-    again = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("K2: two launches on the same inputs differ")
-    for T, B, H in ((64, 1, 500), (64, 130, 300), (32, 520, 64), (64, 3, 7)):
-        case(T, B, H)
-    # Per-step cost at B=1 (the floor), the train batch and B=128, each
-    # timed shape also held against the plain version.
-    timed = {B_K2: (xp, U, streams, dhs)}
-    for B in B_STEP:
-        if B not in timed:
-            timed[B] = case(T_K1, B, H_K1)[:4]
-    if max(worst.values()) > TOL_K2_REL:
-        raise AssertionError(f"K2 disagrees with its plain version: {worst} > {TOL_K2_REL}")
     per_b = {}
     for B in B_STEP:
-        x, u, st, dh = timed[B]
-        ms_b = cuda_time_ms(lambda: bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1]), reps=5)
-        per_b[B] = {"ms": ms_b, "ms_per_step": ms_b / T_K1,
-                    **lstm_bound(T_K1, B, H_K1, dirs=2, backward=True, store_c=False)}
-    ms = per_b[B_K2]["ms"]
-    plain_ms = cuda_time_ms(
-        lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]), reps=1)
-    lim = lstm_bound(T_K1, B_K2, H_K1, dirs=2, backward=True, store_c=False)
-    tilings = {}
-    rule = k2mod.bwd_groups
+        args = inputs(B)
+        per_b[f"B={B}"] = t = _timing(
+            lambda: k2mod.bilstm_tm_bwd(*args), lambda: bilstm_scan_tm_bwd_plain(*args),
+            lstm_bound(T_K1, B, H_K1, dirs=2, backward=True, store_c=False), f"K2 at B={B}",
+            lambda what, got, want: _dz_check(
+                what, got, want[:2], recurrent_weight_grad(args[3], args[4], *got),
+                want[2], fro=False))
+        t["ms_per_step"] = t["ms"] / T_K1
+    tilings, rule = {}, k2mod.bwd_groups
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     try:
         for B in B_TILINGS:
-            x, u, st, dh = timed[B] if B in timed else case(T_K1, B, H_K1)[:4]
-            dz = {}
+            args = inputs(B)
+            row, dz = {"rule": rule(B, H_K1, sms)}, {}
+            tilings[f"B={B}"] = row
             for g in (1, 2):
                 k2mod.bwd_groups = lambda *a, g=g, **k: g
-                dz[g] = bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1])
-                ms_g = cuda_time_ms(lambda: bilstm_tm_bwd(x[0], x[1], u, *st, dh[0], dh[1]),
-                                    reps=3)
-                tilings.setdefault(f"B={B}", {})[f"groups={g}"] = {
-                    "ms": ms_g, "ms_per_step": ms_g / T_K1}
+                dz[g] = k2mod.bilstm_tm_bwd(*args)
+                ms = cuda_time_ms(lambda: k2mod.bilstm_tm_bwd(*args), reps=3)
+                row[f"groups={g}"] = {"ms": ms, "ms_per_step": ms / T_K1}
             if not all(torch.equal(a, b) for a, b in zip(dz[1], dz[2])):
                 raise AssertionError(f"K2: the two tilings give other dz bits at B={B}")
-            tilings[f"B={B}"]["rule"] = rule(B, H_K1, torch.cuda.get_device_properties(
-                dev).multi_processor_count)
     finally:
         k2mod.bwd_groups = rule
-    if max(worst.values()) > TOL_K2_REL:
-        raise AssertionError(f"K2 disagrees with its plain version: {worst} > {TOL_K2_REL}")
-    phase("k2_bilstm_tm_bwd", B=B_K2, T=T_K1, H=H_K1, max_abs_err_dz=abs_err,
-          max_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
-          bit_identical_launches=True, ms=ms, plain_ms=plain_ms, **lim,
-          per_B={f"B={b}": v for b, v in per_b.items()},
-          step_floor_ms=per_b[1]["ms_per_step"], tilings=tilings)
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
-            "ms_b128": per_b[B_K1]["ms"]}
+    out = {**per_b[f"B={B_K2}"], "library_ms": None, "per_B": per_b}
+    phase("k2_bilstm_tm_bwd", T=T_K1, H=H_K1, **out, tilings=tilings,
+          tilings_give_the_same_dz_bits=True)
+    return out
 
 
 def _ctc_batch(rng, B, T, K, N):
@@ -611,62 +543,57 @@ def _ctc_batch(rng, B, T, K, N):
     return labels, in_len.astype(np.int32), lab_len.astype(np.int32)
 
 
-def k4_phase(dev) -> dict:
-    """K3 with the alpha store and K4 against their plain versions at
-    B=32, T'=1898, K=44, N=150, seeded as the loss seeds them (K4 on the
-    plain version's alphas); two K4 launches on K3's alphas bit-identical
-    (no atomics: repeated labels sum in column order), and timed."""
-    from mgr_tpu_torch.kernels.ctc import BWD_NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape
+def _ctc_inputs(dev, B, K, N, seed):
+    """Seeded log-probs (T', B, K) and ``_ctc_batch``'s labels and lengths
+    on the card, and the lattice states the recursion visits for them."""
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((T_K3, B, K), dtype=np.float32)).to(dev), dim=-1)
+    labels, in_len, lab_len = _ctc_batch(rng, B, T_K3, K, N)
+    args = [torch.from_numpy(a).to(dev) for a in (labels, in_len, lab_len)]
+    return lp, args, ctc_visits(in_len, lab_len)
+
+
+@functools.cache  # k3_phase and k4_phase share the speech shape's launches
+def _ctc_at_shape(dev, seed, B, K, N) -> dict:
+    """K3 with its alpha store and K4 at T'=1898, B rows, K classes and N
+    labels, K4 on K3's alphas as the train path hands them over
+    (row-pitched: no layout copy in front of the launch), seeded as the
+    loss seeds it: each timed and checked beside its plain version, and
+    beside ``ctc_loss``."""
+    from mgr_tpu_torch.kernels.ctc import (
+        BWD_NAME, NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape)
     from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
 
-    rng = np.random.default_rng(SEED + 6)
-    logits = rng.standard_normal((T_K3, B_K4, K_K3), dtype=np.float32)
-    lp = torch.log_softmax(torch.from_numpy(logits).to(dev), dim=-1)
-    blank = K_K3 - 1
-    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B_K4, T_K3, K_K3, N_K3)]
-    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
-    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
-    torch.cuda.synchronize()
-    alpha_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
-                    for g, w in zip(got, want))
-    loss, a_phi, a_emit = want
-    rows = torch.arange(B_K4, device=dev)
-    L = args[2].long()
+    lp, args, visits = _ctc_inputs(dev, B, K, N, seed)
+    blank = K - 1
+    loss, a_phi, a_emit = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
+    rows, L = torch.arange(B, device=dev), args[2].long()
     g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
     g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
-    bwd_args = (lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
-    d_got = ctc_alpha_bwd(*bwd_args)
-    d_want = ctc_alpha_bwd_plain(*bwd_args)
-    torch.cuda.synchronize()
-    d_err = float((d_got - d_want).abs().max())
-    # Each valid frame's gradient sums to -1 (the posterior occupancies of
-    # the frame sum to 1); frames past the length are exactly 0.
-    t_idx = torch.arange(T_K3, device=dev)[:, None]
-    valid = t_idx < args[1][None, :]
-    frame_sum_err = float((d_got.sum(-1)[valid] + 1.0).abs().max())
-    past_zero = bool((d_got[~valid] == 0).all())
-    if (alpha_err > TOL_K3_REL or d_err > TOL_K4 or frame_sum_err > TOL_FRAME_SUM
-            or not past_zero):
-        raise AssertionError(
-            f"K3 alphas / K4 disagree with their plain versions: alpha rel {alpha_err} "
-            f"(tol {TOL_K3_REL}), d lp {d_err} (tol {TOL_K4}), frame sums "
-            f"{frame_sum_err} (tol {TOL_FRAME_SUM}), zero past the length {past_zero}")
-    # Timed and repeated on K3's own alphas, as the train path hands them
-    # over (row-pitched: no layout copy in front of the launch).
-    own_args = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
-    d_own = ctc_alpha_bwd(*own_args)
-    if not torch.equal(d_own, ctc_alpha_bwd(*own_args)):
-        raise AssertionError("K4: two launches on the same inputs differ")
-    ms = cuda_time_ms(lambda: ctc_alpha_bwd(*own_args), reps=20)
-    plain_ms = cuda_time_ms(lambda: ctc_alpha_bwd_plain(*bwd_args), reps=1)
-    lib_ms = library_ctc_ms(lp, *args, blank, backward=True)
-    lim = ctc_bound(lp, args[1], args[2], N_K3, backward=True)
-    phase("k4_ctc_bwd", B=B_K4, T=T_K3, K=K_K3, N=N_K3, alpha_max_rel_err=alpha_err,
-          tol_alpha_rel=TOL_K3_REL, max_abs_err_dlp=d_err, tol=TOL_K4,
-          frame_sum_err=frame_sum_err, tol_frame_sum=TOL_FRAME_SUM,
-          bit_identical_launches=True, launch=launch_shape(BWD_NAME, N_K3, K_K3),
-          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
-    return {"max_abs_err": d_err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": lib_ms}
+    bwd = (lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
+    return {
+        "ctc_fwd": {
+            **_timing(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True),
+                      lambda: ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True),
+                      ctc_bound(T_K3, B, K, N, visits, backward=False, store=True),
+                      f"K3 at K={K}, N={N}", _ctc_fwd_check, reps=20),
+            "launch": launch_shape(NAME, N, K),
+            "library_ms": library_ctc_ms(lp, *args, blank, backward=False)},
+        "ctc_bwd": {
+            **_timing(lambda: ctc_alpha_bwd(*bwd), lambda: ctc_alpha_bwd_plain(*bwd),
+                      ctc_bound(T_K3, B, K, N, visits, backward=True),
+                      f"K4 at K={K}, N={N}", _ctc_bwd_check(args[1]), reps=20),
+            "launch": launch_shape(BWD_NAME, N, K),
+            "library_ms": library_ctc_ms(lp, *args, blank, backward=True)},
+    }
+
+
+def k4_phase(dev) -> dict:
+    """K4 at B=32, T'=1898, K=44, N=150 (``_ctc_at_shape``)."""
+    out = _ctc_at_shape(dev, SEED + 6, B_K4, K_K3, N_K3)["ctc_bwd"]
+    phase("k4_ctc_bwd", B=B_K4, T=T_K3, K=K_K3, N=N_K3, **out)
+    return out
 
 
 @contextlib.contextmanager
@@ -724,14 +651,8 @@ def slice_phase(dev) -> dict:
 
     dec = Decoder.for_model(model, "speech")
     eval_step = make_eval_step(model)
-    dec.decode_batches(batches[:1])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-
     dispatch.reset_launch_counts()
-    t0 = time.perf_counter()
     results = dec.decode_batches(batches)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         mlf_path = os.path.join(tmp, MLF_FILENAMES["speech"])
         dec.write_mlf(mlf_path, results)
@@ -740,11 +661,7 @@ def slice_phase(dev) -> dict:
     losses = [float(eval_step(b)) for _, b in batches]
     x1, true_len = pad_or_truncate(feats[0][: T - 300], T)
     one = {"inputs": x1[None], "input_length": np.asarray([true_len - trim], np.int32)}
-    infer_ms = []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        tokens = dec.decode_batches([((ids[0],), one)])
-        infer_ms.append(1e3 * (time.perf_counter() - t1))
+    tokens = dec.decode_batches([((ids[0],), one)])
     launches = {k: v for k, v in dispatch.launch_counts().items()
                 if k in ("bilstm_tm_fwd", "ctc_fwd")}
 
@@ -773,19 +690,8 @@ def slice_phase(dev) -> dict:
             f"slice disagrees with the plain path: logits {d_logits} (tol {TOL_LOGITS}), "
             f"loss rel {d_loss} (tol {TOL_LOSS_REL})")
 
-    # Decode throughput at B=128 (one batch of the same files).
-    big = {"inputs": feats[:128], "input_length": in_len[:128]}
-    dec.decode_batches([(ids[:128], big)])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    dec.decode_batches([(ids[:128], big)])
-    torch.cuda.synchronize()
-    seqs_s_128 = len(big["inputs"]) / (time.perf_counter() - t2)
-
     phase("slice", pipeline="speech", B=B_SLICE, T=T, files=N_FILES,
-          launches=launches, decode_seq_per_s_b32=N_FILES / decode_s,
-          decode_seq_per_s_b128=seqs_s_128,
-          infer_b1_ms_median=float(np.median(infer_ms)), mlf_entries=n_mlf,
+          launches=launches, mlf_entries=n_mlf,
           accuracy=metrics["accuracy"], eval_loss_mean=float(np.mean(losses)),
           logits_max_abs_err=d_logits, tol_logits=TOL_LOGITS,
           loss_rel_err=d_loss, tol_loss_rel=TOL_LOSS_REL)
@@ -807,8 +713,8 @@ def _speech_corpus(cfg, n, seed):
 
 def train_phase(dev) -> dict:
     """The training slice at the full speech width: fit() for 3 epochs on
-    an in-memory corpus (launch counts of all four kernels), the train
-    step's wall time, the best slot reloaded and decoded, one train step
+    an in-memory corpus (launch counts of all four kernels) and its peak
+    card memory, the best slot reloaded and decoded, one train step
     through the kernels against the same step through the plain versions
     (same parameters, same masks), and a learning check."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
@@ -832,11 +738,9 @@ def train_phase(dev) -> dict:
 
     with tempfile.TemporaryDirectory() as workdir:
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         res = fit(model, data, workdir=workdir, epochs=EPOCHS)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
         launches = dispatch.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         one_process = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
         if min(launches[k] for k in one_process) <= 0 or any(
                 v for k, v in launches.items() if k not in one_process):
@@ -851,20 +755,10 @@ def train_phase(dev) -> dict:
         if len(decoded) != B:
             raise AssertionError(f"the best slot decoded {len(decoded)} of {B}")
 
-    # The train step's wall time (host clock around steps ending in a sync).
     state = step_lib.create_train_state(model)
     train_step = step_lib.make_train_step(model)
     batch = next(iter(data.epoch(B, train=True, shuffle_seed=0)))[1]
     key = prng.fold_name(prng.root_key(SEED), "dropout")
-    walls = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, m = train_step(state, batch, prng.fold_in(key, i))
-        float(m["loss"])
-        walls.append(time.perf_counter() - t1)
-    step_s = float(np.median(walls[1:]))
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
 
     # One step through the kernels and through the plain versions, from
     # the same parameters and the same masks (the draws depend on the key).
@@ -880,12 +774,9 @@ def train_phase(dev) -> dict:
         raise AssertionError(f"no learning: eval loss {before} -> {after}")
 
     phase("train", pipeline="speech", B=B, T=cfg.maxlen, H=cfg.encoder.hidden,
-          files_train=N_TRAIN, files_val=N_VAL, epochs=EPOCHS, fit_s=fit_s,
-          launches=launches,
+          files_train=N_TRAIN, files_val=N_VAL, epochs=EPOCHS, launches=launches,
           epoch_train_loss=[h["train_loss"] for h in res.history],
-          epoch_val_loss=[h["val_loss"] for h in res.history],
-          epoch_seq_per_s=[h["seqs_per_sec"] for h in res.history],
-          step_wall_ms_median=1e3 * step_s, step_seq_per_s=B / step_s, peak_mem_gb=peak_gb,
+          epoch_val_loss=[h["val_loss"] for h in res.history], peak_mem_gb=peak_gb,
           **check, tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
           learning_check={"eval_loss_before": before, "eval_loss_after": after,
                           "steps": LEARN_STEPS})
@@ -980,10 +871,8 @@ def fit_path_phase(dev) -> dict:
     In memory (the training slice's 64 + 32 files, 2 epochs a run, from
     the same weights): the host path against the device path (parameters
     bit-identical, the same launches), the device path with synchronous
-    and asynchronous checkpoints (epoch walls; the slots' bytes equal),
-    sync_every 1 against 2 without a workdir (bit-identical); the input
-    copy (host) and the row gather (device) timed with CUDA events, and
-    each path's step wall. Then, on disk (80 seeded files): ``train
+    and asynchronous checkpoints (the slots' bytes equal), sync_every 1
+    against 2 without a workdir (bit-identical). Then, on disk (80 seeded files): ``train
     speech --cache-dir --trace-dir --async-checkpoints`` (the trace must
     hold K1-K4's kernels; a second corpus build from the cache equals a
     build from the CSVs), ``decode speech`` of a workdir of a msgpack slot
@@ -993,13 +882,11 @@ def fit_path_phase(dev) -> dict:
     import shutil
 
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
-    from mgr_tpu_torch.core import prng
     from mgr_tpu_torch.core.config import get_preset
     from mgr_tpu_torch.data import datasets
     from mgr_tpu_torch.data.batcher import Batcher
     from mgr_tpu_torch.models.zoo import build_model
     from mgr_tpu_torch.ops import dispatch
-    from mgr_tpu_torch.train import step as step_lib
     from mgr_tpu_torch.train.loop import fit
 
     cfg = get_preset("speech")
@@ -1021,15 +908,9 @@ def fit_path_phase(dev) -> dict:
             kw.setdefault("workdir", os.path.join(root, tag))
             model.load_state_dict(init)
             dispatch.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             res = fit(model, data, epochs=FIT_EPOCHS, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
             params[tag] = {k: v.detach().clone() for k, v in res.state.params.items()}
-            runs[tag] = {"fit_s": wall, "epoch_s": wall / FIT_EPOCHS,
-                         "record_wall_s": [h["wall_s"] for h in res.history],
-                         "train_loss": [h["train_loss"] for h in res.history],
+            runs[tag] = {"train_loss": [h["train_loss"] for h in res.history],
                          "launches": dispatch.launch_counts()}
         for a, b in (("host", "device"), ("device", "device_async"),
                      ("device", "device_sync_every_1"),
@@ -1048,52 +929,25 @@ def fit_path_phase(dev) -> dict:
                     raise AssertionError(f"{f}: the async slot's bytes differ from the sync one's")
         slot_mb = {f: os.path.getsize(os.path.join(root, "device", f)) / 2**20 for f in slots}
 
-    # The per-step input: the host path's copy of the batch against the
-    # device path's index upload + row gather; each path's step wall.
-    batch = next(iter(data.epoch(B, train=True, shuffle_seed=0)))[1]
-    rows = next(iter(data.epoch_indices(B, train=True, shuffle_seed=0)))[1]
-    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-              for k, v in data.device_arrays().items()}
-    copy_ms = cuda_time_ms(lambda: step_lib.batch_to_device(batch, dev), reps=20)
-    gather_ms = cuda_time_ms(
-        lambda: step_lib.gather_batch(arrays, torch.from_numpy(rows).to(dev)), reps=20)
-    key = prng.fold_name(prng.root_key(SEED), "dropout")
-    walls = {}
-    for tag, step, args in (
-            ("host", step_lib.make_train_step(model), (batch,)),
-            ("device", step_lib.make_indexed_train_step(model),
-             (arrays, torch.from_numpy(rows).to(dev)))):
-        state = step_lib.create_train_state(model)
-        w = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            state, m = step(state, *args, prng.fold_in(key, i))
-            float(m["loss"])
-            w.append(time.perf_counter() - t1)
-        walls[tag] = 1e3 * float(np.median(w[1:]))
-
     # The main path: train speech through the CLI on files, then decode a
     # workdir that holds the JAX package's format only.
     rng = np.random.default_rng(SEED + 13)
     cli_feats = rng.standard_normal((N_CLI_FILES, cfg.maxlen, cfg.num_feats), dtype=np.float32)
     seqs = [list(rng.integers(1, 21, size=rng.integers(1, 9))) for _ in range(N_CLI_FILES)]
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
         data_dir, label_file = _write_audio_corpus(root, cli_feats, seqs)
-        write_s = time.perf_counter() - t0
         wd, mp, cache, trace = (os.path.join(root, d) for d in ("wd", "msgpack", "cache", "trace"))
         corpus = ["--data-dir", data_dir, "--labels", label_file]
         dispatch.reset_launch_counts()
-        train_line, train_s = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
-                                    "--cache-dir", cache, "--trace-dir", trace,
-                                    "--async-checkpoints", *corpus])
+        train_line = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
+                           "--cache-dir", cache, "--trace-dir", trace, "--async-checkpoints",
+                           *corpus])
         os.makedirs(mp)
         shutil.copy(os.path.join(wd, "speech_config.json"), mp)
         with open(os.path.join(mp, "speech_best.msgpack"), "wb") as f:
             f.write(_jax_slot(ckpt_lib.state_path(wd, "speech", "best")))
-        dec_line, decode_s = _cli(["decode", "speech", "--workdir", mp, "--out",
-                                   os.path.join(root, "msgpack.mlf"), *corpus])
+        dec_line = _cli(["decode", "speech", "--workdir", mp, "--out",
+                         os.path.join(root, "msgpack.mlf"), *corpus])
         launches = dispatch.launch_counts()
         if min(launches[k] for k in FIT_KERNELS) <= 0:
             raise AssertionError(f"the main path did not launch K1-K4: {launches}")
@@ -1114,12 +968,8 @@ def fit_path_phase(dev) -> dict:
             raise AssertionError(f"the trace of train speech lacks {missing}: {sorted(in_trace)}")
         if len(os.listdir(cache)) != 1:
             raise AssertionError(f"--cache-dir holds {os.listdir(cache)}")
-        t0 = time.perf_counter()
         cached = datasets.build_audio_dataset(data_dir, label_file, cfg, cache_dir=cache)
-        cache_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         parsed = datasets.build_audio_dataset(data_dir, label_file, cfg)
-        parse_s = time.perf_counter() - t0
         for attr in ("features", "labels", "label_lengths", "input_lengths", "train_ids",
                      "val_ids"):
             if not np.array_equal(np.asarray(getattr(cached, attr)),
@@ -1142,11 +992,8 @@ def fit_path_phase(dev) -> dict:
 
     phase("fit_path", pipeline="speech", B=B, T=cfg.maxlen, H=cfg.encoder.hidden,
           files_train=N_TRAIN, files_val=N_VAL, epochs=FIT_EPOCHS, runs=runs,
-          slot_mb=slot_mb, input_copy_ms=copy_ms, gather_ms=gather_ms,
-          input_copy_saved_ms=copy_ms - gather_ms, step_wall_ms_median=walls,
-          cli={"files": N_CLI_FILES, "csv_write_s": write_s, "train_s": train_s,
-               "decode_msgpack_s": decode_s, "cache_build_s": cache_s, "csv_build_s": parse_s,
-               "trace_kernels": sorted(n for n in in_trace if any(
+          slot_mb=slot_mb,
+          cli={"files": N_CLI_FILES, "trace_kernels": sorted(n for n in in_trace if any(
                    k in n for k in FIT_KERNELS.values()))},
           launches=launches, debug_nans_raised=nan_error)
     return launches
@@ -1175,7 +1022,7 @@ def _midpoint_csv(path, rows, seed) -> list:
     return cells
 
 
-def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
+def synthetic_phase(dev) -> dict:
     """The last small modules on the card.
 
     The example (``python -m mgr_tpu_torch.examples.synthetic_end_to_end``)
@@ -1185,7 +1032,7 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
     float32 rounding midpoints (and counts ``np.loadtxt``'s misses there),
     then, at full width, writes a speech corpus of per-file audio CSVs
     with the port's ``synthetic``, reads it with the parser and with
-    ``np.loadtxt`` (host seconds), and runs ``train speech``, ``decode
+    ``np.loadtxt`` (whether the two give the same bits), and runs ``train speech``, ``decode
     speech`` and ``score`` through the CLI (BiLSTM(500)x2 at T=1900
     through K1-K4). Once the example has ended, alone: the learning run,
     the example's corpus and widths with input noise and dropout 0,
@@ -1206,11 +1053,10 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
     from mgr_tpu_torch.ops import dispatch
     from mgr_tpu_torch.train.loop import fit
 
-    t_phase = time.perf_counter()
     libc = ctypes.CDLL(None)
     libc.strtof.restype = ctypes.c_float
     libc.strtof.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
-    out = {"fastcsv_build_s": fastcsv_build_s}
+    out = {}
     with tempfile.TemporaryDirectory() as root, subprocess.Popen(
             [sys.executable, "-m", "mgr_tpu_torch.examples.synthetic_end_to_end",
              os.path.join(root, "example")],
@@ -1222,55 +1068,44 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
             path = os.path.join(root, "audio_1.csv")
             cells = _midpoint_csv(path, SYN_MID_ROWS, SEED + 17)
             want = np.array([libc.strtof(c.encode(), None) for c in cells], np.float32)
-            t0 = time.perf_counter()
             got = formats.load_audio_file_csv(path)
-            parse_s = time.perf_counter() - t0
             raw = fastcsv.load_numeric_csv(path)[:, :39]
             loadtxt = fastcsv.numpy_fallback(path, True)[:, :39]
             misses = {name: int((x.ravel().view(np.uint32) != want.view(np.uint32)).sum())
                       for name, x in (("load_audio_file_csv", got), ("load_numeric_csv", raw),
                                       ("np_loadtxt", loadtxt))}
-            out["reader"] = {"values": len(cells), "parse_s": parse_s, "bits_differing": misses}
+            out["reader"] = {"values": len(cells), "bits_differing": misses}
             if misses["load_audio_file_csv"] or misses["load_numeric_csv"]:
                 raise AssertionError(f"the CSV reader differs from strtof: {misses}")
 
             # Full width: the speech corpus on disk, read twice, then the CLI.
-            t0 = time.perf_counter()
             data_dir, label_file, labels = synthetic.make_audio_dataset(
                 os.path.join(root, "speech"), **SYN_AUDIO)
-            write_s = time.perf_counter() - t0
             speech = get_preset("speech")
-            t0 = time.perf_counter()
             fast = datasets.build_audio_dataset(data_dir, label_file, speech)
-            fast_s = time.perf_counter() - t0
             with mock.patch.object(fastcsv, "load_numeric_csv", fastcsv.numpy_fallback):
-                t0 = time.perf_counter()
                 slow = datasets.build_audio_dataset(data_dir, label_file, speech)
-                slow_s = time.perf_counter() - t0
             wd = os.path.join(root, "wd")
             corpus = ["--data-dir", data_dir, "--labels", label_file]
             dispatch.reset_launch_counts()
-            train_line, train_s = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
-                                        "--batch-size", "32", *corpus])
+            train_line = _cli(["train", "speech", "--workdir", wd, "--epochs", "1",
+                               "--batch-size", "32", *corpus])
             hyps, refs = os.path.join(root, "speech.mlf"), os.path.join(root, "speech_refs.mlf")
-            dec_line, decode_s = _cli(["decode", "speech", "--workdir", wd, "--out", hyps,
-                                       *corpus])
+            dec_line = _cli(["decode", "speech", "--workdir", wd, "--out", hyps, *corpus])
             full_launches = dispatch.launch_counts()
             mlf.write_mlf(refs, [(mlf.entry_name(fid, "_audio"),
                                   vocab.ids_to_tokens(vocab.class_seq_to_word_seq(seq),
                                                       vocab.WORDS))
                                  for fid, seq in labels.items()])
-            score_line, _ = _cli(["score", refs, hyps, "--partial"])
+            score_line = _cli(["score", refs, hyps, "--partial"])
             out["full_width"] = {
                 "files": SYN_AUDIO["n_files"], "csv_mb": sum(
                     os.path.getsize(os.path.join(data_dir, f))
                     for f in os.listdir(data_dir)) / 1e6,
-                "csv_write_s": write_s, "corpus_build_fastcsv_s": fast_s,
-                "corpus_build_loadtxt_s": slow_s,
                 "corpus_bits_equal": bool(np.array_equal(fast.features.view(np.uint32),
                                                          slow.features.view(np.uint32))),
-                "B": 32, "T": speech.maxlen, "H": speech.encoder.hidden, "train_s": train_s,
-                "decode_s": decode_s, "decoded": dec_line["decoded"], "score": score_line,
+                "B": 32, "T": speech.maxlen, "H": speech.encoder.hidden,
+                "decoded": dec_line["decoded"], "score": score_line,
                 "launches": full_launches}
 
             # The example at its defaults, as a user runs it.
@@ -1278,8 +1113,7 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
         except BaseException:
             proc.kill()
             raise
-        out["example"] = {"rc": proc.returncode, "ended_after_s": time.perf_counter() - t_phase,
-                          "mlf_scoring": [ln for ln in stdout.splitlines()
+        out["example"] = {"rc": proc.returncode, "mlf_scoring": [ln for ln in stdout.splitlines()
                                           if ln.startswith("MLF scoring:")]}
         if proc.returncode != 0 or not out["example"]["mlf_scoring"]:
             raise AssertionError(f"the example failed: {stdout[-1500:]}{stderr[-1500:]}")
@@ -1289,11 +1123,7 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
         cfg = example.example_config(noise=0.0, dropout=0.0)
         data = datasets.build_skeletal_dataset(csv_path, label_file, cfg)
         model = build_model(cfg, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         res = fit(model, data, epochs=SYN_LEARN_EPOCHS, metrics=MetricsLogger(stream=io.StringIO()))
-        torch.cuda.synchronize()
-        learn_s = time.perf_counter() - t0
         fit_launches = {k: v - full_launches[k] for k, v in dispatch.launch_counts().items()}
         dec = Decoder.for_model(model, "skeletal")
         hyps, refs = os.path.join(root, "sk.mlf"), os.path.join(root, "sk_refs.mlf")
@@ -1304,14 +1134,12 @@ def synthetic_phase(dev, fastcsv_build_s: float) -> dict:
         accuracy = evaluate_accuracy(model, data, train_split=True, use_lengths=True)
         launches = dispatch.launch_counts()
         out["learn"] = {"B": cfg.batch_size, "T": cfg.maxlen, "H": cfg.encoder.hidden,
-                        "epochs": res.epochs_run, "s": learn_s,
-                        "ms_per_epoch": 1e3 * learn_s / res.epochs_run,
-                        "final_train_loss": res.history[-1]["train_loss"],
+                        "epochs": res.epochs_run, "final_train_loss": res.history[-1]["train_loss"],
                         "mlf_scoring": score_sequences(read_mlf(refs), read_mlf(hyps),
                                                        ignore_missing=True),
                         "train_split_accuracy": accuracy, "fit_launches": fit_launches}
         out["launches"] = launches
-        phase("synthetic", seconds=time.perf_counter() - t_phase, **out)
+        phase("synthetic", **out)
         if accuracy["accuracy"] < SYN_MIN_ACCURACY:
             raise AssertionError(f"the learning run reached a train-split accuracy of "
                                  f"{accuracy['accuracy']} after {res.epochs_run} epochs")
@@ -1346,9 +1174,8 @@ def examples_phase(dev) -> dict:
                                         generalization_check)
     from mgr_tpu_torch.ops import dispatch
 
-    t_phase = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
-    rows, launches, walls = {}, {}, {}
+    rows, launches = {}, {}
     with tempfile.TemporaryDirectory() as root:
         ab_env = {**os.environ, **EXAMPLES_ENV["skeletal_bias_ab"],
                   "MGR_TPU_AB_ROOT": os.path.join(root, "ab_corpus"),
@@ -1370,16 +1197,13 @@ def examples_phase(dev) -> dict:
                     if name.startswith("convergence_check"):
                         env["MGR_TPU_CONV_ROOT"] = os.path.join(root, name.replace(":", "_"))
                     dispatch.reset_launch_counts()
-                    t0 = time.perf_counter()
                     with mock.patch.dict(os.environ, env):
                         rows[name] = driver.main(device=str(dev))
-                    walls[name] = time.perf_counter() - t0
                     launches[name] = dispatch.launch_counts()
                 stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
             except BaseException:
                 proc.kill()
                 raise
-        walls["skeletal_bias_ab (subprocess)"] = time.perf_counter() - t_phase
         if proc.returncode != 0:
             raise AssertionError(f"skeletal_bias_ab exited {proc.returncode}: "
                                  f"{stderr[-2000:]}")
@@ -1410,8 +1234,7 @@ def examples_phase(dev) -> dict:
         if min(c[k] for k in KERNELS[:4]) <= 0:
             raise AssertionError(f"{name} did not launch K1-K4: {c}")
     phase("examples", T={"late_fusion, curriculum, A/B": 1900, "early_fusion": 96, "rgb": 64},
-          hidden_scale=1, rows=rows, wall_s=walls, launches=launches,
-          seconds=time.perf_counter() - t_phase)
+          hidden_scale=1, rows=rows, launches=launches)
     return launches
 
 
@@ -1442,8 +1265,7 @@ def _batcher(corpus, n_train):
 def _kernel_vs_plain_step(model, batch, key, dev):
     """One step's loss and gradients through the kernels and through the
     plain versions (a copy of the model, the same masks): the loss's
-    relative error, each gradient's relative Frobenius error, the plain
-    step's seconds."""
+    relative error, each gradient's relative Frobenius error."""
     import copy
 
     from mgr_tpu_torch.train import step as step_lib
@@ -1453,10 +1275,7 @@ def _kernel_vs_plain_step(model, batch, key, dev):
     loss_k, grads_k = step_lib._loss_and_grads(model, dict(model.named_parameters()), tb, key)
     grads_k = {k: g.clone() for k, g in grads_k.items()}
     with plain_path():
-        t0 = time.perf_counter()
         loss_p, grads_p = step_lib._loss_and_grads(twin, dict(twin.named_parameters()), tb, key)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
     for p in model.parameters():
         p.grad = None
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -1467,30 +1286,19 @@ def _kernel_vs_plain_step(model, batch, key, dev):
             f"{model.config.name}: the kernel train step disagrees with the plain one: loss "
             f"rel {loss_rel} (tol {TOL_LOSS_REL}), grads {grad_rel} (tol {TOL_GRAD_REL})")
     return {"loss_rel_err": loss_rel, "grad_max_rel_err": max(grad_rel.values()),
-            "grad_rel_err": grad_rel, "plain_loss_and_grads_s": plain_s}
+            "grad_rel_err": grad_rel}
 
 
-def _step_launches_and_wall(model, batch, key):
-    """The launch counts of one train step and the wall median of five
-    more (host clock around steps ending in a sync)."""
-    from mgr_tpu_torch.core import prng
+def _step_launches(model, batch, key):
+    """The launch counts of one train step."""
     from mgr_tpu_torch.ops import dispatch
     from mgr_tpu_torch.train import step as step_lib
 
     state = step_lib.create_train_state(model)
-    step = step_lib.make_train_step(model)
-    walls = []
-    for i in range(6):
-        if i == 1:
-            dispatch.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch, prng.fold_in(key, i))
-        float(m["loss"])
-        walls.append(time.perf_counter() - t0)
-        if i == 1:
-            per_step = dispatch.launch_counts()
-    return state, per_step, float(np.median(walls[1:]))
+    dispatch.reset_launch_counts()
+    _, m = step_lib.make_train_step(model)(state, batch, key)
+    float(m["loss"])
+    return dispatch.launch_counts()
 
 
 def fusion_phase(dev) -> dict:
@@ -1505,8 +1313,8 @@ def fusion_phase(dev) -> dict:
     1600-wide concat), decode and evaluate of the best slot. The launch
     counts of that run are the fusion path's. Then, for each family, one
     step's launch counts (late fusion: K2 once, for the fusion layer
-    alone) and wall, the kernel step against the plain one, and a
-    learning check; the frozen encoders bit-equal to the donors."""
+    alone), the kernel step against the plain one, and a learning check;
+    the frozen encoders bit-equal to the donors."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.core import prng
     from mgr_tpu_torch.core.config import get_preset
@@ -1535,23 +1343,17 @@ def fusion_phase(dev) -> dict:
                 epochs=1)
         ef = build_model(ef_cfg, seed=SEED, device=dev)
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         ef_res = fit(ef, ef_data, workdir=workdir, epochs=FUS_EPOCHS)
         fresh = build_model(ef_cfg, seed=SEED + 99, device=dev)
         ckpt_lib.load_params(workdir, "early_fusion", fresh, slot="best")
         ef_decoded = Decoder.for_model(fresh, "early_fusion").decode_batches(
             [one["early_fusion"]])
-        torch.cuda.synchronize()
-        ef_s = time.perf_counter() - t0
         lf = build_fusion_with_pretrained(workdir, device=dev)
-        t1 = time.perf_counter()
         lf_res = fit(lf, lf_data, workdir=workdir, epochs=FUS_EPOCHS)
         best = build_fusion_with_pretrained(workdir, device=dev)
         ckpt_lib.load_params(workdir, "late_fusion", best, slot="best")
         lf_decoded = Decoder.for_model(best, "late_fusion").decode_batches([one["late_fusion"]])
         lf_metrics = evaluate_accuracy(best, lf_data)
-        torch.cuda.synchronize()
-        lf_s = time.perf_counter() - t1
         launches = dispatch.launch_counts()
         donor_enc = {name: ckpt_lib.read_params(workdir, name) for name in donors}
 
@@ -1577,12 +1379,11 @@ def fusion_phase(dev) -> dict:
     key = prng.fold_name(prng.root_key(SEED), "dropout")
     want_step = {"early_fusion": {"bilstm_tm_fwd": 2, "bilstm_tm_bwd": 2},
                  "late_fusion": {"bilstm_tm_fwd": 5, "bilstm_tm_bwd": 1}}
-    for tag, model, res, secs in (("early_fusion", ef, ef_res, ef_s),
-                                  ("late_fusion", lf, lf_res, lf_s)):
+    for tag, model, res in (("early_fusion", ef, ef_res), ("late_fusion", lf, lf_res)):
         batch = one[tag][1]
         want = {k: 0 for k in KERNELS}
         want.update(want_step[tag], ctc_fwd=1, ctc_bwd=1)
-        _, per_step, step_s = _step_launches_and_wall(model, batch, key)
+        per_step = _step_launches(model, batch, key)
         if per_step != want:
             raise AssertionError(f"{tag}: one train step launched {per_step}, want {want}")
         check = _kernel_vs_plain_step(model, batch, prng.fold_in(key, 1000), dev)
@@ -1596,11 +1397,9 @@ def fusion_phase(dev) -> dict:
         if not after < before:
             raise AssertionError(f"{tag}: no learning: eval loss {before} -> {after}")
         out[tag] = {
-            "fit_and_decode_s": secs, "step_launches": per_step,
-            "step_wall_ms_median": 1e3 * step_s, "step_seq_per_s": B / step_s,
+            "step_launches": per_step,
             "epoch_train_loss": [h["train_loss"] for h in res.history],
-            "epoch_val_loss": [h["val_loss"] for h in res.history],
-            "epoch_seq_per_s": [h["seqs_per_sec"] for h in res.history], **check,
+            "epoch_val_loss": [h["val_loss"] for h in res.history], **check,
             "learning_check": {"eval_loss_before": before, "eval_loss_after": after,
                                "steps": LEARN_STEPS}}
     out["late_fusion"].update(frozen_encoders_bit_unchanged=True,
@@ -1641,9 +1440,9 @@ def rgb_phase(dev) -> dict:
     the best slot reloaded, decoded to MLF and evaluated, and one video
     through ``infer rgb`` (uint8 frames through the normalisation); the
     launch counts of that run are the rgb path's. Then one step's launches
-    (K1 2, K2 2, K3 1, K4 1), its wall median and peak memory, the kernel
-    step against the plain one (``cnn.*`` included), the B=1 infer latency
-    and a learning check."""
+    (K1 2, K2 2, K3 1, K4 1) and peak memory, the kernel step against the
+    plain one (``cnn.*`` included), B=1 decode against ``infer rgb``, and a
+    learning check."""
     import io
 
     from mgr_tpu_torch.cli.main import main as cli_main
@@ -1673,10 +1472,7 @@ def rgb_phase(dev) -> dict:
         workdir = os.path.join(root, "runs")
         torch.cuda.reset_peak_memory_stats(dev)
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         res = fit(model, data, workdir=workdir, epochs=RGB_EPOCHS)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
         fit_peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         best = build_model(cfg, seed=SEED + 99, device=dev)
         ckpt_lib.load_params(workdir, "rgb", best, slot="best")
@@ -1690,9 +1486,8 @@ def rgb_phase(dev) -> dict:
         with contextlib.redirect_stdout(io.StringIO()) as out:
             rc = cli_main(["infer", "rgb", video, "--workdir", workdir])
         infer_tokens = json.loads(out.getvalue().strip().splitlines()[-1])["tokens"]
-        torch.cuda.synchronize()
         launches = dispatch.launch_counts()
-        val_ids, batch = next(iter(data.epoch(B, train=False)))
+        batch = next(iter(data.epoch(B, train=False)))[1]
         x1, true_len = pad_or_truncate((formats.load_video_npy(video) - 128.0) / 255.0, T)
     path = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd")
     if min(launches[k] for k in path) <= 0 or any(v for k, v in launches.items()
@@ -1709,15 +1504,6 @@ def rgb_phase(dev) -> dict:
     one = {"inputs": x1[None], "input_length": np.asarray([true_len - trim], np.int32)}
     if dec.decode_batches([((1,), one)])[0][1] != infer_tokens:
         raise AssertionError("rgb: infer's tokens differ from the decode step's")
-    infer_ms, decode_ms = [], []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        dec.decode_batches([((1,), one)])
-        infer_ms.append(1e3 * (time.perf_counter() - t1))
-    for _ in range(3):  # a corpus decode's batch: B=8, the 219 MB batch copied to the card
-        t1 = time.perf_counter()
-        dec.decode_batches([(val_ids, batch)])
-        decode_ms.append(1e3 * (time.perf_counter() - t1))
     with torch.inference_mode():
         logits = best(torch.from_numpy(batch["inputs"]).to(dev))
     if logits.shape != (B, T, cfg.nb_classes) or not torch.isfinite(logits).all():
@@ -1726,7 +1512,7 @@ def rgb_phase(dev) -> dict:
 
     key = prng.fold_name(prng.root_key(SEED), "dropout")
     torch.cuda.reset_peak_memory_stats(dev)
-    _, per_step, step_s = _step_launches_and_wall(model, batch, key)
+    per_step = _step_launches(model, batch, key)
     step_peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     want = {k: 0 for k in KERNELS}
     want.update(bilstm_tm_fwd=2, bilstm_tm_bwd=2, ctc_fwd=1, ctc_bwd=1)
@@ -1746,14 +1532,11 @@ def rgb_phase(dev) -> dict:
         raise AssertionError(f"rgb: no learning: eval loss {before} -> {after}")
     phase("rgb", B=B, T=T, img=cfg.cnn.img_dim, channels=list(cfg.cnn.channels),
           H=cfg.encoder.hidden, remat=cfg.cnn.remat, files_train=len(data.train_ids),
-          files_val=len(data.val_ids), epochs=RGB_EPOCHS, fit_s=fit_s, launches=launches,
+          files_val=len(data.val_ids), epochs=RGB_EPOCHS, launches=launches,
           epoch_train_loss=[h["train_loss"] for h in res.history],
           epoch_val_loss=[h["val_loss"] for h in res.history],
-          epoch_seq_per_s=[h["seqs_per_sec"] for h in res.history],
           mlf_entries=n_mlf, evaluate={k: metrics[k] for k in ("accuracy", "N")},
-          infer_tokens=len(infer_tokens), infer_b1_ms_median=float(np.median(infer_ms)),
-          decode_b8_ms_median=float(np.median(decode_ms)),
-          step_launches=per_step, step_wall_ms_median=1e3 * step_s, step_seq_per_s=B / step_s,
+          infer_tokens=len(infer_tokens), step_launches=per_step,
           fit_peak_mem_gb=fit_peak_gb, step_peak_mem_gb=step_peak_gb, **check,
           tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
           learning_check={"eval_loss_before": before, "eval_loss_after": after,
@@ -1808,34 +1591,16 @@ def _write_raw_recordings(root, seed):
 
 
 def _cli(argv):
-    """One command of the port's CLI: its printed JSON line and its wall
-    seconds (host clock, ending in a synchronize)."""
+    """One command of the port's CLI: its printed JSON line."""
     import io
 
     from mgr_tpu_torch.cli.main import main as cli_main
 
-    torch.cuda.synchronize()
     with contextlib.redirect_stdout(io.StringIO()) as out:
-        t0 = time.perf_counter()
         rc = cli_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"{argv[0]} returned {rc}")
-    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
-
-
-def _cli_timed(argv, n_files):
-    """:func:`_cli` under torch.profiler: seconds per file of the wall, of
-    the device's busy time (the kernel and copy rows), and of the host
-    (wall - device)."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        line, wall = _cli(argv)
-    device_s = _device_us(prof) / 1e6
-    return line, {"files": n_files, "wall_s": wall, "s_per_file": wall / n_files,
-                  "device_s_per_file": device_s / n_files,
-                  "host_s_per_file": (wall - device_s) / n_files}
+    return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
 def _concat_audio_csvs(audio_dir, ids, out):
@@ -1873,44 +1638,35 @@ def prepare_phase(dev) -> dict:
     cpu = torch.device("cpu")
     all_ids = PREP_TRAIN_IDS + PREP_VAL_IDS
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
         raw = _write_raw_recordings(root, SEED + 55)
-        gen_s = time.perf_counter() - t0
         out = {k: os.path.join(root, k) for k in ("audio", "rois", "mixed", "runs")}
         sk_train, sk_val = os.path.join(root, "sk_train.csv"), os.path.join(root, "sk_val.csv")
-        times = {}
-        line, times["prepare-audio"] = _cli_timed(
-            ["prepare-audio", "--wav-dir", raw["wavs"], "--out-dir", out["audio"]], len(all_ids))
+        line = _cli(["prepare-audio", "--wav-dir", raw["wavs"], "--out-dir", out["audio"]])
         if line != {"files": len(all_ids)} or list_audio_files(out["audio"]) != sorted(all_ids):
             raise AssertionError(f"prepare-audio: {line}")
-        line, times["prepare-skeletal"] = _cli_timed(
-            ["prepare-skeletal", "--raw-dir", raw["kinect"], "--out-csv", sk_train,
-             "--val-csv", sk_val, "--split-at", str(PREP_SPLIT_AT)], len(all_ids))
+        line = _cli(["prepare-skeletal", "--raw-dir", raw["kinect"], "--out-csv", sk_train,
+                     "--val-csv", sk_val, "--split-at", str(PREP_SPLIT_AT)])
         if line != {"videos": len(all_ids)}:
             raise AssertionError(f"prepare-skeletal: {line}")
-        line, times["prepare-rgb"] = _cli_timed(
-            ["prepare-rgb", "--video-dir", raw["videos"], "--skeletal-dir", raw["kinect"],
-             "--out-dir", out["rois"]], len(PREP_VIDEO_IDS))
+        line = _cli(["prepare-rgb", "--video-dir", raw["videos"], "--skeletal-dir",
+                     raw["kinect"], "--out-dir", out["rois"]])
         if line != {"videos": len(PREP_VIDEO_IDS)}:
             raise AssertionError(f"prepare-rgb: {line}")
 
         # Labels: one CSV for all files (the speech fit), one per side for mix.
-        t0 = time.perf_counter()
         labels_all = os.path.join(root, "labels.csv")
         labels = build_label_csv(raw["labels"], labels_all)
         lt, lv = os.path.join(root, "labels_train.csv"), os.path.join(root, "labels_val.csv")
         write_label_csv(lt, {k: labels[k] for k in PREP_TRAIN_IDS})
         write_label_csv(lv, {k: labels[k] for k in PREP_VAL_IDS})
-        label_s = time.perf_counter() - t0
         if load_label_csv(labels_all) != labels or sorted(labels) != sorted(all_ids):
             raise AssertionError(f"build_label_csv: {labels}")
         at, av = os.path.join(root, "audio_train.csv"), os.path.join(root, "audio_val.csv")
         _concat_audio_csvs(out["audio"], PREP_TRAIN_IDS, at)
         _concat_audio_csvs(out["audio"], PREP_VAL_IDS, av)
-        line, times["mix"] = _cli_timed(
-            ["mix", "--audio-train", at, "--audio-val", av, "--skeletal-train", sk_train,
-             "--skeletal-val", sk_val, "--train-labels", lt, "--val-labels", lv,
-             "--out-root", out["mixed"], "--n-moved", str(PREP_MOVED)], len(all_ids))
+        line = _cli(["mix", "--audio-train", at, "--audio-val", av, "--skeletal-train", sk_train,
+                     "--skeletal-val", sk_val, "--train-labels", lt, "--val-labels", lv,
+                     "--out-root", out["mixed"], "--n-moved", str(PREP_MOVED)])
         moved = len(list_audio_files(os.path.join(out["mixed"], "train_audio")))
         if line != {"moved": PREP_MOVED, "kept": len(PREP_VAL_IDS) - PREP_MOVED} or \
                 moved != len(PREP_TRAIN_IDS) + PREP_MOVED:
@@ -1932,11 +1688,8 @@ def prepare_phase(dev) -> dict:
         if kin["card"].shape != (PREP_FRAMES, 20) or not kin_int_equal or kin_err > TOL_KIN:
             raise AssertionError(f"kinematics card vs CPU: {kin_int_equal}, {kin_err}")
         video = os.path.join(raw["videos"], "Sample00001_color.npy")
-        roi, roi_s = {}, {}
-        for k, d in on:
-            t1 = time.perf_counter()
-            roi[k] = rgb_pipeline.extract_video(video, joints["hip"], joints["shc"], device=d)
-            roi_s[k] = time.perf_counter() - t1
+        roi = {k: rgb_pipeline.extract_video(video, joints["hip"], joints["shc"], device=d)
+               for k, d in on}
         roi_err = float(np.abs(roi["card"] - roi["cpu"]).max())
         written = np.load(os.path.join(out["rois"], "Sample00001_color.npy"))
         near_int = np.abs(roi["cpu"] - np.round(roi["cpu"])) < TOL_ROI
@@ -1947,16 +1700,15 @@ def prepare_phase(dev) -> dict:
 
         # The prepared corpus trained and decoded through the kernels.
         dispatch.reset_launch_counts()
-        line, train_s = _cli(
+        line = _cli(
             ["train", "speech", "--data-dir", out["audio"], "--labels", labels_all,
              "--workdir", out["runs"], "--epochs", "1", "--batch-size", str(PREP_BATCH)])
         if not np.isfinite(line["best_val_loss"]) or line["epochs_run"] != 1:
             raise AssertionError(f"train speech on the prepared corpus: {line}")
         mlf = os.path.join(root, "speech.mlf")
-        line, decode_s = _cli(
+        line = _cli(
             ["decode", "speech", "--workdir", out["runs"], "--data-dir", out["audio"],
              "--labels", labels_all, "--out", mlf])
-        torch.cuda.synchronize()
         launches = dispatch.launch_counts()
         if line["decoded"] != len(all_ids) or len(read_mlf(mlf)) != len(all_ids):
             raise AssertionError(f"decode speech on the prepared corpus: {line}")
@@ -1965,436 +1717,133 @@ def prepare_phase(dev) -> dict:
                                                   if k not in path):
         raise AssertionError(f"the prepare path took the wrong kernels: {launches}")
     phase("prepare", card=_smi(), wavs=len(all_ids), wav_s=PREP_WAV_S, kinect_csvs=len(all_ids),
-          videos=len(PREP_VIDEO_IDS), frames=PREP_FRAMES, raw_inputs_s=gen_s,
-          commands=times, build_label_csv_s=label_s,
+          videos=len(PREP_VIDEO_IDS), frames=PREP_FRAMES,
           card_vs_cpu={
               "mfcc": {"shape": list(feats["card"].shape), "max_abs_err": mfcc_abs,
                        "max_excess_over_tol": mfcc_excess, "rtol": TOL_MFCC_RTOL,
                        "atol": TOL_MFCC_ATOL},
               "kinematics": {"integer_columns_equal": kin_int_equal, "max_abs_err": kin_err,
                              "tol": TOL_KIN},
-              "roi": {"max_abs_err": roi_err, "tol": TOL_ROI, "card_s": roi_s["card"],
-                      "cpu_s": roi_s["cpu"]}},
-          train={"wall_s": train_s, "batch": PREP_BATCH, "epochs": 1},
-          decode={"wall_s": decode_s, "files": len(all_ids)},
+              "roi": {"max_abs_err": roi_err, "tol": TOL_ROI}},
+          train={"batch": PREP_BATCH, "epochs": 1}, decode={"files": len(all_ids)},
           launches=launches)
     return launches
 
 
-def _ctc_at_shape(dev, rng, B, K, N) -> dict:
-    """K3 (with its alpha store) and K4 at T'=1898, B rows, K classes and N
-    labels, seeded as the loss seeds them: against their plain versions,
-    two launches of each bit-identical, timed beside their plain versions
-    and ``ctc_loss``, with their bounds."""
-    from mgr_tpu_torch.kernels.ctc import (
-        BWD_NAME, NAME, ctc_alpha_bwd, ctc_alpha_loss, launch_shape)
-    from mgr_tpu_torch.ops.ctc import ctc_alpha_bwd_plain, ctc_alpha_loss_plain
+def _bilstm_at(dev, B, H, store_c) -> dict:
+    """K1 (with the c streams stored if ``store_c``: the train step's
+    launch) and K2 at T=1900, B rows and width H, each timed and checked
+    beside its plain version."""
+    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
+    from mgr_tpu_torch.ops.lstm import (
+        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, recurrent_weight_grad)
 
-    T = T_K3
-    lp = torch.log_softmax(torch.from_numpy(
-        rng.standard_normal((T, B, K), dtype=np.float32)).to(dev), dim=-1)
-    blank = K - 1
-    args = [torch.from_numpy(a).to(dev) for a in _ctc_batch(rng, B, T, K, N)]
-    got = ctc_alpha_loss(lp, *args, blank, store_alphas=True)
-    want = ctc_alpha_loss_plain(lp, *args, blank, store_alphas=True)
-    k3_err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) for g, w in zip(got, want))
-    loss, a_phi, a_emit = want
-    rows, L = torch.arange(B, device=dev), args[2].long()
-    g_phi = -torch.exp(a_phi[-1][rows, L] + loss)
-    g_emit = torch.where(L > 0, -torch.exp(a_emit[-1][rows, (L - 1).clamp_min(0)] + loss), 0.0)
-    d_got = ctc_alpha_bwd(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
-    d_want = ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit, g_phi, g_emit)
-    k4_err = float((d_got - d_want).abs().max())
-    if k3_err > TOL_K3_REL or k4_err > TOL_K4 or not torch.isfinite(d_got).all():
-        raise AssertionError(f"K3/K4 at K={K}, N={N} disagree with their plain versions: K3 "
-                             f"{k3_err} (tol {TOL_K3_REL}), K4 {k4_err} (tol {TOL_K4})")
-    own = (lp, *args, blank, got[1], got[2], g_phi, g_emit)
-    if not (all(torch.equal(a, b) for a, b in zip(
-            got, ctc_alpha_loss(lp, *args, blank, store_alphas=True)))
-            and torch.equal(ctc_alpha_bwd(*own), ctc_alpha_bwd(*own))):
-        raise AssertionError(f"K3/K4 at K={K}, N={N}: two launches differ")
+    xp, U, dhs = _lstm_inputs(dev, (T_K1, B), H)
+    bwd = (xp[0], xp[1], U, *bilstm_tm_streams(xp[0], xp[1], U, store_c=True), dhs[0], dhs[1])
     return {
-        "ctc_fwd": {
-            "max_abs_err": k3_err, "launch": launch_shape(NAME, N, K),
-            "ms": cuda_time_ms(lambda: ctc_alpha_loss(lp, *args, blank, store_alphas=True),
-                               reps=20),
-            "plain_ms": _timed(lambda: ctc_alpha_loss_plain(lp, *args, blank,
-                                                            store_alphas=True))[1],
-            "library_ms": library_ctc_ms(lp, *args, blank, backward=False),
-            **ctc_bound(lp, args[1], args[2], N, backward=False, store=True)},
-        "ctc_bwd": {
-            "max_abs_err": k4_err, "launch": launch_shape(BWD_NAME, N, K),
-            "ms": cuda_time_ms(lambda: ctc_alpha_bwd(*own), reps=20),
-            "plain_ms": _timed(lambda: ctc_alpha_bwd_plain(lp, *args, blank, a_phi, a_emit,
-                                                           g_phi, g_emit))[1],
-            "library_ms": library_ctc_ms(lp, *args, blank, backward=True),
-            **ctc_bound(lp, args[1], args[2], N, backward=True)},
+        "bilstm_tm_fwd": _timing(
+            lambda: bilstm_tm_streams(xp[0], xp[1], U, store_c=store_c),
+            lambda: bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=store_c),
+            lstm_bound(T_K1, B, H, dirs=2, backward=False, store_c=store_c),
+            f"K1 at B={B}, H={H}", _streams_check),
+        "bilstm_tm_bwd": _timing(
+            lambda: bilstm_tm_bwd(*bwd), lambda: bilstm_scan_tm_bwd_plain(*bwd),
+            lstm_bound(T_K1, B, H, dirs=2, backward=True, store_c=False), f"K2 at B={B}, H={H}",
+            lambda what, got, want: _dz_check(
+                what, got, want[:2], recurrent_weight_grad(bwd[3], bwd[4], *got),
+                want[2], fro=False)),
     }
 
 
 def fusion_kernels_phase(dev) -> dict:
     """K1-K4 at the shapes the fusion path gives them and no other phase
-    does: K1/K2 at H=100 (13 eight-unit slices, the last half empty), T=1900,
-    B=32, timed, and at B=1 and 33 (T=64), against their plain versions;
-    K1 without the c store (the frozen encoders' path) bit-equal to K1 with
-    it; K3/K4 at K=22, N=35 (T'=1898, B=32), timed, against their plain
-    versions; two launches of each bit-identical."""
-    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
-    from mgr_tpu_torch.ops.lstm import (
-        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, init_bilstm_params)
-
-    rng = np.random.default_rng(SEED + 30)
-    gen = torch.Generator().manual_seed(SEED + 30)
-    bf = torch.bfloat16
-    worst = {"h": 0.0, "dz": 0.0}
-    out = {}
-    for T, B in ((T_K1, B_K2), (64, 1), (64, 33)):
-        xp = 0.5 * rng.standard_normal((2, T, B, 4, H_FUS), dtype=np.float32)
-        xp[:, :, :, 1, :] += 1.0
-        xp = torch.from_numpy(xp).to(dev, bf)
-        U = init_bilstm_params(gen, 8, H_FUS)["U"].to(dev, bf)
-        dhs = torch.from_numpy(
-            1e-2 * rng.standard_normal((2, T, B, H_FUS), dtype=np.float32)).to(dev, bf)
-        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-        (want_h, want_h1), fwd_plain_ms = _timed(lambda: bilstm_scan_tm_plain(xp[0], xp[1], U))
-        dz = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
-        dz_w, bwd_plain_ms = _timed(
-            lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]))
-        worst["h"] = max(worst["h"], *(float((g.float() - w).abs().max())
-                                        for g, w in zip(streams[:2], (want_h, want_h1))))
-        worst["dz"] = max(worst["dz"], *(float((g.float() - w.float()).abs().max()
-                                               / w.float().abs().max())
-                                         for g, w in zip(dz, dz_w[:2])))
-        no_c = bilstm_tm_streams(xp[0], xp[1], U)
-        if not all(torch.equal(a, b) for a, b in zip(no_c, streams[:2])):
-            raise AssertionError(f"K1 without the c store differs from K1 with it at {(T, B)}")
-        if (T, B) == (T_K1, B_K2):
-            if not (all(torch.equal(a, b) for a, b in zip(
-                    streams, bilstm_tm_streams(xp[0], xp[1], U, store_c=True))) and all(
-                    torch.equal(a, b) for a, b in zip(
-                        dz, bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])))):
-                raise AssertionError("K1/K2 at H=100: two launches differ")
-            out["bilstm_tm_fwd"] = {
-                "ms": cuda_time_ms(lambda: bilstm_tm_streams(xp[0], xp[1], U), reps=5),
-                "plain_ms": fwd_plain_ms,
-                **lstm_bound(T, B, H_FUS, dirs=2, backward=False, store_c=False)}
-            out["bilstm_tm_bwd"] = {
-                "ms": cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0],
-                                                         dhs[1]), reps=5),
-                "plain_ms": bwd_plain_ms,
-                **lstm_bound(T, B, H_FUS, dirs=2, backward=True, store_c=False)}
-    if not worst["h"] <= TOL_K1_H or not worst["dz"] <= TOL_K2_REL:
-        raise AssertionError(f"K1/K2 at H=100 disagree with their plain versions: {worst}")
-    out["bilstm_tm_fwd"]["max_abs_err"] = worst["h"]
-    out["bilstm_tm_bwd"]["max_abs_err"] = worst["dz"]
-
-    out.update(_ctc_at_shape(dev, rng, B_K2, K_FUS, N_FUS))
-    for v in out.values():
-        v["share"] = v["bound_ms"] / v["ms"]
-    phase("fusion_kernels", T=T_K1, B=B_K2, H=H_FUS, K=K_FUS, N=N_FUS, tol_h=TOL_K1_H,
-          tol_dz_rel=TOL_K2_REL, tol_k3_rel=TOL_K3_REL, tol_k4=TOL_K4,
-          k1_without_c_store_bit_equal=True, bit_identical_launches=True, kernels=out)
+    does: K1 (without the c store: the frozen encoders' launch) and K2 at
+    H=100 (13 eight-unit slices, the last half empty), T=1900, B=32;
+    K3/K4 at the fusion presets' K=22, N=35 (T'=1898, B=32)."""
+    out = _bilstm_at(dev, B_K2, H_FUS, store_c=False)
+    out.update(_ctc_at_shape(dev, SEED + 30, B_K2, K_FUS, N_FUS))
+    phase("fusion_kernels", T=T_K1, B=B_K2, H=H_FUS, K=K_FUS, N=N_FUS, kernels=out)
     return out
-
-
-def _timed(fn):
-    """fn()'s result and its time in ms (CUDA events around one call)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def rgb_kernels_phase(dev) -> dict:
-    """K1-K4 at the shapes the rgb family gives them: K1/K2 at H=512 (MAX_H:
-    64 eight-unit slices a direction, 128 cooperative blocks, every warp's K
-    slice full), T=1900, at the preset's B=8 and at B=256 (K2's 230,400-byte
-    shared-memory opt-in), against their plain versions, two launches of
-    each bit-identical, timed; K3/K4 at K=22, N=28 (T'=1898, B=8), alike."""
-    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm_bwd, bilstm_tm_streams
-    from mgr_tpu_torch.ops.lstm import (
-        bilstm_scan_tm_bwd_plain, bilstm_scan_tm_plain, init_bilstm_params,
-        recurrent_weight_grad)
-
-    gen = torch.Generator().manual_seed(SEED + 40)
-    dgen = torch.Generator(dev).manual_seed(SEED + 40)
-    bf = torch.bfloat16
-    T, H = T_K1, H_RGB
-    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
-    out, per_b = {}, {}
-    for B in (B_RGB, B_RGB_EDGE):
-        xp = 0.5 * torch.randn((2, T, B, 4, H), generator=dgen, device=dev)
-        xp[:, :, :, 1, :] += 1.0
-        xp = xp.to(bf)
-        U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
-        dhs = (1e-2 * torch.randn((2, T, B, H), generator=dgen, device=dev)).to(bf)
-        streams = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-        want, fwd_plain_ms = _timed(lambda: bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=True))
-        dz = bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
-        dz_w, bwd_plain_ms = _timed(
-            lambda: bilstm_scan_tm_bwd_plain(xp[0], xp[1], U, *streams, dhs[0], dhs[1]))
-        dU = recurrent_weight_grad(streams[0], streams[1], *dz)
-        for g in (*streams, *dz):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"K1/K2 at H=512, B={B} gave non-finite values")
-        worst["h"] = max(worst["h"], *(float((g.float() - w).abs().max())
-                                        for g, w in zip(streams, want)))
-        worst["dz"] = max(worst["dz"], *(float((g.float() - w.float()).abs().max()
-                                               / w.float().abs().max())
-                                         for g, w in zip(dz, dz_w[:2])))
-        worst["dU"] = max(worst["dU"], float((dU - dz_w[2]).norm() / dz_w[2].norm()))
-        if not (all(torch.equal(a, b) for a, b in zip(
-                streams, bilstm_tm_streams(xp[0], xp[1], U, store_c=True))) and all(
-                torch.equal(a, b) for a, b in zip(
-                    dz, bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])))):
-            raise AssertionError(f"K1/K2 at H=512, B={B}: two launches differ")
-        per_b[B] = {
-            "bilstm_tm_fwd": {
-                # the train step's launch: the c streams stored
-                "ms": cuda_time_ms(lambda: bilstm_tm_streams(xp[0], xp[1], U, store_c=True),
-                                   reps=5),
-                "plain_ms": fwd_plain_ms,
-                **lstm_bound(T, B, H, dirs=2, backward=False, store_c=True)},
-            "bilstm_tm_bwd": {
-                "ms": cuda_time_ms(lambda: bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0],
-                                                         dhs[1]), reps=5),
-                "plain_ms": bwd_plain_ms,
-                **lstm_bound(T, B, H, dirs=2, backward=True, store_c=False)}}
-        del xp, dhs, streams, want, dz, dz_w
-        torch.cuda.empty_cache()
-    if not worst["h"] <= TOL_K1_H or not max(worst["dz"], worst["dU"]) <= TOL_K2_REL:
-        raise AssertionError(f"K1/K2 at H=512 disagree with their plain versions: {worst} "
-                             f"(tol h {TOL_K1_H}, dz/dU {TOL_K2_REL})")
-    out.update(per_b[B_RGB])
-    out["bilstm_tm_fwd"]["max_abs_err"] = worst["h"]
-    out["bilstm_tm_bwd"]["max_abs_err"] = worst["dz"]
-
-    out.update(_ctc_at_shape(dev, np.random.default_rng(SEED + 41), B_RGB, K_RGB, N_RGB))
-    for v in [*out.values(), *per_b[B_RGB_EDGE].values()]:
-        v["share"] = v["bound_ms"] / v["ms"]
-    phase("rgb_kernels", T=T_K1, H=H_RGB, B=B_RGB, K=K_RGB, N=N_RGB, tol_h=TOL_K1_H,
-          tol_dz_rel=TOL_K2_REL, tol_k3_rel=TOL_K3_REL, tol_k4=TOL_K4,
-          max_rel_err_dU=worst["dU"], bit_identical_launches=True, kernels=out,
-          at_B256=per_b[B_RGB_EDGE])
+    """K1-K4 at the shapes the rgb family gives them: K1 (c stored) and K2
+    at H=512 (MAX_H: 64 eight-unit slices a direction, every warp's K
+    slice full), T=1900, at the preset's B=8 and at B=256 (K2's largest
+    shared-memory opt-in); K3/K4 at K=22, N=28 (T'=1898, B=8)."""
+    out = _bilstm_at(dev, B_RGB, H_RGB, store_c=True)
+    edge = _bilstm_at(dev, B_RGB_EDGE, H_RGB, store_c=True)
+    torch.cuda.empty_cache()
+    out.update(_ctc_at_shape(dev, SEED + 41, B_RGB, K_RGB, N_RGB))
+    phase("rgb_kernels", T=T_K1, H=H_RGB, B=B_RGB, K=K_RGB, N=N_RGB, kernels=out,
+          at_B256=edge)
     return out
 
 
-def _k5_case(dev, rng, gen, T, B, H, timed=False):
-    """K5a and K5b for both scan orders at one shape, against their plain
-    versions and against the matching direction of K1's streams and K2's
-    dz on the same inputs: the errors of each order, whether every one was
-    bit-equal to K1/K2, and with ``timed`` each order's kernel and plain
-    times (CUDA events)."""
-    from mgr_tpu_torch.kernels.bilstm_tm import (
-        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
-    from mgr_tpu_torch.ops.lstm import (
-        init_bilstm_params, lstm_scan_tm_bwd_plain, lstm_scan_tm_plain, lstm_weight_grad)
-
-    bf = torch.bfloat16
-    xp = 0.5 * rng.standard_normal((2, T, B, 4, H), dtype=np.float32)
-    xp[:, :, :, 1, :] += 1.0
-    xp = torch.from_numpy(xp).to(dev, bf)
-    U = init_bilstm_params(gen, 8, H)["U"].to(dev, bf)
-    dhs = torch.from_numpy(
-        1e-2 * rng.standard_normal((2, T, B, H), dtype=np.float32)).to(dev, bf)
-    two = bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-    dz_two = bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
-    cases, times, equal = [], {}, True
-    for rev in (False, True):
-        d = int(rev)
-        hs, cs = lstm_tm_streams(xp[d], U[d], reverse=rev, store_c=True)
-        dz = lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=rev)
-        dU = lstm_weight_grad(hs, dz, reverse=rev)
-        want, fwd_plain_ms = _timed(
-            lambda: lstm_scan_tm_plain(xp[d], U[d], reverse=rev, store_c=True))
-        (dz_w, dU_w), bwd_plain_ms = _timed(
-            lambda: lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=rev))
-        for g in (hs, cs, dz):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"K5 gave non-finite values at {(T, B, H, rev)}")
-        err_h = max(float((hs.float() - want[0]).abs().max()),
-                    float((cs.float() - want[1]).abs().max()))
-        ddz = (dz.float() - dz_w.float()).abs()
-        scale = float(dz_w.float().abs().max())
-        cases.append({"T": T, "B": B, "H": H, "reverse": rev, "max_abs_err_h_c": err_h,
-                      "dz_max_rel": float(ddz.max()) / scale,
-                      "dz_fro_rel": float(ddz.norm() / dz_w.float().norm()),
-                      "dU_fro_rel": float((dU - dU_w).norm() / dU_w.norm()),
-                      "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
-                      "dz_entries": ddz.numel()})
-        equal &= (torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
-                  and torch.equal(dz, dz_two[d]))
-        if timed:
-            times[rev] = {
-                "fwd_ms": cuda_time_ms(lambda: lstm_tm_streams(
-                    xp[d], U[d], reverse=rev, store_c=True), reps=5),
-                "fwd_plain_ms": fwd_plain_ms,
-                "bwd_ms": cuda_time_ms(lambda: lstm_tm_bwd(
-                    xp[d], U[d], hs, cs, dhs[d], reverse=rev), reps=5),
-                "bwd_plain_ms": bwd_plain_ms,
-            }
-    return cases, equal, times
-
-
-def _k5_worst(cases) -> dict:
-    """The largest errors of K5 cases, held against K1's and K2's
-    tolerances. dz is held in relative Frobenius norm: a recomputed z within
-    an ulp of +-2.5 gets the hard sigmoid's slope 0.2 on one side and 0 on
-    the other, which moves that one dz entry by its own size
-    (dz_entries_over_tol counts such entries); bit-equality with K2 is the
-    strict check."""
-    worst = {"h": max(c["max_abs_err_h_c"] for c in cases),
-             "dz": max(c["dz_fro_rel"] for c in cases),
-             "dU": max(c["dU_fro_rel"] for c in cases)}
-    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
-        raise AssertionError(f"K5 disagrees with its plain versions: {worst} (tol h "
-                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
-    return worst
-
-
 def k5_phase(dev) -> dict:
-    """K5a and K5b, the single-direction recurrence and its adjoint, for
-    both scan orders at T=1900, H=500, B=32 and 128 and at edge shapes
-    (B=1, two launches at B=300, an odd H): against their plain versions
-    with K1's and K2's tolerances, and bit-equal to the matching direction
-    of K1's streams and K2's dz on the same inputs."""
-    rng = np.random.default_rng(SEED + 9)
-    gen = torch.Generator().manual_seed(SEED + 9)
-    unequal, times, cases = [], {}, []
-    shapes = [(T_K1, B, H_K1, True) for B in B_K5] + [
-        (64, 1, 500, False), (64, 300, 64, False), (64, 3, 7, False)]
-    for T, B, H, timed in shapes:
-        got, equal, t = _k5_case(dev, rng, gen, T, B, H, timed)
-        cases += got
-        times.update({(B, rev): v for rev, v in t.items()})
-        if not equal:
-            unequal.append((T, B, H))
-    if unequal:
-        raise AssertionError(f"K5 is not bit-equal to K1/K2's direction at {unequal}")
-    worst = _k5_worst(cases)
-    B = B_K5[0]
-    fwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=False, store_c=True)
-    bwd_lim = lstm_bound(T_K1, B, H_K1, dirs=1, backward=True, store_c=False)
-    phase("k5_lstm_tm", T=T_K1, H=H_K1, max_abs_err_h_c=worst["h"], tol_h=TOL_K1_H,
-          fro_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
-          bit_equal_to_k1_k2=True, cases=cases,
-          times={f"B={b} reverse={r}": t for (b, r), t in times.items()},
-          bound_fwd=fwd_lim, bound_bwd=bwd_lim)
-    t = times[(B, False)]
-    return {
-        "lstm_tm_fwd": {"max_abs_err": worst["h"], "ms": t["fwd_ms"],
-                        "plain_ms": t["fwd_plain_ms"], **fwd_lim, "library_ms": None},
-        "lstm_tm_bwd": {"max_abs_err": worst["dz"], "ms": t["bwd_ms"],
-                        "plain_ms": t["bwd_plain_ms"], **bwd_lim, "library_ms": None},
-    }
+    """K5a and K5b, the single-direction recurrence and its adjoint (the
+    forward scan order), at T=1900, H=500 and B_K5, and at the shapes the
+    2x2 meshes of every family give them (K5_FAM_SHAPES), each timed and
+    checked beside its plain version."""
+    from mgr_tpu_torch.kernels.bilstm_tm import lstm_tm_bwd, lstm_tm_streams
+    from mgr_tpu_torch.ops.lstm import (
+        lstm_scan_tm_bwd_plain, lstm_scan_tm_plain, lstm_weight_grad)
 
+    def at(B, H):
+        xp, U, dhs = _lstm_inputs(dev, (T_K1, B), H, dirs=1)
+        fwd = (xp[0], U[0])
+        bwd = (*fwd, *lstm_tm_streams(*fwd, reverse=False, store_c=True), dhs[0])
+        return {
+            "lstm_tm_fwd": _timing(
+                lambda: lstm_tm_streams(*fwd, reverse=False, store_c=True),
+                lambda: lstm_scan_tm_plain(*fwd, reverse=False, store_c=True),
+                lstm_bound(T_K1, B, H, dirs=1, backward=False, store_c=True),
+                f"K5a at B={B}, H={H}", _streams_check),
+            "lstm_tm_bwd": _timing(
+                lambda: lstm_tm_bwd(*bwd, reverse=False),
+                lambda: lstm_scan_tm_bwd_plain(*bwd, reverse=False),
+                lstm_bound(T_K1, B, H, dirs=1, backward=True, store_c=False),
+                f"K5b at B={B}, H={H}", lambda what, got, want: _dz_check(
+                    what, [got], want[:1],
+                    lstm_weight_grad(bwd[2], got, reverse=False), want[1], fro=True)),
+        }
 
-def _flip_tm(a, d):
-    """Direction d of a batch-major (D, B, T, ...) tensor as K1 sees it:
-    time-major, and time-flipped for direction 1 (K6 scans direction 1's
-    flipped projection forward where K1 scans the original in reverse)."""
-    a = a[d].transpose(0, 1)
-    return a.flip(0) if d == 1 else a
+    speech = {f"B={B}": at(B, H_K1) for B in B_K5}
+    family = {f"B={B} H={H}": at(B, H) for B, H in K5_FAM_SHAPES}
+    phase("k5_lstm_tm", T=T_K1, H=H_K1, times=speech, at_family_shapes=family)
+    return {name: {**speech[f"B={B_K5[0]}"][name], "library_ms": None,
+                   "at_family_shapes": {shape: t[name] for shape, t in family.items()}}
+            for name in ("lstm_tm_fwd", "lstm_tm_bwd")}
 
 
 def k6_phase(dev) -> dict:
-    """K6a and K6b, the batch-major scan of D directions and its adjoint,
-    at T=1900, H=500 for (D, B) in K6_CASES and at edge shapes (B=1, two
-    launches at B=300, an odd H, T=64): against their plain versions with
-    K1's and K2's tolerances (dz in relative Frobenius norm, with the count
-    of entries off by more than 2e-2 of the largest), and bit-equal to K1's
-    streams and K2's dz (K5a's and K5b's for D=1) on the same, time-flipped
-    projections."""
-    from mgr_tpu_torch.kernels.bilstm_tm import (
-        bilstm_tm_bwd, bilstm_tm_streams, lstm_tm_bwd, lstm_tm_streams)
+    """K6a and K6b, the batch-major scan of both directions and its
+    adjoint, at T=1900, H=500 and B_K6, each timed and checked beside its
+    plain version."""
     from mgr_tpu_torch.kernels.lstm_scan import lstm_scan_bwd, lstm_scan_streams
     from mgr_tpu_torch.ops.lstm import (
-        init_bilstm_params, recurrent_scan_bwd_plain, recurrent_scan_plain, scan_weight_grad)
+        recurrent_scan_bwd_plain, recurrent_scan_plain, scan_weight_grad)
 
-    gen = torch.Generator().manual_seed(SEED + 13)
-    dgen = torch.Generator(dev).manual_seed(SEED + 13)
-    bf = torch.bfloat16
-    worst = {"h": 0.0, "dz": 0.0, "dU": 0.0}
-    unequal, times, cases = [], {}, []
-
-    def case(D, T, B, H, timed=False):
-        xp = 0.5 * torch.randn((D, B, T, 4, H), generator=dgen, device=dev)
-        xp[:, :, :, 1, :] += 1.0
-        xp = xp.to(bf)
-        U = init_bilstm_params(gen, 8, H)["U"][:D].to(dev, bf)
-        dhs = (1e-2 * torch.randn((D, B, T, H), generator=dgen, device=dev)).to(bf)
-        hs, cs = lstm_scan_streams(xp, U, store_c=True)
-        dz = lstm_scan_bwd(xp, U, hs, cs, dhs)
-        dU = scan_weight_grad(hs, dz)
-        want, fwd_plain_ms = _timed(lambda: recurrent_scan_plain(xp, U, store_c=True))
-        dz_w, bwd_plain_ms = _timed(lambda: recurrent_scan_bwd_plain(xp, U, hs, cs, dhs))
-        dU_w = scan_weight_grad(hs, dz_w)
-        for g in (hs, cs, dz):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"K6 gave non-finite values at {(D, T, B, H)}")
-        err_h = max(float((hs.float() - want[0]).abs().max()),
-                    float((cs.float() - want[1]).abs().max()))
-        ddz = (dz.float() - dz_w.float()).abs()
-        scale = float(dz_w.float().abs().max())
-        dz_max, dz_fro = float(ddz.max()) / scale, float(ddz.norm() / dz_w.float().norm())
-        err_dU = float((dU - dU_w).norm() / dU_w.norm())
-        worst["h"] = max(worst["h"], err_h)
-        worst["dz"] = max(worst["dz"], dz_fro)
-        worst["dU"] = max(worst["dU"], err_dU)
-        cases.append({"D": D, "T": T, "B": B, "H": H, "max_abs_err_h_c": err_h,
-                      "dz_max_rel": dz_max, "dz_fro_rel": dz_fro, "dU_fro_rel": err_dU,
-                      "dz_entries_over_tol": int((ddz > TOL_K2_REL * scale).sum()),
-                      "dz_entries": ddz.numel()})
-        if D == 1:
-            one = lstm_tm_streams(_flip_tm(xp, 0), U[0], reverse=False, store_c=True)
-            ref = ([one[0]], [one[1]],
-                   [lstm_tm_bwd(_flip_tm(xp, 0), U[0], *one, _flip_tm(dhs, 0), reverse=False)])
-        else:
-            two = bilstm_tm_streams(_flip_tm(xp, 0), _flip_tm(xp, 1), U, store_c=True)
-            ref = (two[:2], two[2:], bilstm_tm_bwd(_flip_tm(xp, 0), _flip_tm(xp, 1), U, *two,
-                                                   _flip_tm(dhs, 0), _flip_tm(dhs, 1)))
-        if not all(torch.equal(_flip_tm(a, d), r[d])
-                   for a, r in zip((hs, cs, dz), ref) for d in range(D)):
-            unequal.append((D, T, B, H))
-        if timed:
-            times[(D, B)] = {
-                "fwd_ms": cuda_time_ms(lambda: lstm_scan_streams(xp, U, store_c=True), reps=3),
-                "fwd_plain_ms": fwd_plain_ms,
-                "bwd_ms": cuda_time_ms(lambda: lstm_scan_bwd(xp, U, hs, cs, dhs), reps=3),
-                "bwd_plain_ms": bwd_plain_ms,
-                # What K6 saves by reading and writing the batch-major buffers
-                # in place: the two layout copies of pallas_recurrent_scan
-                # (xp to time-major, hs back), timed alone.
-                "layout_copies_ms": cuda_time_ms(lambda: (xp.transpose(1, 2).contiguous(),
-                                                          hs.transpose(1, 2).contiguous()),
-                                                 reps=3),
-                "bound_fwd": lstm_bound(T, B, H, dirs=D, backward=False, store_c=True),
-                "bound_bwd": lstm_bound(T, B, H, dirs=D, backward=True, store_c=False),
-            }
-
-    for D, B in K6_CASES:
-        case(D, T_K1, B, H_K1, timed=True)
-    for D, T, B, H in ((2, 64, 1, 500), (2, 64, 300, 64), (2, 64, 3, 7), (1, 64, 300, 7)):
-        case(D, T, B, H)
-    if unequal:
-        raise AssertionError(f"K6 is not bit-equal to K1/K2's (K5's) directions at {unequal}")
-    # dz in relative Frobenius norm, for the reason K5's is (k5_phase).
-    if worst["h"] > TOL_K1_H or max(worst["dz"], worst["dU"]) > TOL_K2_REL:
-        raise AssertionError(f"K6 disagrees with its plain versions: {worst} (tol h "
-                             f"{TOL_K1_H}, dz/dU {TOL_K2_REL}): {cases}")
-    phase("k6_lstm_scan", T=T_K1, H=H_K1, max_abs_err_h_c=worst["h"], tol_h=TOL_K1_H,
-          fro_rel_err_dz=worst["dz"], rel_err_dU=worst["dU"], tol_rel=TOL_K2_REL,
-          bit_equal_to_k1_k2_k5=True, cases=cases,
-          times={f"D={d} B={b}": t for (d, b), t in times.items()})
-    t = times[K6_CASES[0]]
-    return {
-        "lstm_scan_fwd": {"max_abs_err": worst["h"], "ms": t["fwd_ms"],
-                          "plain_ms": t["fwd_plain_ms"], **t["bound_fwd"], "library_ms": None},
-        "lstm_scan_bwd": {"max_abs_err": worst["dz"], "ms": t["bwd_ms"],
-                          "plain_ms": t["bwd_plain_ms"], **t["bound_bwd"], "library_ms": None},
-    }
+    times = {}
+    for B in B_K6:
+        xp, U, dhs = _lstm_inputs(dev, (B, T_K1), H_K1)
+        bwd = (xp, U, *lstm_scan_streams(xp, U, store_c=True), dhs)
+        times[f"B={B}"] = {
+            "lstm_scan_fwd": _timing(
+                lambda: lstm_scan_streams(xp, U, store_c=True),
+                lambda: recurrent_scan_plain(xp, U, store_c=True),
+                lstm_bound(T_K1, B, H_K1, dirs=2, backward=False, store_c=True),
+                f"K6a at B={B}", _streams_check, reps=3),
+            "lstm_scan_bwd": _timing(
+                lambda: lstm_scan_bwd(*bwd), lambda: recurrent_scan_bwd_plain(*bwd),
+                lstm_bound(T_K1, B, H_K1, dirs=2, backward=True, store_c=False),
+                f"K6b at B={B}", lambda what, got, want: _dz_check(
+                    what, [got], [want], scan_weight_grad(bwd[2], got),
+                    scan_weight_grad(bwd[2], want), fro=True), reps=3),
+        }
+    phase("k6_lstm_scan", T=T_K1, H=H_K1, D=2, times=times)
+    return {name: {**times[f"B={B_K6[0]}"][name], "library_ms": None}
+            for name in ("lstm_scan_fwd", "lstm_scan_bwd")}
 
 
 def bm_path_phase(dev) -> dict:
@@ -2402,7 +1851,7 @@ def bm_path_phase(dev) -> dict:
     encoder's width (bf16): a train-mode stack of two ``bilstm_layer``s
     (F=39 -> 1000 -> 1000, input dropout 0.4 / 0.5, B=32, T=1900) and an
     ``lstm_layer(reverse=True)`` on its output, forward and backward,
-    timed and counted (K6a/K6b and no other kernel). Checks: each layer's
+    counted (K6a/K6b and no other kernel). Checks: each layer's
     eval-mode output against ``bilstm_layer_tm`` (K1) on the same
     parameters and input; the train-mode outputs and gradients against
     the same stack with K6a/K6b's plain versions on the card (same masks:
@@ -2436,23 +1885,15 @@ def bm_path_phase(dev) -> dict:
         loss = (h.float() * tangent).sum() + (r.float() * tangent1).sum()
         return h.detach(), r.detach(), torch.autograd.grad(loss, leaves)
 
-    run()  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
     dispatch.reset_launch_counts()
-    t0 = time.perf_counter()
     h_k, r_k, grads_k = run()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = dispatch.launch_counts()
     want = {name: 3 if name.startswith("lstm_scan") else 0 for name in KERNELS}
     if launches != want:
         raise AssertionError(f"the batch-major path took the wrong kernels: {launches}")
 
     with plain_path():
-        t1 = time.perf_counter()
         h_p, r_p, grads_p = run()
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t1)
     out_err = max(float((a.float() - b.float()).abs().max())
                   for a, b in ((h_k, h_p), (r_k, r_p)))
     grad_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -2474,9 +1915,8 @@ def bm_path_phase(dev) -> dict:
             f"vs plain {out_err} (tol {TOL_K1_H}), gradients vs plain {grad_rel} "
             f"(tol {TOL_GRAD_REL})")
     phase("bm_path", B=B, T=T, F=F, H=H, layers="bilstm_layer x2 (train, dropout "
-          f"{list(rates)}) + lstm_layer(reverse=True)", wall_ms=wall_ms,
-          plain_wall_ms=plain_ms, launches=launches, eval_vs_k1_max_abs_err=tm_err,
-          train_out_vs_plain_max_abs_err=out_err, tol_out=TOL_K1_H,
+          f"{list(rates)}) + lstm_layer(reverse=True)", launches=launches,
+          eval_vs_k1_max_abs_err=tm_err, train_out_vs_plain_max_abs_err=out_err, tol_out=TOL_K1_H,
           grad_max_rel_err=max(grad_rel), tol_grad_rel=TOL_GRAD_REL)
     return launches
 
@@ -2493,8 +1933,7 @@ def _digest_tensors(tensors) -> str:
 def _mesh_rank(rank, world, shape, cfg_json, batch, corpus, workdir):
     """One rank of a (data, model) mesh on the one card: the mesh step's
     loss and gradients and the mesh eval loss with the launch counts of
-    that run, the wall time of three mesh train steps, and with a corpus
-    one epoch of fit over the mesh."""
+    that run, and with a corpus one epoch of fit over the mesh."""
     from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
     from mgr_tpu_torch.data.batcher import Batcher
     from mgr_tpu_torch.models.zoo import build_model
@@ -2516,17 +1955,6 @@ def _mesh_rank(rank, world, shape, cfg_json, batch, corpus, workdir):
     if rank == 0:
         out["grads"] = {k: g.float().cpu().numpy() for k, g in grads.items()}
     del grads
-    state = step_lib.create_train_state(model)
-    train_step = step_lib.make_train_step(model, mesh=mesh)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        mesh.barrier()
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch, None)
-        float(m["loss"])
-        walls.append(time.perf_counter() - t0)
-    out["step_wall_s"] = walls
     if corpus is not None:
         feats, labels, lab_len, in_len, ids, n_train = corpus
         data = Batcher(feats, labels, lab_len, in_len, ids,
@@ -2548,8 +1976,7 @@ def mesh_phase(dev) -> dict:
     counts (K5a/K5b and no K1/K2 under model=2, K1/K2 under 2x1); one
     epoch of fit over the 2x2 mesh (the primary writes the best slot,
     every rank ends on the same parameters, the slot reloads in this
-    process and decodes). The wall times are of ranks time-sharing one
-    card, not a multi-card speed."""
+    process and decodes)."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.core.config import get_preset
     from mgr_tpu_torch.data.batcher import Batcher
@@ -2578,12 +2005,10 @@ def mesh_phase(dev) -> dict:
     meshes = {}
     with tempfile.TemporaryDirectory() as workdir:
         for shape in MESHES:
-            t0 = time.perf_counter()
             out = run_ranks(_mesh_rank, shape[0] * shape[1],
                             (shape, cfg.to_json(), batch,
                              corpus if shape == (2, 2) else None, workdir),
                             timeout_s=MESH_TIMEOUT_S)
-            run_s = time.perf_counter() - t0
             grads = out[0]["grads"]
             grad_rel = {k: float(np.linalg.norm(grads[k] - g.numpy())
                                  / max(float(g.norm()), 1e-30)) for k, g in grads_1.items()}
@@ -2612,9 +2037,6 @@ def mesh_phase(dev) -> dict:
                 "loss_rel_err": loss_rel, "eval_rel_err": eval_rel,
                 "grad_max_rel_err": max(grad_rel.values()),
                 "launches_rank0": out[0]["launches"],
-                "step_wall_ms_ranks_time_sharing_one_card": [
-                    1e3 * float(np.median(r["step_wall_s"])) for r in out],
-                "run_s": run_s,
             }
             if shape == (2, 2):
                 fits = [r["fit"] for r in out]
@@ -2686,8 +2108,8 @@ def _families_rank(rank, world, device, shape, cfgs_json, train, decode, curricu
     """One rank of a (data, model) mesh on the one card, every family of the
     launch in turn: for each trained family one mesh step's loss and raw
     gradients and one mesh eval step with the launch counts of that run,
-    the wall of three mesh train steps and whether the frozen parameters
-    stayed bit-unchanged; for each decoded family the mesh decode
+    and whether the frozen parameters stayed bit-unchanged through one
+    mesh train step; for each decoded family the mesh decode
     (``Decoder.for_model(mesh=)``) of its global batch; with a
     ``curriculum_dir`` ``run_curriculum(mesh=)``, one epoch a stage on the
     fusion phase's corpora: the stamps this rank wrote and a digest of
@@ -2723,15 +2145,8 @@ def _families_rank(rank, world, device, shape, cfgs_json, train, decode, curricu
         del grads
         state = step_lib.create_train_state(model)
         train_step = step_lib.make_train_step(model, mesh=mesh)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            mesh.barrier()
-            t0 = time.perf_counter()
-            state, m = train_step(state, batch, None)
-            float(m["loss"])
-            walls.append(time.perf_counter() - t0)
-        r["step_wall_s"] = walls
+        state, m = train_step(state, batch, None)
+        float(m["loss"])
         r["frozen"] = len(frozen)
         r["frozen_unchanged"] = all(torch.equal(p, frozen[k])
                                     for k, p in model.named_parameters() if k in frozen)
@@ -2769,12 +2184,9 @@ def _families_rank(rank, world, device, shape, cfgs_json, train, decode, curricu
         data.append(_batcher(_two_stream_corpus(presets["late_fusion"], n, SEED + 21),
                              N_FUS_TRAIN))
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         res = run_curriculum(*data, curriculum_dir, configs=presets, mesh=mesh, epochs=1)
-        torch.cuda.synchronize()
         out["curriculum"] = {
-            "writes": sorted(set(writes)), "seconds": time.perf_counter() - t0,
-            "launches": dispatch.launch_counts(),
+            "writes": sorted(set(writes)), "launches": dispatch.launch_counts(),
             "stages": {k: {"digest": _digest_tensors(r.state.params.values()),
                            "epochs_run": r.epochs_run,
                            "history": [{h_k: h[h_k] for h_k in ("train_loss", "val_loss")}
@@ -2811,20 +2223,17 @@ def mesh_families_phase(dev) -> dict:
     rgb on 2x1. For each, one mesh train step's loss and every raw gradient
     and one mesh eval loss against the single-process step on the same
     batch; each rank's launches (K5a/K5b and no K1/K2 on 2x2, K1/K2 on 2x1,
-    K3/K4 always); the wall of three mesh train steps; late fusion's
-    encoders bit-unchanged. Then speech (B=128) and late fusion (B=32)
-    decoded over both meshes against the single-process decode of the same
-    rows, ``run_curriculum(mesh=)`` on 2x1 (one epoch a stage: rank 0
-    alone writes, the ranks end equal, the fusion slot's encoders are the
-    donors' best slots), and K5a/K5b against their plain versions at the
-    shapes these meshes give them. The walls are of ranks time-sharing one
-    card, not a multi-card speed."""
+    K3/K4 always); late fusion's encoders bit-unchanged through a mesh
+    train step. Then speech (B=128) and late fusion (B=32) decoded over
+    both meshes against the single-process decode of the same rows, and
+    ``run_curriculum(mesh=)`` on 2x1 (one epoch a stage: rank 0 alone
+    writes, the ranks end equal, the fusion slot's encoders are the
+    donors' best slots)."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.decode.decoder import DECODE_SPECS
     from mgr_tpu_torch.parallel.spawn import run_ranks
     from mgr_tpu_torch.train import step as step_lib
 
-    t_phase = time.perf_counter()
     cfgs = _families_cfgs()
     refs = {}
     for name in FAM_TRAIN[(2, 2)]:
@@ -2861,12 +2270,10 @@ def mesh_families_phase(dev) -> dict:
     with tempfile.TemporaryDirectory() as cur_dir:
         for shape in FAM_MESHES:
             mname = "x".join(map(str, shape))
-            t0 = time.perf_counter()
             out = run_ranks(_families_rank, shape[0] * shape[1],
                             (str(dev), shape, cfgs_json, FAM_TRAIN[shape], tuple(FAM_DECODE),
                              cur_dir if shape == (2, 1) else None),
                             timeout_s=MESH_TIMEOUT_S)
-            run_s = time.perf_counter() - t0
             tp = shape[1] == 2
             for name in FAM_TRAIN[shape]:
                 ref, res = refs[name], [r["train"][name] for r in out]
@@ -2901,8 +2308,6 @@ def mesh_families_phase(dev) -> dict:
                     "loss_rel_err": loss_rel, "eval_rel_err": eval_rel,
                     "grad_max_rel_err": max(grad_rel.values()),
                     "launches_rank0": res[0]["launches"],
-                    "step_wall_ms_ranks_time_sharing_one_card": [
-                        1e3 * float(np.median(r["step_wall_s"])) for r in res],
                     **({"frozen_encoders_bit_unchanged": True} if name == "late_fusion" else {}),
                 }
             for name in FAM_DECODE:
@@ -2915,7 +2320,6 @@ def mesh_families_phase(dev) -> dict:
                     (res[0]["best"], res[0]["emit"]), (best_1, emit_1), probs,
                     res[0]["probs"])
                 launches[f"decode {name} {mname}"] = res[0]["launches"]
-            meshes[f"run {mname}"] = {"run_s": run_s}
             if shape == (2, 1):
                 cur = [r["curriculum"] for r in out]
                 stages = ("speech", "skeletal", "late_fusion")
@@ -2933,29 +2337,14 @@ def mesh_families_phase(dev) -> dict:
                             raise AssertionError(f"curriculum: fusion slot's {k}.{key} is "
                                                  f"not the donor's best slot")
                 launches["curriculum 2x1"] = cur[0]["launches"]
-                curriculum = {"seconds": cur[0]["seconds"], "launches_rank0": cur[0]["launches"],
+                curriculum = {"launches_rank0": cur[0]["launches"],
                               "history": {k: v["history"] for k, v in cur[0]["stages"].items()},
                               "rank0_alone_writes": True, "ranks_agree": True,
                               "fusion_encoders_are_the_donors": True}
-
-    rng = np.random.default_rng(SEED + 60)
-    gen = torch.Generator().manual_seed(SEED + 60)
-    k5 = {}
-    for B, H in K5_FAM_SHAPES:
-        cases, equal, times = _k5_case(dev, rng, gen, T_K1, B, H, timed=True)
-        if not equal:
-            raise AssertionError(f"K5 is not bit-equal to K1/K2's direction at B={B}, H={H}")
-        worst = _k5_worst(cases)
-        k5[f"B={B} H={H}"] = {
-            "max_abs_err_h_c": worst["h"], "fro_rel_err_dz": worst["dz"],
-            "rel_err_dU": worst["dU"], **times[False],
-            "bound_fwd": lstm_bound(T_K1, B, H, dirs=1, backward=False, store_c=True),
-            "bound_bwd": lstm_bound(T_K1, B, H, dirs=1, backward=True, store_c=False)}
     phase("mesh_families", backend="gloo", ranks_share_one_card=True,
           tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL, steps=meshes,
-          decodes=decodes, curriculum=curriculum, k5_at_family_shapes=k5,
-          tol_k5_h=TOL_K1_H, tol_k5_rel=TOL_K2_REL, seconds=time.perf_counter() - t_phase)
-    return {"launches": launches, "k5": k5}
+          decodes=decodes, curriculum=curriculum)
+    return launches
 
 
 def _gspmd_key():
@@ -2980,13 +2369,12 @@ def _gspmd_cfgs():
 
 def _gspmd_rank(rank, world, device, shape, speech_json, fams_json, families, fit_dir):
     """One rank of a (data, model, time) mesh of the GSPMD route on the one
-    card: two speech mesh train steps (the first's raw loss and gradients,
-    launches and all-reduces; both walls); each of ``families`` one mesh
-    train step (the same, and whether its frozen parameters stayed
-    unchanged); the time of one all-reduce of the exchange's shape over the
-    model axis, of a card tensor and of a host tensor; with ``fit_dir`` one
-    epoch of speech over the mesh (rank 0 writes the slots) and, on rank 0,
-    the one-process decode of a batch with the in-memory parameters."""
+    card: one speech mesh train step and one of each of ``families`` (the
+    raw loss and gradients the optimizer gets, the launches and all-reduces,
+    and whether the frozen parameters stayed unchanged); with ``fit_dir``
+    one epoch of speech over the mesh (rank 0 writes the slots) and, on
+    rank 0, the one-process decode of a batch with the in-memory
+    parameters."""
     import torch.distributed as dist
 
     from mgr_tpu_torch.core.config import MeshConfig, PipelineConfig
@@ -3020,56 +2408,35 @@ def _gspmd_rank(rank, world, device, shape, speech_json, fams_json, families, fi
 
     step_lib._apply_updates = capture
 
-    def train_steps(name, cfgs, B, n):
+    def train_step(name, cfgs, B):
         batch = _family_batch(cfgs[name], B, SEED + FAM_SEED[name] + 20)
         model = _family_model(name, cfgs, mesh.device)
         trainable = model.trainable()
         frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not trainable[k]}
         state = step_lib.create_train_state(model)
-        train_step = step_lib.make_train_step(model, mesh=mesh)
-        r = {"step_wall_s": []}
-        for i in range(n):
-            torch.cuda.synchronize()
-            mesh.barrier()
-            dispatch.reset_launch_counts()
-            n0, t0 = reduces[0], time.perf_counter()
-            state, m = train_step(state, batch, key)
-            float(m["loss"])
-            r["step_wall_s"].append(time.perf_counter() - t0)
-            if i == 0:
-                r.update(launches=dispatch.launch_counts(), all_reduces=reduces[0] - n0, **seen)
+        dispatch.reset_launch_counts()
+        n0 = reduces[0]
+        state, m = step_lib.make_train_step(model, mesh=mesh)(state, batch, key)
+        float(m["loss"])
+        r = {"launches": dispatch.launch_counts(), "all_reduces": reduces[0] - n0, **seen}
         r["frozen"] = len(frozen)
         r["frozen_unchanged"] = all(torch.equal(p, frozen[k])
                                     for k, p in model.named_parameters() if k in frozen)
-        del model, state, train_step
+        del model, state
         torch.cuda.empty_cache()
         return r
 
-    out = {"speech": train_steps("speech", {"speech": speech_cfg}, GSPMD_B, 2),
-           "families": {name: train_steps(name, fams, GSPMD_FAM_B, 1) for name in families}}
+    out = {"speech": train_step("speech", {"speech": speech_cfg}, GSPMD_B),
+           "families": {name: train_step(name, fams, GSPMD_FAM_B) for name in families}}
     step_lib._apply_updates = real_apply
-    H = speech_cfg.encoder.hidden
-    exch = {}
-    for where in ("card", "host"):
-        buf = torch.zeros((2, GSPMD_B // shape[0], H), dtype=torch.bfloat16,
-                          device=mesh.device if where == "card" else "cpu")
-        mesh.barrier()
-        t0 = time.perf_counter()
-        for _ in range(N_EXCHANGE):
-            dist.all_reduce(buf, group=mesh.model_group)
-        torch.cuda.synchronize()
-        exch[f"{where}_ms"] = 1e3 * (time.perf_counter() - t0) / N_EXCHANGE
-    out["exchange"] = exch
     if fit_dir:
         cfgs = {"speech": speech_cfg.replace(batch_size=GSPMD_B)}
         corpus = _speech_corpus(cfgs["speech"], N_GSPMD_TRAIN + N_GSPMD_VAL, SEED + 70)
         model = _family_model("speech", cfgs, mesh.device)
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         res = fit(model, _batcher(corpus, N_GSPMD_TRAIN), workdir=fit_dir, epochs=1, mesh=mesh)
-        torch.cuda.synchronize()
         out["fit"] = {"digest": _digest(model), "epochs_run": res.epochs_run,
-                      "seconds": time.perf_counter() - t0, "launches": dispatch.launch_counts(),
+                      "launches": dispatch.launch_counts(),
                       "history": [{k: h[k] for k in ("train_loss", "val_loss")}
                                   for h in res.history]}
         if rank == 0:
@@ -3084,25 +2451,21 @@ def gspmd_phase(dev) -> dict:
     dropout on, the same key, on 1x4 (H-blocks of 125: the H-sharded
     recurrence, one exchange a time step, no K1/K2), 2x1x2 (time slices of
     950, the recurrence whole through K1/K2 on every rank) and 1x2x2 (H over
-    2 and time, not the direction-sharded route). On each mesh two train
-    steps: the first's loss and every combined gradient against the
-    single-process step on the card with the same draws, its launches on
-    each rank (K1/K2 0 on 1x4 and 1x2x2, K3/K4 on every rank) and its
-    all-reduces; the wall of both. Early fusion, late fusion (frozen
-    encoders) and rgb, their encoders at depth 1, one step each on 1x4 at
-    B=2 against their single-process step. The time of one all-reduce at
-    the exchange's shape over each mesh's model axis. ``fit`` of one epoch
-    of speech over 1x2x2 with a workdir: this process reads the best slot
-    and decodes, bit for bit the decode of rank 0's in-memory parameters.
-    The walls are of ranks time-sharing one card, through gloo and the
-    host, not a multi-card speed."""
+    2 and time, not the direction-sharded route). On each mesh one train
+    step: its loss and every combined gradient against the single-process
+    step on the card with the same draws, its launches on each rank (K1/K2
+    0 on 1x4 and 1x2x2, K3/K4 on every rank) and its all-reduces. Early
+    fusion, late fusion (frozen encoders) and rgb, their encoders at depth
+    1, one step each on 1x4 at B=2 against their single-process step.
+    ``fit`` of one epoch of speech over 1x2x2 with a workdir: this process
+    reads the best slot and decodes, bit for bit the decode of rank 0's
+    in-memory parameters."""
     from mgr_tpu_torch.core import checkpoint as ckpt_lib
     from mgr_tpu_torch.decode.decoder import Decoder
     from mgr_tpu_torch.parallel.spawn import run_ranks
     from mgr_tpu_torch.train import optimizer as opt_lib
     from mgr_tpu_torch.train import step as step_lib
 
-    t_phase = time.perf_counter()
     speech, fams = _gspmd_cfgs()
     key = _gspmd_key()
     refs = {}
@@ -3138,13 +2501,11 @@ def gspmd_phase(dev) -> dict:
         for shape in GSPMD_MESHES:
             mname = "x".join(map(str, shape))
             families = FAM_TRAIN[(2, 2)] if shape == GSPMD_FAM_MESH else ()
-            t0 = time.perf_counter()
             out = run_ranks(_gspmd_rank, int(np.prod(shape)),
                             (str(dev), shape, speech.to_json(),
                              {k: v.to_json() for k, v in fams.items()}, families,
                              fit_dir if shape == GSPMD_FIT_MESH else None),
                             timeout_s=GSPMD_TIMEOUT_S)
-            run_s = time.perf_counter() - t0
             hsharded = shape[1] > 1
             for name in ("speech", *families):
                 res = [r["speech"] if name == "speech" else r["families"][name] for r in out]
@@ -3160,15 +2521,9 @@ def gspmd_phase(dev) -> dict:
                         raise AssertionError(f"{tag}: a rank took the wrong kernels: {c}")
                 launches[tag] = res[0]["launches"]
                 steps[tag] = {**got, "launches_rank0": res[0]["launches"],
-                              "all_reduces_per_step_rank0": res[0]["all_reduces"],
-                              "step_wall_ms_per_rank": [[1e3 * w for w in r["step_wall_s"]]
-                                                        for r in res]}
-                if name == "speech":
-                    steps[tag]["step_wall_ms_per_rank_median_of_2"] = [
-                        1e3 * float(np.median(r["step_wall_s"])) for r in res]
+                              "all_reduces_per_step_rank0": res[0]["all_reduces"]}
                 if name == "late_fusion":
                     steps[tag]["frozen_encoders_bit_unchanged"] = True
-            steps[f"run {mname}"] = {"run_s": run_s, "exchange_ms_rank0": out[0]["exchange"]}
             if shape == GSPMD_FIT_MESH:
                 fits = [r["fit"] for r in out]
                 if len({f["digest"] for f in fits}) != 1 or fits[0]["epochs_run"] != 1:
@@ -3185,25 +2540,15 @@ def gspmd_phase(dev) -> dict:
                     raise AssertionError(f"the {mname} fit's slot does not decode as rank 0's "
                                          f"in-memory parameters do")
                 launches[f"fit {mname}"] = fits[0]["launches"]
-                fit_out = {"history": fits[0]["history"], "seconds": fits[0]["seconds"],
-                           "ranks_agree": True, "slot_decodes_bit_for_bit": True,
+                fit_out = {"history": fits[0]["history"], "ranks_agree": True,
+                           "slot_decodes_bit_for_bit": True,
                            "launches_rank0": fits[0]["launches"]}
     phase("gspmd", pipeline="speech", B=GSPMD_B, T=speech.maxlen, H=speech.encoder.hidden,
           noise=speech.encoder.input_noise, dropout=list(speech.encoder.dropout),
           families_depth=GSPMD_FAM_DEPTH, families_B=GSPMD_FAM_B, backend="gloo",
           ranks_share_one_card=True, tol_loss_rel=TOL_LOSS_REL, tol_grad_rel=TOL_GRAD_REL,
-          steps=steps, fit=fit_out, seconds=time.perf_counter() - t_phase)
+          steps=steps, fit=fit_out)
     return launches
-
-
-def _device_us(prof) -> float:
-    """Device time of the kernels and copies a torch.profiler run traced.
-    Only the device's own rows count: a host op's row also carries the
-    device time of the kernels it launched, which would count them twice."""
-    from torch.autograd import DeviceType
-
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
 
 
 def _video_batch(cfg, B, seed):
@@ -3293,7 +2638,6 @@ def bench_phase(dev) -> dict:
     from mgr_tpu_torch import bench
     from mgr_tpu_torch.ops import dispatch
 
-    t_phase = time.perf_counter()
     calls_train = bench.WARMUP_STEPS + bench.REPEATS * bench.TIMED_STEPS
     calls_decode = 1 + bench.REPEATS * bench.TIMED_STEPS
     lines, launches = {}, {}
@@ -3301,9 +2645,7 @@ def bench_phase(dev) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         dispatch.reset_launch_counts()
-        t0 = time.perf_counter()
         line = _bench_line(["--pipeline", name], BENCH_KEYS)
-        run_s = time.perf_counter() - t0
         run = dispatch.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         if line["pipeline"] != name or line["batch"] != bench.PIPELINES[name]["batch"]:
@@ -3315,7 +2657,7 @@ def bench_phase(dev) -> dict:
             raise AssertionError(f"bench {name}: launches run {run}, a train step {t}, a "
                                  f"decode step {d}")
         print(json.dumps(line), flush=True)
-        lines[name] = {"line": line, "peak_memory_gib": peak / 2**30, "run_s": run_s}
+        lines[name] = {"line": line, "peak_memory_gib": peak / 2**30}
         launches[name] = {**per, "run": run}
     dispatch.reset_launch_counts()
     latency = _bench_line(["--pipeline", "speech", "--latency"], LATENCY_KEYS)
@@ -3325,7 +2667,6 @@ def bench_phase(dev) -> dict:
         raise AssertionError(f"bench --latency: {latency}, {launches['speech latency']}")
     print(json.dumps(latency), flush=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "mgr_tpu_torch.cli.main", "bench"],
                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                           text=True, timeout=BENCH_CLI_TIMEOUT_S)
@@ -3336,10 +2677,8 @@ def bench_phase(dev) -> dict:
         raise AssertionError(f"the bench CLI printed {out}")
     cli = _checked_bench_line(json.loads(out[0]), BENCH_KEYS, ["bench"])
     print(json.dumps(cli), flush=True)
-    phase("bench", lines=lines, latency=latency,
-          cli={"line": cli, "wall_s": time.perf_counter() - t0},
-          launches=launches, calls_a_run={"train": calls_train, "decode": calls_decode},
-          seconds=time.perf_counter() - t_phase)
+    phase("bench", lines=lines, latency=latency, cli=cli, launches=launches,
+          calls_a_run={"train": calls_train, "decode": calls_decode})
     return launches
 
 
@@ -3351,13 +2690,10 @@ def dryrun_phase(dev) -> dict:
     0's launches in each phase must be its route's kernels."""
     from mgr_tpu_torch.entry import dryrun_multichip
 
-    t_phase = time.perf_counter()
     runs, launches = {}, {}
     for n in DRYRUN_RANKS:
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         res = dryrun_multichip(n)
-        wall = time.perf_counter() - t0
         c = res["launches"]
         k12, k14, k5 = KERNELS[:2], KERNELS[:4], KERNELS[4:6]
         gspmd = n % 8 == 0  # phase 1 on 2x2x2; else 1x2x1, direction-sharded
@@ -3373,12 +2709,11 @@ def dryrun_phase(dev) -> dict:
         if wrong:
             raise AssertionError(f"dryrun_multichip({n}): rank 0 took the wrong kernels in "
                                  f"phases {wrong}")
-        runs[str(n)] = {"line": res["line"], "wall_s": wall, "loss": res["loss"],
+        runs[str(n)] = {"line": res["line"], "loss": res["loss"],
                         "split_leaves_checked": res["split_leaves_checked"],
                         **{k: res[k] for k in ("dp", "tp", "late_fusion", "decode_emitted")}}
         launches.update({f"{n} ranks phase {k}": v for k, v in c.items()})
-    phase("dryrun", backend="gloo", ranks_share_one_card=True, runs=runs, launches_rank0=launches,
-          seconds=time.perf_counter() - t_phase)
+    phase("dryrun", backend="gloo", ranks_share_one_card=True, runs=runs, launches_rank0=launches)
     return launches
 
 
@@ -3386,7 +2721,7 @@ def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     kind = device_phase()
     dev = torch.device("cuda", 0)
-    fastcsv_build_s = build_phase()
+    build_phase()
     measured = {"bilstm_tm_fwd": k1_phase(dev), "bilstm_tm_bwd": k2_phase(dev),
                 "ctc_fwd": k3_phase(dev), "ctc_bwd": k4_phase(dev), **k5_phase(dev),
                 **k6_phase(dev)}
@@ -3394,7 +2729,7 @@ def main() -> int:
     serving = slice_phase(dev)
     training = train_phase(dev)
     fit_path = fit_path_phase(dev)
-    synthetic = synthetic_phase(dev, fastcsv_build_s)
+    synthetic = synthetic_phase(dev)
     examples = examples_phase(dev)
     fusion_shapes = fusion_kernels_phase(dev)
     fusion = fusion_phase(dev)
@@ -3411,29 +2746,30 @@ def main() -> int:
     replaces = {"bilstm_tm_fwd": 775, "bilstm_tm_bwd": 856, "ctc_fwd": 410, "ctc_bwd": 491,
                 "lstm_tm_fwd": 1086, "lstm_tm_bwd": 1151, "lstm_scan_fwd": 67,
                 "lstm_scan_bwd": 164}
-    # launches: K1-K4 from the training path (the one-process main path),
-    # with the serving path's counts of K1 and K3, the fusion path's (both
-    # families' fit, decode and evaluate) and the rgb path's (fit, decode,
-    # evaluate, infer) beside them, and each one's measurements at the
-    # fusion and the rgb shapes, and the prepare path's (the prepared
-    # speech corpus trained and decoded); K5a/K5b from rank 0 of the 2x2 mesh's
-    # train and eval step (the mesh path); K6a/K6b from the batch-major
-    # layer path; K1-K4 also from the fit path's main path (train speech
-    # through the CLI on the device-resident corpus, then decode of a
-    # msgpack workdir) and from the synthetic path (the learning run's
-    # fit, decode and evaluate, then train and decode speech through the
-    # CLI on the synthetic corpus) and from each learning driver of the
-    # examples path (its stages' fits, probes and evaluations); every
-    # kernel also from rank 0 of each path of the mesh_families phase
-    # (each family's mesh train and eval step, each mesh decode, the curriculum on 2x1), and K5a/K5b at the
-    # shapes those meshes give them; and from rank 0 of each path of the
-    # gspmd phase (speech's mesh step on each mesh, each family's on 1x4,
-    # the fit over 1x2x2); from each pipeline's bench run (and one bench
-    # train step and one decode step of it), speech's latency run; and
-    # from rank 0 of each phase of the dryrun at 8 and 2 ranks.
+    # The kernel table (PERF.md section 6), one entry a kernel: its times
+    # and its errors against its plain version from the kernel phases (K5
+    # also at the family meshes' shapes, K1-K4 also at the fusion and rgb
+    # shapes), each with its bound from benchmark/roofline.py; and the
+    # launches each full-width path made:
+    # K1-K4 from the training path (the one-process main path), with the
+    # serving path's counts of K1 and K3, the fusion path's (both families'
+    # fit, decode and evaluate), the rgb path's (fit, decode, evaluate,
+    # infer) and the prepare path's (the prepared speech corpus trained and
+    # decoded); K5a/K5b from rank 0 of the 2x2 mesh's train and eval step
+    # (the mesh path); K6a/K6b from the batch-major layer path; K1-K4 also
+    # from the fit path's main path (train speech through the CLI on the
+    # device-resident corpus, then decode of a msgpack workdir), from the
+    # synthetic path (the learning run's fit, decode and evaluate, then
+    # train and decode speech through the CLI on the synthetic corpus) and
+    # from each learning driver of the examples path; every kernel also
+    # from rank 0 of each path of the mesh_families phase (each family's
+    # mesh train and eval step, each mesh decode, the curriculum on 2x1)
+    # and of the gspmd phase (speech's mesh step on each mesh, each
+    # family's on 1x4, the fit over 1x2x2); from each pipeline's bench run
+    # (and one bench train step and one decode step of it), speech's
+    # latency run; and from rank 0 of each phase of the dryrun at 8 and 2
+    # ranks.
     paths = {"lstm_tm": mesh, "lstm_scan": batch_major}
-    k5_at = {"lstm_tm_fwd": ("fwd_ms", "fwd_plain_ms", "bound_fwd"),
-             "lstm_tm_bwd": ("bwd_ms", "bwd_plain_ms", "bound_bwd")}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mgr_tpu_torch/csrc/{dispatch.SOURCES[name]}.cu",
@@ -3448,15 +2784,11 @@ def main() -> int:
              "launches_synthetic": synthetic[name],
              "launches_examples": {path: c[name] for path, c in examples.items()}}
             if name in KERNELS[:4] else {}),
-         "launches_mesh_families": {path: c[name] for path, c in families["launches"].items()},
+         "launches_mesh_families": {path: c[name] for path, c in families.items()},
          "launches_gspmd": {path: c[name] for path, c in gspmd.items()},
          "launches_bench": {path: {k: c[k][name] for k in c} if "train_step" in c else c[name]
                             for path, c in benched.items()},
          "launches_dryrun": {path: c[name] for path, c in dryrun.items()},
-         **({"at_family_shapes": {shape: {"ms": t[k5_at[name][0]],
-                                          "plain_ms": t[k5_at[name][1]], **t[k5_at[name][2]]}
-                                  for shape, t in families["k5"].items()}}
-            if name in k5_at else {}),
          **measured[name]}
         for name in KERNELS
     ]

@@ -56,6 +56,17 @@ K6b bit-equal to K2's direction at B=128; two launches at B=128
 bit-identical; the grouped counter at B=128 and not at B=16 or 32; and a
 train step of speech at B=128 (both K2 launches grouped) and of rgb at
 B=16 (neither).
+
+The kernels at the paths' full lengths (T=1900, CTC T'=1898) are cases of
+the same tests, at the shapes the paths give them: K1 at B=128, H=500; K2
+at B=1 to 256, H=500, in both tilings (the other one forced through
+``bwd_groups``), dz bit for bit the same; K1/K2 at the fusion layer's
+H=100 and rgb's H=512; K3 loss only at B=128; K3's alphas and K4 at the
+speech train batch and at the fusion and rgb presets' K and N, K4 within
+1e-3 there (f32 exp chains over 1898 steps) and each valid frame's
+gradient summing to -1 within 5e-2 (the f32 alphas reach -7e3, where one
+ulp is 5e-4); K5 at B=32 and 128 and at the rows a 2x2 rank of each
+family gives it, and K6 at B=32 and 128, dz in relative Frobenius norm.
 """
 
 import contextlib
@@ -86,7 +97,17 @@ TOL_K1 = 3e-2
 TOL_K3_REL = 1e-4
 TOL_K2_REL = 2e-2
 TOL_K4 = 1e-4
+TOL_K4_LONG = 1e-3     # at T'=1898: f32 exp chains over 1898 steps
+TOL_FRAME_SUM = 5e-2   # |sum_k d lp[t] + 1|: the f32 alphas reach -7e3 at t=1898, where
+                       # one ulp is 5e-4, and y_pre = alpha - lp read back from them
+                       # carries it into every step's weights (the JAX kernel's algorithm)
 TOL_LOGITS = 3e-2
+
+
+def _randn(gen, *shape):
+    """Seeded standard normals (f32), drawn on the card: the full-length
+    cases need up to 2.5e9 of them, minutes of a host draw."""
+    return torch.randn(shape, generator=gen, device=gen.device)
 
 
 @pytest.fixture
@@ -97,11 +118,15 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 520, 16)])
+@pytest.mark.parametrize("T,B,H", [
+    (24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 520, 16),
+    (1900, 128, 500),  # the speech encoder's shape
+])
 def test_k1_matches_plain_version(cuda, T, B, H):
-    rng = np.random.default_rng(H)
+    """K1 (c stored) against its plain version; the launch without the c
+    store (decode's) gives the same h bits, so two launches agree."""
     bf = torch.bfloat16
-    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    xp = _randn(torch.Generator(cuda).manual_seed(H), 2, T, B, 4, H).to(bf)
     U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"].to(cuda, bf)
     before = dispatch.launch_counts()["bilstm_tm_fwd"]
     got = k1.bilstm_tm(xp[0], xp[1], U, store_c=True)
@@ -110,6 +135,8 @@ def test_k1_matches_plain_version(cuda, T, B, H):
     for g, w in zip(got, want):
         assert g.shape == (T, B, H)
         assert float((g - w).abs().max()) <= TOL_K1
+    no_c = k1.bilstm_tm(xp[0], xp[1], U)
+    assert all(torch.equal(a, b) for a, b in zip(no_c, got[:2]))
 
 
 def test_k1_wide_launch_after_narrow_ones(cuda):
@@ -125,7 +152,8 @@ def test_k1_wide_launch_after_narrow_ones(cuda):
         assert max(float((g - w).abs().max()) for g, w in zip(got, want)) <= TOL_K1
 
 
-@pytest.mark.parametrize("B,T,K,N", [(4, 24, 6, 4), (7, 400, 44, 150)])
+@pytest.mark.parametrize("B,T,K,N", [(4, 24, 6, 4), (7, 400, 44, 150),
+                                     (128, 1898, 44, 150)])  # the speech shapes
 def test_k3_matches_plain_version(cuda, B, T, K, N):
     rng = np.random.default_rng(N)
     lp = torch.log_softmax(torch.from_numpy(
@@ -144,6 +172,7 @@ def test_k3_matches_plain_version(cuda, B, T, K, N):
     want = tctc.ctc_alpha_loss_plain(lp, *args, K - 1)
     rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max()
     assert float(rel) <= TOL_K3_REL
+    assert torch.equal(got, k3.ctc_alpha_loss(lp, *args, K - 1))  # two launches
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
@@ -204,12 +233,12 @@ def _ctc_case(rng, B, T, K, N):
     (12, 128, 512), (12, 128, 100),
 ])
 def test_k2_matches_plain_version(cuda, T, B, H):
-    rng = np.random.default_rng(H + 1)
+    gen = torch.Generator(cuda).manual_seed(H + 1)
     bf = torch.bfloat16
-    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    xp = _randn(gen, 2, T, B, 4, H).to(bf)
     U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"].to(cuda, bf)
     streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
-    dhs = torch.from_numpy(rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    dhs = _randn(gen, 2, T, B, H).to(bf)
     before = dispatch.launch_counts()["bilstm_tm_bwd"]
     grouped = dispatch.grouped_counts()["bilstm_tm_bwd"]
     got = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
@@ -225,12 +254,19 @@ def test_k2_matches_plain_version(cuda, T, B, H):
     assert rel <= TOL_K2_REL
 
 
-@pytest.mark.parametrize("T,B,H", [(12, 128, 500), (12, 200, 512)])
-def test_k2_groups_give_the_bits_of_one_group_slices(cuda, T, B, H):
-    """A row's dz does not depend on K2's tiling: the grouped launch over
-    all B rows gives, bit for bit, the dz of the one-group tiling run on
-    the same rows 32 at a time."""
-    (xp, U, dhs), streams, dz, _ = _k1_k2_case(cuda, T, B, H, seed=B + H)
+@pytest.mark.parametrize("T,B,H", [(12, 128, 500), (12, 200, 512)] + [
+    (1900, B, 500) for B in (32, 64, 96, 128, 256)])  # the speech length, both sides of 33
+def test_k2_groups_give_the_bits_of_one_group_slices(cuda, T, B, H, monkeypatch):
+    """A row's dz does not depend on K2's tiling: the launch over all B
+    rows (within the tolerances of K1 and K2, bit-identical when run
+    again) gives, bit for bit, the dz of the one-group tiling run on the
+    same rows 32 at a time, and of the other tiling forced over all of
+    them."""
+    (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, H, seed=B + H)
+    assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
+        (err_h, err_dz, err_dU)
+    args = (xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    assert all(torch.equal(a, b) for a, b in zip(dz, k1.bilstm_tm_bwd(*args)))
     grouped = dispatch.grouped_counts()["bilstm_tm_bwd"]
     for b0 in range(0, B, 32):
         rows = slice(b0, min(B, b0 + 32))
@@ -239,6 +275,9 @@ def test_k2_groups_give_the_bits_of_one_group_slices(cuda, T, B, H):
         for d in range(2):
             assert torch.equal(part[d], dz[d][:, rows]), (b0, d)
     assert dispatch.grouped_counts()["bilstm_tm_bwd"] == grouped  # the slices took one group
+    other = 1 if B >= k1.GROUPED_MIN_B else 2
+    monkeypatch.setattr(k1, "bwd_groups", lambda *a, **k: other)
+    assert all(torch.equal(a, b) for a, b in zip(dz, k1.bilstm_tm_bwd(*args)))
 
 
 @pytest.mark.parametrize("B", [16, 32, 128])
@@ -267,8 +306,19 @@ def test_k2_grouped_counter(cuda, B):
     assert counts["bilstm_tm_bwd"] == counts["lstm_tm_bwd"] == counts["lstm_scan_bwd"] == 1
 
 
-@pytest.mark.parametrize("B,T,K,N", [(4, 24, 6, 4), (7, 400, 44, 150)])
-def test_k3_alphas_and_k4_match_plain_versions(cuda, B, T, K, N):
+@pytest.mark.parametrize("B,T,K,N,tol_k4", [
+    (4, 24, 6, 4, TOL_K4), (7, 400, 44, 150, TOL_K4),
+    # T'=1898: the speech train batch, the fusion presets' K and N, rgb's
+    (32, 1898, 44, 150, TOL_K4_LONG), (32, 1898, 22, 35, TOL_K4_LONG),
+    (8, 1898, 22, 28, TOL_K4_LONG),
+])
+def test_k3_alphas_and_k4_match_plain_versions(cuda, B, T, K, N, tol_k4):
+    """K3's loss and stored alphas, and K4 on the plain version's alphas,
+    against their plain versions: K4 on a seed independent of the alphas
+    (g_emit uniform in [0, 1)) and as the loss seeds it, zero past each
+    length, and with the loss's seeds each valid frame's gradient summing
+    to -1 (the occupancies of a frame sum to 1); two launches of K3, and
+    of K4 on K3's own alphas, bit-identical."""
     rng = np.random.default_rng(N + 1)
     lp = torch.log_softmax(torch.from_numpy(
         rng.standard_normal((T, B, K)).astype(np.float32)), -1).to(cuda)
@@ -278,15 +328,25 @@ def test_k3_alphas_and_k4_match_plain_versions(cuda, B, T, K, N):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_K3_REL
-    g_phi = -torch.exp(want[1][-1][torch.arange(B), args[2].long()] + want[0])
-    g_emit = torch.rand(B, device=cuda)
-    before = dispatch.launch_counts()["ctc_bwd"]
-    d_got = k3.ctc_alpha_bwd(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
-    assert dispatch.launch_counts()["ctc_bwd"] == before + 1
-    d_want = tctc.ctc_alpha_bwd_plain(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
-    assert float((d_got - d_want).abs().max()) <= TOL_K4
+    again = k3.ctc_alpha_loss(lp, *args, K - 1, store_alphas=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rows, L = torch.arange(B, device=cuda), args[2].long()
+    g_phi = -torch.exp(want[1][-1][rows, L] + want[0])
+    loss_seeds = torch.where(
+        L > 0, -torch.exp(want[2][-1][rows, (L - 1).clamp_min(0)] + want[0]), 0.0)
     past = torch.arange(T, device=cuda)[:, None] >= args[1][None, :]  # t >= len
-    assert bool((d_got[past] == 0).all())
+    for g_emit in (torch.rand(B, device=cuda), loss_seeds):
+        before = dispatch.launch_counts()["ctc_bwd"]
+        d_got = k3.ctc_alpha_bwd(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+        assert dispatch.launch_counts()["ctc_bwd"] == before + 1
+        d_want = tctc.ctc_alpha_bwd_plain(lp, *args, K - 1, want[1], want[2], g_phi, g_emit)
+        assert torch.isfinite(d_got).all()
+        assert float((d_got - d_want).abs().max()) <= tol_k4
+        assert bool((d_got[past] == 0).all())
+    # d_got is the loss seeds' gradient, the last of the loop.
+    assert float((d_got.sum(-1)[~past] + 1.0).abs().max()) <= TOL_FRAME_SUM
+    own = (lp, *args, K - 1, got[1], got[2], g_phi, loss_seeds)
+    assert torch.equal(k3.ctc_alpha_bwd(*own), k3.ctc_alpha_bwd(*own))
 
 
 def _ctc_edge(rng, T, B, K, N, in_len, lab_len):
@@ -509,13 +569,27 @@ def test_projection_backward_on_the_card(cuda, dtype, per_gate, tmp_path):
         assert _within_one_bf16_ulp(got[k], want[k], slack(want[k])), k
 
 
-@pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16),
-                                   (12, 128, 500)])
+@pytest.mark.parametrize("T,B,H,dz_fro", [
+    (24, 3, 8, False), (40, 130, 300, False), (16, 1, 7, False), (12, 300, 16, False),
+    (12, 128, 500, False),
+    # The speech length: B=32 (a 1x2 mesh rank) and 128; the edge shapes at
+    # T=64; the rows a 2x2 rank of each family gives K5 (rgb's H=512, the
+    # fusion layer's 100, the speech encoder's 500, the skeletal one's 300).
+    (1900, 32, 500, True), (1900, 128, 500, True),
+    (64, 1, 500, True), (64, 300, 64, True), (64, 3, 7, True),
+    (1900, 4, 512, True), (1900, 16, 100, True), (1900, 16, 500, True), (1900, 16, 300, True),
+])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_k5_matches_plain_version_and_k1_k2(cuda, T, B, H, reverse):
-    rng = np.random.default_rng(H + 2)
+def test_k5_matches_plain_version_and_k1_k2(cuda, T, B, H, dz_fro, reverse):
+    """K5a/K5b against their plain versions and bit-equal to K1/K2's
+    direction. ``dz_fro`` holds dz in relative Frobenius norm, not
+    relative to its largest entry: a recomputed z within an ulp of +-2.5
+    gets the hard sigmoid's slope 0.2 on one side and 0 on the other,
+    which moves that one dz entry by its own size; bit-equality with K2 is
+    the strict check."""
+    gen = torch.Generator(cuda).manual_seed(H + 2)
     bf = torch.bfloat16
-    xp = torch.from_numpy(rng.standard_normal((2, T, B, 4, H)).astype(np.float32)).to(cuda, bf)
+    xp = _randn(gen, 2, T, B, 4, H).to(bf)
     U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"].to(cuda, bf)
     d = int(reverse)
     before = dispatch.launch_counts()
@@ -528,14 +602,17 @@ def test_k5_matches_plain_version_and_k1_k2(cuda, T, B, H, reverse):
     two = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
     assert torch.equal(hs, two[d]) and torch.equal(cs, two[2 + d])
 
-    dhs = torch.from_numpy(rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    dhs = _randn(gen, 2, T, B, H).to(bf)
     dz = k1.lstm_tm_bwd(xp[d], U[d], hs, cs, dhs[d], reverse=reverse)
     assert dispatch.launch_counts()["lstm_tm_bwd"] == before["lstm_tm_bwd"] + 1
     assert dispatch.launch_counts()["bilstm_tm_bwd"] == before["bilstm_tm_bwd"]
     dz_w, dU_w = tlstm.lstm_scan_tm_bwd_plain(xp[d], U[d], hs, cs, dhs[d], reverse=reverse)
     assert dz.shape == (T, B, 4, H) and dz.dtype == bf
-    scale = float(dz_w.float().abs().max())
-    assert float((dz.float() - dz_w.float()).abs().max()) <= TOL_K2_REL * scale
+    ddz = dz.float() - dz_w.float()
+    if dz_fro:
+        assert float(ddz.norm() / dz_w.float().norm()) <= TOL_K2_REL
+    else:
+        assert float(ddz.abs().max()) <= TOL_K2_REL * float(dz_w.float().abs().max())
     dU = tlstm.lstm_weight_grad(hs, dz, reverse=reverse)
     assert float((dU - dU_w).norm() / dU_w.norm()) <= TOL_K2_REL
     dz_two = k1.bilstm_tm_bwd(xp[0], xp[1], U, *two, dhs[0], dhs[1])
@@ -629,14 +706,16 @@ def test_mesh_step_with_ranks_sharing_the_card(cuda, shape):
 
 
 @pytest.mark.parametrize("T,B,H", [(24, 3, 8), (40, 130, 300), (16, 1, 7), (12, 300, 16),
-                                   (12, 128, 500)])
+                                   (12, 128, 500),
+                                   (1900, 32, 500), (1900, 128, 500),  # the speech length
+                                   (64, 1, 500), (64, 300, 64), (64, 3, 7), (64, 300, 7)])
 @pytest.mark.parametrize("D", [1, 2])
 def test_k6_matches_plain_version_and_k1_k2(cuda, T, B, H, D):
-    rng = np.random.default_rng(H + 3)
+    gen = torch.Generator(cuda).manual_seed(H + 3)
     bf = torch.bfloat16
-    xp = torch.from_numpy(rng.standard_normal((D, B, T, 4, H)).astype(np.float32)).to(cuda, bf)
+    xp = _randn(gen, D, B, T, 4, H).to(bf)
     U = tlstm.init_bilstm_params(torch.Generator().manual_seed(H), 4, H)["U"][:D].to(cuda, bf)
-    dhs = torch.from_numpy(rng.standard_normal((D, B, T, H)).astype(np.float32)).to(cuda, bf)
+    dhs = _randn(gen, D, B, T, H).to(bf)
     before = dispatch.launch_counts()
     hs, cs = k6.lstm_scan_streams(xp, U, store_c=True)
     assert dispatch.launch_counts()["lstm_scan_fwd"] == before["lstm_scan_fwd"] + 1
@@ -712,14 +791,13 @@ def _k1_k2_case(cuda, T, B, H, seed):
     """K1 (c stored) and K2 on seeded inputs at (T, B, H): the kernels'
     streams and dz, and their errors against the plain versions (h and c
     absolute; dz relative to the largest |dz|; dU relative Frobenius)."""
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(cuda).manual_seed(seed)
     bf = torch.bfloat16
-    xp = 0.5 * rng.standard_normal((2, T, B, 4, H)).astype(np.float32)
+    xp = 0.5 * _randn(gen, 2, T, B, 4, H)
     xp[:, :, :, 1, :] += 1.0
-    xp = torch.from_numpy(xp).to(cuda, bf)
+    xp = xp.to(bf)
     U = tlstm.init_bilstm_params(torch.Generator().manual_seed(seed), 4, H)["U"].to(cuda, bf)
-    dhs = torch.from_numpy(
-        0.1 * rng.standard_normal((2, T, B, H)).astype(np.float32)).to(cuda, bf)
+    dhs = (0.1 * _randn(gen, 2, T, B, H)).to(bf)
     streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
     want = tlstm.bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=True)
     err_h = max(float((g.float() - w).abs().max()) for g, w in zip(streams, want))
@@ -738,6 +816,8 @@ def _k1_k2_case(cuda, T, B, H, seed):
     (16, 32, 500),                     # the launch shape at short T
     (12, 5, 500), (12, 5, 504),        # h rows 8- and 16-byte aligned
     (10, 1, 64), (10, 16, 64), (10, 17, 64), (10, 64, 64), (6, 256, 64),  # tile edges
+    (1900, 1, 500),                    # B=1 at the speech length (B=32-256: the tilings)
+    (64, 1, 500), (64, 130, 300), (32, 520, 64), (64, 3, 7),  # a partial tile, 3 launches
 ])
 def test_k1_k2_tensor_core_design_edges(cuda, T, B, H):
     _, streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, H, seed=T * B + H)
@@ -781,14 +861,18 @@ def test_k1_k5a_k1_on_one_stream(cuda):
 # store; each fusion model's train step against the plain path on the card.
 
 
-@pytest.mark.parametrize("T,B", [(40, 32), (40, 1), (40, 33)])
+@pytest.mark.parametrize("T,B", [(40, 32), (40, 1), (40, 33), (1900, 32), (64, 1), (64, 33)])
 def test_k1_k2_at_the_fusion_width(cuda, T, B):
-    (xp, U, _), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, 100, seed=B)
+    (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, 100, seed=B)
     assert streams[0].shape == (T, B, 100) and dz[0].shape == (T, B, 4, 100)
     assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
         (err_h, err_dz, err_dU)
     no_c = k1.bilstm_tm_streams(xp[0], xp[1], U)  # the frozen encoders' launch
     assert all(torch.equal(a, b) for a, b in zip(no_c, streams[:2]))
+    again = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    assert all(torch.equal(a, b) for a, b in zip(streams, again))
+    dz_again = k1.bilstm_tm_bwd(xp[0], xp[1], U, *streams, dhs[0], dhs[1])
+    assert all(torch.equal(a, b) for a, b in zip(dz, dz_again))
 
 
 def test_k3_k4_at_the_fusion_classes(cuda):
@@ -887,10 +971,11 @@ def test_late_fusion_step_launch_counts(cuda, finetune):
 # cuDNN's, f32 ones with TF32 off whatever the global flag says.
 
 
-@pytest.mark.parametrize("B", [1, 8, 32, 256])
-def test_k1_k2_at_max_h(cuda, B):
-    (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, 12, B, 512, seed=B)
-    assert streams[0].shape == (12, B, 512) and dz[0].shape == (12, B, 4, 512)
+@pytest.mark.parametrize("T,B", [(12, 1), (12, 8), (12, 32), (12, 256),
+                                 (1900, 8), (1900, 256)])  # the rgb length
+def test_k1_k2_at_max_h(cuda, T, B):
+    (xp, U, dhs), streams, dz, (err_h, err_dz, err_dU) = _k1_k2_case(cuda, T, B, 512, seed=B)
+    assert streams[0].shape == (T, B, 512) and dz[0].shape == (T, B, 4, 512)
     assert err_h <= TOL_K1 and err_dz <= TOL_K2_REL and err_dU <= TOL_K2_REL, \
         (err_h, err_dz, err_dU)
     again = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
