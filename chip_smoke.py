@@ -120,7 +120,7 @@ KERNELS = ("bilstm_tm_fwd", "bilstm_tm_bwd", "ctc_fwd", "ctc_bwd", "lstm_tm_fwd"
 B_K1, T_K1, H_K1 = 128, 1900, 500          # speech encoder shapes
 B_K2 = 32                                   # the preset's train batch
 B_STEP = (1, 32, 128)  # K1/K2 per-step cost: B=1 is the floor (barrier + latency)
-B_TILINGS = (32, 64, 96, 128, 256)  # K2 timed in both tilings (one and two batch groups)
+B_TILINGS = (32, 64, 96, 128, 256)  # K1, K2 timed in both tilings (one and two batch groups)
 B_K3, T_K3, K_K3, N_K3 = 128, 1898, 44, 150  # speech CTC shapes (T - trim)
 B_K4 = 32
 TOL_K1_H = 3e-2        # max |h| diff: bf16 h stream, f32 sums in another order
@@ -441,11 +441,39 @@ def _lstm_inputs(dev, lead, H, dirs=2):
     return xp.to(bf), U.to(dev, bf), dhs.to(bf)
 
 
+def _tilings(run, what: str) -> dict:
+    """``run(B)``, a launch at B rows (T=1900, H=500) through its wrapper,
+    at B_TILINGS in both tilings (one and two batch groups, each forced
+    through the wrappers' rule): ms a launch and a step, and the rule's
+    choice. The two tilings' outputs must be the same bits: the numbers
+    behind ``bilstm_tm.GROUPED_MIN_B``."""
+    from mgr_tpu_torch.kernels import bilstm_tm as kmod
+
+    tilings, rule = {}, kmod.batch_groups
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    try:
+        for B in B_TILINGS:
+            fn = run(B)
+            row, out = {"rule": rule(B, H_K1, sms)}, {}
+            tilings[f"B={B}"] = row
+            for g in (1, 2):
+                kmod.batch_groups = lambda *a, g=g, **k: g
+                out[g] = fn()
+                ms = cuda_time_ms(fn, reps=3)
+                row[f"groups={g}"] = {"ms": ms, "ms_per_step": ms / T_K1}
+            if not all(torch.equal(a, b) for a, b in zip(out[1], out[2])):
+                raise AssertionError(f"{what}: the two tilings give other bits at B={B}")
+    finally:
+        kmod.batch_groups = rule
+    return tilings
+
+
 def k1_phase(dev) -> dict:
     """K1 at T=1900, H=500, timed and checked beside its plain version at
     B_STEP (B=1: the per-step floor of barrier and latency; the train
-    batch; B=128)."""
-    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm
+    batch; B=128); then in both tilings at B_TILINGS, their h and c bit
+    for bit the same."""
+    from mgr_tpu_torch.kernels.bilstm_tm import bilstm_tm, bilstm_tm_streams
     from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_plain
 
     per_b = {}
@@ -456,8 +484,14 @@ def k1_phase(dev) -> dict:
             lstm_bound(T_K1, B, H_K1, dirs=2, backward=False, store_c=False),
             f"K1 at B={B}", _streams_check)
         t["ms_per_step"] = t["ms"] / T_K1
+
+    def run(B):
+        xp, U, _ = _lstm_inputs(dev, (T_K1, B), H_K1)
+        return lambda: bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+
     out = {**per_b[f"B={B_K1}"], "library_ms": None, "per_B": per_b}
-    phase("k1_bilstm_tm_fwd", T=T_K1, H=H_K1, **out)
+    phase("k1_bilstm_tm_fwd", T=T_K1, H=H_K1, **out, tilings=_tilings(run, "K1"),
+          tilings_give_the_same_bits=True)
     return out
 
 
@@ -483,9 +517,8 @@ def k3_phase(dev) -> dict:
 
 def k2_phase(dev) -> dict:
     """K2 at T=1900, H=500, timed and checked beside its plain version at
-    B_STEP; then in both tilings (one and two batch groups, each forced
-    through the wrapper's rule) at B_TILINGS, their dz bit for bit the
-    same: the numbers behind ``bilstm_tm.GROUPED_MIN_B``."""
+    B_STEP; then in both tilings at B_TILINGS, their dz bit for bit the
+    same."""
     from mgr_tpu_torch.kernels import bilstm_tm as k2mod
     from mgr_tpu_torch.ops.lstm import bilstm_scan_tm_bwd_plain, recurrent_weight_grad
 
@@ -504,24 +537,12 @@ def k2_phase(dev) -> dict:
                 what, got, want[:2], recurrent_weight_grad(args[3], args[4], *got),
                 want[2], fro=False))
         t["ms_per_step"] = t["ms"] / T_K1
-    tilings, rule = {}, k2mod.bwd_groups
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    try:
-        for B in B_TILINGS:
-            args = inputs(B)
-            row, dz = {"rule": rule(B, H_K1, sms)}, {}
-            tilings[f"B={B}"] = row
-            for g in (1, 2):
-                k2mod.bwd_groups = lambda *a, g=g, **k: g
-                dz[g] = k2mod.bilstm_tm_bwd(*args)
-                ms = cuda_time_ms(lambda: k2mod.bilstm_tm_bwd(*args), reps=3)
-                row[f"groups={g}"] = {"ms": ms, "ms_per_step": ms / T_K1}
-            if not all(torch.equal(a, b) for a, b in zip(dz[1], dz[2])):
-                raise AssertionError(f"K2: the two tilings give other dz bits at B={B}")
-    finally:
-        k2mod.bwd_groups = rule
+    def run(B):
+        args = inputs(B)
+        return lambda: k2mod.bilstm_tm_bwd(*args)
+
     out = {**per_b[f"B={B_K2}"], "library_ms": None, "per_B": per_b}
-    phase("k2_bilstm_tm_bwd", T=T_K1, H=H_K1, **out, tilings=tilings,
+    phase("k2_bilstm_tm_bwd", T=T_K1, H=H_K1, **out, tilings=_tilings(run, "K2"),
           tilings_give_the_same_dz_bits=True)
     return out
 

@@ -64,8 +64,9 @@
 //     xp, c and dhs values of the next step are read into registers before
 //     the barrier wait of the step before, so their latency overlaps the
 //     walk. 32 ms at B=128 on the same card.
-//   The wrapper (kernels/bilstm_tm.py::bwd_groups) chooses G from B, H and
-//   the SM count; the host entry refuses a grid that cannot be co-resident.
+//   The wrapper (kernels/bilstm_tm.py::batch_groups, K1's rule too) chooses
+//   G from B, H and the SM count; the host entry refuses a grid that cannot
+//   be co-resident.
 // A thread owns a (row, unit) of a gate tile (RT x JS = 256) and keeps its
 // dc carries in registers. The only exchange is dz, through the kernel's
 // own bf16 output.
@@ -132,32 +133,6 @@ constexpr int KPW_DH = 16;     // k16 steps per warp of the dh_carry product (4H
 constexpr int NPREP = 6;       // folded words per (row, unit)
 constexpr int RED_DH_FLOATS = WARPS * THREADS;  // [WARPS][RT][JS] with RT x JS = THREADS
 
-// K2's tiling of a launch into G batch groups (see the note above).
-template <int G>
-struct BwdTiling {
-  static_assert(G == 1 || G == 2, "one or two batch groups");
-  static constexpr int JS = G == 1 ? 8 : 16;      // hidden units a block
-  static constexpr int RT = Tiling<JS>::RT;        // rows a gate tile
-  static constexpr int MT = Tiling<JS>::MT;        // m16 tiles a gate tile
-  static constexpr int NT = Tiling<JS>::NT;        // n8 tiles a gate
-  static constexpr int MAX_ROWS = G == 1 ? MAX_B : 64;  // rows a group
-  static constexpr int MAX_TILES = MAX_ROWS / RT;  // gate tiles a group: the dc carries
-  static constexpr int LAUNCH_ROWS = G * MAX_ROWS; // rows a launch
-};
-
-// Rows of each group of a launch of nb rows: all of them for one group;
-// else the launch split evenly, rounded up to m16 tiles (so a row keeps its
-// place in its m16 tile under every tiling).
-template <int G>
-__host__ __device__ inline int group_rows(int nb) {
-  return G == 1 ? nb : ((nb + G - 1) / G + 15) / 16 * 16;
-}
-
-// A row pitch of w 32-bit words padded to 8 mod 32 (a multiple of 8 words,
-// so 32-byte aligned), which makes the m16 fragment reads of 8 bytes a
-// lane free of bank conflicts.
-__host__ __device__ inline int pad_words(int w) { return w + (((8 - w) % 32) + 32) % 32; }
-
 // Row pitch of the dz ring in 32-bit words: a dz row is 2H words.
 __host__ __device__ inline int ring_pitch_words(int H) { return pad_words(2 * H); }
 
@@ -168,10 +143,10 @@ template <int G>
 struct Stage {
   __host__ __device__ static int h_pitch(int H) { return 4 * pad_words(H / 2); }  // bytes
   __host__ __device__ static size_t h() {
-    return round16(sizeof(float) * Tiling<BwdTiling<G>::JS>::RED_Z_FLOATS);
+    return round16(sizeof(float) * Tiling<GroupTiling<G>::JS>::RED_Z_FLOATS);
   }
   __host__ __device__ static size_t end(int H) {
-    return h() + (G == 1 ? 0 : (size_t)BwdTiling<G>::MAX_ROWS * h_pitch(H));
+    return h() + (G == 1 ? 0 : (size_t)GroupTiling<G>::MAX_ROWS * h_pitch(H));
   }
 };
 
@@ -194,72 +169,17 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
 
 template <int G>
 __host__ __device__ inline size_t uz_bytes(int H) {
-  return (size_t)((H + 15) / 16) * 4 * BwdTiling<G>::NT * 32 * sizeof(uint2);
+  return (size_t)((H + 15) / 16) * 4 * GroupTiling<G>::NT * 32 * sizeof(uint2);
 }
 
 // Dynamic shared memory of a call at B rows and width H: its first launch,
 // the largest, takes min(B, LAUNCH_ROWS) rows.
 template <int G>
 size_t smem_bytes(int B, int H) {
-  using TL = BwdTiling<G>;
+  using TL = GroupTiling<G>;
   const int nb = B < TL::LAUNCH_ROWS ? B : TL::LAUNCH_ROWS;
   return uz_bytes<G>(H) + ring_bytes<G>(H) + sizeof(float) * RED_DH_FLOATS +
          round16(sizeof(float) * NPREP * (size_t)group_rows<G>(nb) * TL::JS);
-}
-
-// One warp's partial z = h_prev . U_d[:, block's 4 JS_ columns] for the
-// RT rows r0 .. r0+RT-1 of the staged h rows (row r at hst + r * hp), as
-// lstm_common.cuh's z_partial computes it from device memory for K1: the
-// same fragments, products and order. Rows at or past `rows` and columns at
-// or past H enter as zero. ub(i, c) gives the B fragment of step i and n8
-// tile c = g * NT + n (gate g's units j0 + 8n ..).
-template <int JS_, typename UFrag>
-__device__ __forceinline__ void z_partial_staged(const unsigned char* hst, int hp, int r0,
-                                                 int rows, int H, UFrag ub,
-                                                 float (&acc)[2][4][4]) {
-  constexpr int MT = Tiling<JS_>::MT, NT = Tiling<JS_>::NT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g8 = lane >> 2, c4 = lane & 3;
-  const int KS = (H + 15) >> 4;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][g][e] = 0.0f;
-  uint2 a[MT][KPW][2];  // [m16 tile][k step][row g8, row g8 + 8]
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = r0 + mt * 16 + g8 + 8 * hh;
-      const unsigned char* row = hst + (size_t)r * hp;
-#pragma unroll
-      for (int i = 0; i < KPW; ++i) {
-        const int k = (warp * KPW + i) * 16 + 4 * c4;
-        uint2 v = make_uint2(0u, 0u);
-        if (r < rows && k < H) {
-          v = *reinterpret_cast<const uint2*>(row + 2 * k);
-          if (k + 2 >= H) v.y = 0u;  // H = 2 mod 4: the row's last pair
-        }
-        a[mt][i][hh] = v;
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < KPW; ++i) {
-    if (warp * KPW + i >= KS) break;  // uniform over the warp
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int mt = MT == 2 ? p : 0, n = NT == 2 ? p : 0;
-      if (r0 + mt * 16 >= rows) break;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const uint2 b = ub(i, g * NT + n);
-        mma16816(acc[p][g], a[mt][i][0].x, a[mt][i][1].x, a[mt][i][0].y, a[mt][i][1].y, b.x,
-                 b.y);
-      }
-    }
-  }
 }
 
 template <bool BM, int G>
@@ -281,7 +201,7 @@ lstm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
   // slices + slice; the grid covers directions d0 .. d0 + gridDim.x / (G *
   // slices) - 1; direction d's forward scan ran in reverse where bit d of
   // rev_mask is set.
-  using TL = BwdTiling<G>;
+  using TL = GroupTiling<G>;
   constexpr int JS_ = TL::JS, RT_ = TL::RT, MT = TL::MT, NT = TL::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int dl = blockIdx.x / (G * slices);  // direction within the launch
@@ -468,7 +388,11 @@ lstm_bwd_kernel(const __nv_bfloat16* __restrict__ xp0,
           cp_async_wait_pending(tiles - 1 - tile);
           __syncthreads();  // the tile's h rows landed for every warp (and red_z is free)
           float acc[2][4][4];
-          z_partial_staged<JS_>(hst, hp, r0, Bg, H, ub, acc);
+          z_partial_staged<JS_>(
+              [&](int r, int k) {
+                return *reinterpret_cast<const uint2*>(hst + (size_t)r * hp + 2 * k);
+              },
+              r0, Bg, H, ub, acc);
           store_z_partial<JS_>(red_z, acc);
           __syncthreads();
         }
@@ -599,7 +523,7 @@ cudaError_t launch_tiled(const void* xp0, const void* xp1, const void* U0, const
                          void* dz0, void* dz1, void* barrier,
                          int T, int B, int H, int d0, int ndirs, int rev_mask,
                          int device, void* stream) {
-  using TL = BwdTiling<G>;
+  using TL = GroupTiling<G>;
   const int slices = (H + TL::JS - 1) / TL::JS;
   const size_t smem = smem_bytes<G>(B, H);
   const void* kernel = reinterpret_cast<const void*>(lstm_bwd_kernel<BM, G>);
@@ -682,9 +606,7 @@ extern "C" size_t bilstm_tm_bwd_smem_bytes(int B, int H, int groups) {
 // groups takes as `barrier`: a counter per direction and group of each
 // launch, each on its own line (0 for another number of groups).
 extern "C" int bilstm_tm_bwd_barrier_words(int B, int groups) {
-  if (groups != 1 && groups != 2) return 0;
-  const int rows = groups == 1 ? BwdTiling<1>::LAUNCH_ROWS : BwdTiling<2>::LAUNCH_ROWS;
-  return 2 * groups * BAR_STRIDE * ((B + rows - 1) / rows);
+  return barrier_words(B, groups);
 }
 
 // Both directions: xp0, xp1 (T, B, 4H); U (2, H, 4H); streams (T, B, H);

@@ -65,9 +65,46 @@ static_assert(Tiling<JS>::RT == RT && Tiling<JS>::RED_PITCH == RED_PITCH, "K1's 
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~size_t(15); }
 
-// Words of the barrier scratch a call at batch B needs: a counter per
-// direction and launch of at most MAX_B rows, each on its own line.
-inline int barrier_words(int B) { return 2 * BAR_STRIDE * ((B + MAX_B - 1) / MAX_B); }
+// A launch's tiling into G batch groups, shared by K1 and K2: a block owns
+// JS hidden units of one direction for the rows of one group, and each
+// (direction, group) meets on a barrier counter of its own.
+//   - G = 1: JS = 8 over all rows of the launch (at most MAX_B = 256; gate
+//     tiles of 32 rows, two m16 tiles of one n8 tile a gate).
+//   - G = 2: JS = 16 over two groups of at most 64 rows (128 a launch; gate
+//     tiles of 16 rows, one m16 tile of two n8 tiles a gate).
+template <int G>
+struct GroupTiling {
+  static_assert(G == 1 || G == 2, "one or two batch groups");
+  static constexpr int JS = G == 1 ? 8 : 16;      // hidden units a block
+  static constexpr int RT = Tiling<JS>::RT;        // rows a gate tile
+  static constexpr int MT = Tiling<JS>::MT;        // m16 tiles a gate tile
+  static constexpr int NT = Tiling<JS>::NT;        // n8 tiles a gate
+  static constexpr int MAX_ROWS = G == 1 ? MAX_B : 64;  // rows a group
+  static constexpr int MAX_TILES = MAX_ROWS / RT;  // gate tiles a group: the carries
+  static constexpr int LAUNCH_ROWS = G * MAX_ROWS; // rows a launch
+};
+
+// Rows of each group of a launch of nb rows: all of them for one group;
+// else the launch split evenly, rounded up to m16 tiles (so a row keeps its
+// place in its m16 tile under every tiling).
+template <int G>
+__host__ __device__ inline int group_rows(int nb) {
+  return G == 1 ? nb : ((nb + G - 1) / G + 15) / 16 * 16;
+}
+
+// Words of the barrier scratch a call at batch B in `groups` batch groups
+// needs: a counter per direction and group of each launch, each on its own
+// line (0 for another number of groups).
+inline int barrier_words(int B, int groups) {
+  if (groups != 1 && groups != 2) return 0;
+  const int rows = groups == 1 ? GroupTiling<1>::LAUNCH_ROWS : GroupTiling<2>::LAUNCH_ROWS;
+  return 2 * groups * BAR_STRIDE * ((B + rows - 1) / rows);
+}
+
+// A row pitch of w 32-bit words padded to 8 mod 32 (a multiple of 8 words,
+// so 32-byte aligned), which makes the m16 fragment reads of 8 bytes a
+// lane free of bank conflicts.
+__host__ __device__ inline int pad_words(int w) { return w + (((8 - w) % 32) + 32) % 32; }
 
 // Row (t, b) of a stream: t * ld + b time-major, b * ld + t batch-major.
 template <bool BM>
@@ -194,6 +231,60 @@ __device__ __forceinline__ uint2 u_col_frag(const __nv_bfloat16* Ud, int ks, int
     v[q] = (u < H && k + q < H) ? Ud[(size_t)(k + q) * H4 + (size_t)g * H + u]
                                 : __float2bfloat16_rn(0.0f);
   return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// One warp's partial z = h_prev . U_d[:, block's 4 JS_ columns] for the RT
+// rows r0 .. r0+RT-1 of h rows staged in shared memory, as z_partial
+// computes it from device memory: the same fragments, products and order.
+// hf(r, k) gives columns k .. k+3 of staged row r (k < H; a pair past the
+// row is zeroed here). Rows at or past `rows` and columns at or past H
+// enter as zero. ub(i, c) gives the B fragment of step i and n8 tile c =
+// g * NT + n (gate g's units j0 + 8n ..).
+template <int JS_, typename HFrag, typename UFrag>
+__device__ __forceinline__ void z_partial_staged(HFrag hf, int r0, int rows, int H, UFrag ub,
+                                                 float (&acc)[2][4][4]) {
+  constexpr int MT = Tiling<JS_>::MT, NT = Tiling<JS_>::NT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, c4 = lane & 3;
+  const int KS = (H + 15) >> 4;
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][g][e] = 0.0f;
+  uint2 a[MT][KPW][2];  // [m16 tile][k step][row g8, row g8 + 8]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + mt * 16 + g8 + 8 * hh;
+#pragma unroll
+      for (int i = 0; i < KPW; ++i) {
+        const int k = (warp * KPW + i) * 16 + 4 * c4;
+        uint2 v = make_uint2(0u, 0u);
+        if (r < rows && k < H) {
+          v = hf(r, k);
+          if (k + 2 >= H) v.y = 0u;  // H = 2 mod 4: the row's last pair
+        }
+        a[mt][i][hh] = v;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < KPW; ++i) {
+    if (warp * KPW + i >= KS) break;  // uniform over the warp
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int mt = MT == 2 ? p : 0, n = NT == 2 ? p : 0;
+      if (r0 + mt * 16 >= rows) break;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const uint2 b = ub(i, g * NT + n);
+        mma16816(acc[p][g], a[mt][i][0].x, a[mt][i][1].x, a[mt][i][0].y, a[mt][i][1].y, b.x,
+                 b.y);
+      }
+    }
+  }
 }
 
 // Partial z fragments of one warp into red [WARPS][RT][RED_PITCH] (Tiling<JS_>).

@@ -16,10 +16,10 @@ launches the kernel or raises. Like ``pallas_bilstm_tm`` the kernels take
 bf16 operands whatever the compute dtype and keep the h and c streams in
 bf16.
 
-K2's source runs in one of two tilings, which :func:`bwd_groups` chooses
-from the shape and the card: one batch group (8-unit slices over all rows)
-or two (16-unit slices, each block gathering its own group's rows). A row's
-dz does not depend on the tiling.
+K1's and K2's sources run in one of two tilings, which :func:`batch_groups`
+chooses for both from the shape and the card: one batch group (8-unit
+slices over all rows) or two (16-unit slices, each block gathering its own
+group's rows). A row's h, c and dz do not depend on the tiling.
 """
 
 from __future__ import annotations
@@ -40,29 +40,30 @@ ONE_NAME = "lstm_tm_fwd"
 ONE_BWD_NAME = "lstm_tm_bwd"
 
 
-# K2's tiling: two batch groups from this many rows on (:func:`bwd_groups`).
-# Up to 32 rows (B=1, rgb's 16, the preset's 32) K2 keeps the one-group
-# tiling those paths were measured with, though two groups timed faster at
-# every B from 32 to 256 on an H100 (PERF.md §6).
+# The recurrences' tiling: two batch groups from this many rows on
+# (:func:`batch_groups`). Up to 32 rows (B=1, rgb's 16, the preset's 32) K1
+# and K2 keep the one-group tiling those paths were measured with, though
+# two groups timed faster at every B from 32 to 256 on an H100 (PERF.md §6).
 GROUPED_MIN_B = 33
 
 
-def bwd_grid(H: int, groups: int, dirs: int = 2) -> int:
-    """Blocks of a K2-template launch (``csrc/bilstm_tm_bwd.cu``) at width
-    H: directions x batch groups x unit slices, a slice 8 units in one
-    group and 16 in two."""
+def grid_blocks(H: int, groups: int, dirs: int = 2) -> int:
+    """Blocks of a K1 or K2 launch (``csrc/bilstm_tm_{fwd,bwd}.cu``) at
+    width H: directions x batch groups x unit slices, a slice 8 units in
+    one group and 16 in two."""
     return dirs * groups * -(-H // (8 if groups == 1 else 16))
 
 
-def bwd_groups(B: int, H: int, sms: int, dirs: int = 2) -> int:
-    """Batch groups of a K2-template launch over B rows at width H and
-    ``dirs`` directions on a card of ``sms`` SMs: 2 from GROUPED_MIN_B rows
-    on, where the grid of two groups fits one block an SM (the launch is
-    cooperative); else 1. Two groups halve the rows whose dz each block
-    gathers and whose z it recomputes a step. Their shared memory fits
-    every H the kernel takes (at most 230,400 bytes, at H=512), so the SM
-    count is the only fallback."""
-    if B < GROUPED_MIN_B or bwd_grid(H, 2, dirs) > sms:
+def batch_groups(B: int, H: int, sms: int, dirs: int = 2) -> int:
+    """Batch groups of a K1 or K2 launch (and their K5/K6 entries) over B
+    rows at width H and ``dirs`` directions on a card of ``sms`` SMs: 2
+    from GROUPED_MIN_B rows on, where the grid of two groups fits one block
+    an SM (the launch is cooperative); else 1. Two groups halve the rows
+    whose h (K1) or dz (K2) each block gathers a step, and let K1 stage them
+    in one round. Their shared memory fits every H the kernels take (at
+    most 230,400 bytes, K2 at H=512), so the SM count is the only
+    fallback."""
+    if B < GROUPED_MIN_B or grid_blocks(H, 2, dirs) > sms:
         return 1
     return 2
 
@@ -84,18 +85,18 @@ def _lib(entry: str, n_ptrs: int, n_ints: int = 4) -> ctypes.CDLL:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     words = getattr(lib, f"{source}_barrier_words")
-    words.argtypes = [ctypes.c_int] * (2 if source == BWD_NAME else 1)  # K2's: B, groups
+    words.argtypes = [ctypes.c_int] * 2  # B, groups
     words.restype = ctypes.c_int
     return lib
 
 
 def _barrier(lib: ctypes.CDLL, entry: str, B: int, device: torch.device,
-             *groups: int) -> torch.Tensor:
-    """The split barrier's counters for one call of ``entry`` at batch B
-    (and K2's ``groups``): zeroed int32 words on ``device`` (a counter per
+             groups: int) -> torch.Tensor:
+    """The split barrier's counters for one call of ``entry`` at batch B in
+    ``groups`` batch groups: zeroed int32 words on ``device`` (a counter per
     direction, group and launch), fresh for every call, so no call sees
     another's."""
-    n = getattr(lib, f"{dispatch.SOURCES[entry]}_barrier_words")(B, *groups)
+    n = getattr(lib, f"{dispatch.SOURCES[entry]}_barrier_words")(B, groups)
     return torch.zeros(n, dtype=torch.int32, device=device)
 
 
@@ -157,17 +158,18 @@ def bilstm_tm_streams(
     hs1 = torch.empty_like(hs0)
     cs0 = torch.empty_like(hs0) if store_c else None
     cs1 = torch.empty_like(hs0) if store_c else None
-    lib = _lib(NAME, 8)
+    groups = batch_groups(B, Hk, _sms(xp0))
+    lib = _lib(NAME, 8, 5)
     err = lib.bilstm_tm_fwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
         hs0.data_ptr(), hs1.data_ptr(),
         cs0.data_ptr() if store_c else None,
         cs1.data_ptr() if store_c else None,
-        _barrier(lib, NAME, B, dev).data_ptr(),
-        T, B, Hk, *_device_and_stream(xp0),
+        _barrier(lib, NAME, B, dev, groups).data_ptr(),
+        T, B, Hk, groups, *_device_and_stream(xp0),
     )
     build.check(lib, NAME, err)
-    dispatch.count_launch(NAME)
+    dispatch.count_launch(NAME, grouped=groups > 1)
     out = (hs0, hs1) + ((cs0, cs1) if store_c else ())
     return tuple(s[..., :H] for s in out)
 
@@ -205,7 +207,7 @@ def bilstm_tm_bwd(
     Hk = xp0k.shape[-1]
     dz0 = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp0.device)
     dz1 = torch.empty_like(dz0)
-    groups = bwd_groups(B, Hk, _sms(xp0))
+    groups = batch_groups(B, Hk, _sms(xp0))
     lib = _lib(BWD_NAME, 12, 5)
     err = lib.bilstm_tm_bwd(
         xp0k.data_ptr(), xp1k.data_ptr(), Uk.data_ptr(),
@@ -270,15 +272,16 @@ def lstm_tm_streams(
     Hk = xpk.shape[-1]
     hs = torch.empty((T, B, Hk), dtype=torch.bfloat16, device=xp.device)
     cs = torch.empty_like(hs) if store_c else None
-    lib = _lib(ONE_NAME, 5, 5)
+    groups = batch_groups(B, Hk, _sms(xp), dirs=1)
+    lib = _lib(ONE_NAME, 5, 6)
     err = lib.lstm_tm_fwd(
         xpk.data_ptr(), Uk.data_ptr(), hs.data_ptr(),
         cs.data_ptr() if store_c else None,
-        _barrier(lib, ONE_NAME, B, xp.device).data_ptr(),
-        T, B, Hk, int(reverse), *_device_and_stream(xp),
+        _barrier(lib, ONE_NAME, B, xp.device, groups).data_ptr(),
+        T, B, Hk, int(reverse), groups, *_device_and_stream(xp),
     )
     build.check(lib, NAME, err, ONE_NAME)
-    dispatch.count_launch(ONE_NAME)
+    dispatch.count_launch(ONE_NAME, grouped=groups > 1)
     return tuple(s[..., :H] for s in ((hs, cs) if store_c else (hs,)))
 
 
@@ -301,7 +304,7 @@ def lstm_tm_bwd(
     streams = _even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((T, B, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    groups = bwd_groups(B, Hk, _sms(xp), dirs=1)
+    groups = batch_groups(B, Hk, _sms(xp), dirs=1)
     lib = _lib(ONE_BWD_NAME, 7, 6)
     err = lib.lstm_tm_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),

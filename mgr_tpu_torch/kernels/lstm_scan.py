@@ -56,15 +56,16 @@ def lstm_scan_streams(
     Hk = xpk.shape[-1]
     hs = torch.empty((D, B, T, Hk), dtype=torch.bfloat16, device=xp.device)
     cs = torch.empty_like(hs) if store_c else None
-    lib = _k1._lib(NAME, 5, 5)
+    groups = _k1.batch_groups(B, Hk, _k1._sms(xp), dirs=D)
+    lib = _k1._lib(NAME, 5, 6)
     err = lib.lstm_scan_fwd(
         xpk.data_ptr(), Uk.data_ptr(), hs.data_ptr(),
         cs.data_ptr() if store_c else None,
-        _k1._barrier(lib, NAME, B, xp.device).data_ptr(),
-        D, T, B, Hk, *_k1._device_and_stream(xp),
+        _k1._barrier(lib, NAME, B, xp.device, groups).data_ptr(),
+        D, T, B, Hk, groups, *_k1._device_and_stream(xp),
     )
     build.check(lib, dispatch.SOURCES[NAME], err, NAME)
-    dispatch.count_launch(NAME)
+    dispatch.count_launch(NAME, grouped=groups > 1)
     return tuple(s[..., :H] for s in ((hs, cs) if store_c else (hs,)))
 
 
@@ -87,7 +88,7 @@ def lstm_scan_bwd(
     streams = _k1._even(hs, cs, dhs)
     Hk = xpk.shape[-1]
     dz = torch.empty((D, B, T, 4, Hk), dtype=torch.bfloat16, device=xp.device)
-    groups = _k1.bwd_groups(B, Hk, _k1._sms(xp), dirs=D)
+    groups = _k1.batch_groups(B, Hk, _k1._sms(xp), dirs=D)
     lib = _k1._lib(BWD_NAME, 7, 6)
     err = lib.lstm_scan_bwd(
         xpk.data_ptr(), Uk.data_ptr(), *(s.data_ptr() for s in streams), dz.data_ptr(),

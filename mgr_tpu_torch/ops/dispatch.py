@@ -9,8 +9,9 @@ plain version: the kernel launches or the wrapper raises.
 Each kernel wrapper adds one to its counter where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels (``chip_smoke.py`` resets the counters, drives the
-serving, training and mesh paths and reads them back). The entries of K2's
-source also count the launches that took the tiling of two batch groups.
+serving, training and mesh paths and reads them back). The entries of K1's
+and K2's sources also count the launches that took the tiling of two batch
+groups.
 
 The direction-shard context is the counterpart of ``direction_shard`` /
 ``direction_shard_axis``: the mesh steps of the shard_map route set it,
@@ -43,9 +44,11 @@ SOURCES = {"bilstm_tm_fwd": "bilstm_tm_fwd", "bilstm_tm_bwd": "bilstm_tm_bwd",
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# The entries of K2's source (K2, K5b, K6b) and, apart from _launches, their
-# launches that ran in two batch groups (``kernels/bilstm_tm.py::bwd_groups``).
-GROUPED = ("bilstm_tm_bwd", "lstm_tm_bwd", "lstm_scan_bwd")
+# The entries of K1's and K2's sources (K1, K5a, K6a; K2, K5b, K6b) and,
+# apart from _launches, their launches that ran in two batch groups
+# (``kernels/bilstm_tm.py::batch_groups``).
+GROUPED = ("bilstm_tm_fwd", "lstm_tm_fwd", "lstm_scan_fwd",
+           "bilstm_tm_bwd", "lstm_tm_bwd", "lstm_scan_bwd")
 _grouped: Dict[str, int] = {name: 0 for name in GROUPED}
 
 
@@ -209,5 +212,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def grouped_counts() -> Dict[str, int]:
-    """Launches of K2's source that ran in two batch groups, by entry."""
+    """Launches of K1's and K2's sources that ran in two batch groups, by
+    entry."""
     return dict(_grouped)

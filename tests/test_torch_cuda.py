@@ -46,7 +46,14 @@ and the rest 1e-5, ROI crops 1e-3 on the 0-255 scale. ``fit`` on the
 corpus held on the card against ``fit`` on host batches: the same bits
 and the same launches.
 
-K2's two tilings (``kernels/bilstm_tm.py::bwd_groups``: one batch group
+K1's two tilings (the same rule): K1's h and c at T=1900 and H=500 for B
+= 32 to 256, at the late-fusion widths H=300 and 100 at B=64, and at H=512,
+within TOL_K1 of the plain version and bit for bit the streams of the
+one-group tiling run 32 rows at a time, of the other tiling forced over all
+rows, and of K5a and K6a; every K1 launch of a train step and of a decode
+call grouped at the benchmark cells' batches above 32 rows, none at 16 or 1.
+
+K2's two tilings (``kernels/bilstm_tm.py::batch_groups``: one batch group
 up to 32 rows, two from 33): K2 against its plain version on both sides of
 the threshold and across launches (B = 65, 128, 129, 200 at H=500; B=128
 at H=512 and H=100; B=520 at H=16, five launches of 128 rows); a grouped
@@ -60,7 +67,7 @@ B=16 (neither).
 The kernels at the paths' full lengths (T=1900, CTC T'=1898) are cases of
 the same tests, at the shapes the paths give them: K1 at B=128, H=500; K2
 at B=1 to 256, H=500, in both tilings (the other one forced through
-``bwd_groups``), dz bit for bit the same; K1/K2 at the fusion layer's
+``batch_groups``), dz bit for bit the same; K1/K2 at the fusion layer's
 H=100 and rgb's H=512; K3 loss only at B=128; K3's alphas and K4 at the
 speech train batch and at the fusion and rgb presets' K and N, K4 within
 1e-3 there (f32 exp chains over 1898 steps) and each valid frame's
@@ -276,8 +283,64 @@ def test_k2_groups_give_the_bits_of_one_group_slices(cuda, T, B, H, monkeypatch)
             assert torch.equal(part[d], dz[d][:, rows]), (b0, d)
     assert dispatch.grouped_counts()["bilstm_tm_bwd"] == grouped  # the slices took one group
     other = 1 if B >= k1.GROUPED_MIN_B else 2
-    monkeypatch.setattr(k1, "bwd_groups", lambda *a, **k: other)
+    monkeypatch.setattr(k1, "batch_groups", lambda *a, **k: other)
     assert all(torch.equal(a, b) for a, b in zip(dz, k1.bilstm_tm_bwd(*args)))
+
+
+@pytest.mark.parametrize("T,B,H", [(1900, B, 500) for B in (32, 64, 96, 128, 256)] + [
+    (1900, 64, 300), (1900, 64, 100),  # the late-fusion towers' and fusion layer's widths
+    (12, 200, 512), (24, 100, 102)])   # two launches; h rows 4-byte aligned
+def test_k1_groups_give_the_bits_of_one_group_slices(cuda, T, B, H, monkeypatch):
+    """A row's h and c do not depend on K1's tiling: the launch over all B
+    rows (within TOL_K1 of the plain version, bit-identical when run
+    again) gives, bit for bit, the streams of the one-group tiling run on
+    the same rows 32 at a time, and of the other tiling forced over all of
+    them; so do K5a (each direction) and K6a over all rows. The grouped
+    counter counts the launches that took two groups."""
+    gen = torch.Generator(cuda).manual_seed(B + H + 1)
+    bf = torch.bfloat16
+    xp = 0.5 * _randn(gen, 2, T, B, 4, H)
+    xp[:, :, :, 1, :] += 1.0
+    xp = xp.to(bf)
+    U = tlstm.init_bilstm_params(torch.Generator().manual_seed(B + H), 4, H)["U"].to(cuda, bf)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    two = k1.batch_groups(B, H, sms) == 2
+    assert two == (B >= k1.GROUPED_MIN_B)
+    before = dispatch.launch_counts()["bilstm_tm_fwd"]
+    grouped = dispatch.grouped_counts()["bilstm_tm_fwd"]
+    streams = k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)
+    assert dispatch.launch_counts()["bilstm_tm_fwd"] == before + 1
+    assert dispatch.grouped_counts()["bilstm_tm_fwd"] == grouped + two
+    want = tlstm.bilstm_scan_tm_plain(xp[0], xp[1], U, store_c=True)
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(streams, want))
+    assert err <= TOL_K1, err
+    del want
+    assert all(torch.equal(a, b) for a, b in
+               zip(streams, k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)))
+    grouped = dispatch.grouped_counts()["bilstm_tm_fwd"]
+    for b0 in range(0, B, 32):
+        rows = slice(b0, min(B, b0 + 32))
+        part = k1.bilstm_tm_streams(xp[0][:, rows], xp[1][:, rows], U, store_c=True)
+        for a, b in zip(part, streams):
+            assert torch.equal(a, b[:, rows]), b0
+    assert dispatch.grouped_counts()["bilstm_tm_fwd"] == grouped  # the slices took one group
+    for d in range(2):  # K5a, one direction over all rows
+        one = k1.lstm_tm_streams(xp[d], U[d], reverse=bool(d), store_c=True)
+        assert torch.equal(one[0], streams[d]) and torch.equal(one[1], streams[2 + d]), d
+    bm = torch.stack([xp[0], xp[1].flip(0)]).transpose(1, 2).contiguous()  # K6a's layout
+    hs, cs = k6.lstm_scan_streams(bm, U, store_c=True)
+    del bm
+    for d in range(2):
+        h, c = (x[d].transpose(0, 1) for x in (hs, cs))
+        if d == 1:
+            h, c = h.flip(0), c.flip(0)
+        assert torch.equal(h, streams[d]) and torch.equal(c, streams[2 + d]), d
+    other = 1 if two else 2
+    monkeypatch.setattr(k1, "batch_groups", lambda *a, **k: other)
+    grouped = dispatch.grouped_counts()["bilstm_tm_fwd"]
+    assert all(torch.equal(a, b) for a, b in
+               zip(streams, k1.bilstm_tm_streams(xp[0], xp[1], U, store_c=True)))
+    assert dispatch.grouped_counts()["bilstm_tm_fwd"] == grouped + (other == 2)
 
 
 @pytest.mark.parametrize("B", [16, 32, 128])
@@ -300,7 +363,9 @@ def test_k2_grouped_counter(cuda, B):
     hs, cs = k6.lstm_scan_streams(bm, U[:1], store_c=True)
     k6.lstm_scan_bwd(bm, U[:1], hs, cs, dhs[:1].transpose(1, 2).contiguous())
     one = int(B > 32)
-    assert dispatch.grouped_counts() == {"bilstm_tm_bwd": one, "lstm_tm_bwd": one,
+    assert dispatch.grouped_counts() == {"bilstm_tm_fwd": 0, "lstm_tm_fwd": 0,
+                                         "lstm_scan_fwd": one,  # K6a's streams, after the reset
+                                         "bilstm_tm_bwd": one, "lstm_tm_bwd": one,
                                          "lstm_scan_bwd": one}
     counts = dispatch.launch_counts()
     assert counts["bilstm_tm_bwd"] == counts["lstm_tm_bwd"] == counts["lstm_scan_bwd"] == 1
@@ -1056,8 +1121,8 @@ def test_rgb_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch):
 @pytest.mark.parametrize("name,B", [("speech", 128), ("rgb", 16)])
 def test_train_step_k2_tiling_by_batch(cuda, name, B):
     """One train step at the preset's widths (speech H=500, rgb H=512) and
-    the benchmark cells' batches, at T=40: K2 twice, both launches grouped
-    at B=128 and neither at B=16; the loss finite."""
+    the benchmark cells' batches, at T=40: K1 and K2 twice each, every
+    launch grouped at B=128 and none at B=16; the loss finite."""
     cfg = get_preset(name).replace(maxlen=40, batch_size=B)
     model = build_model(cfg, seed=7, device=cuda)
     rng = np.random.default_rng(8)
@@ -1076,8 +1141,30 @@ def test_train_step_k2_tiling_by_batch(cuda, name, B):
     dispatch.reset_launch_counts()
     state, m = step(state, batch, prng.root_key(5))
     assert np.isfinite(float(m["loss"]))
-    assert dispatch.launch_counts()["bilstm_tm_bwd"] == 2
-    assert dispatch.grouped_counts()["bilstm_tm_bwd"] == (2 if B > 32 else 0)
+    counts, grouped = dispatch.launch_counts(), dispatch.grouped_counts()
+    assert counts["bilstm_tm_bwd"] == counts["bilstm_tm_fwd"] == 2
+    assert grouped["bilstm_tm_bwd"] == grouped["bilstm_tm_fwd"] == (2 if B > 32 else 0)
+
+
+@pytest.mark.parametrize("name,B,launches", [
+    ("speech", 128, 2), ("late_fusion", 64, 5), ("speech", 1, 2)])
+def test_decode_step_k1_tiling_by_batch(cuda, name, B, launches):
+    """One decode call at the preset's widths (speech H=500; late fusion's
+    towers at H=500 and 300 and its fusion layer at 100) and the serving
+    cells' batches, at T=40: every K1 launch grouped at B=128 and B=64, none
+    at B=1."""
+    cfg = get_preset(name).replace(maxlen=40)
+    model = build_model(cfg, seed=9, device=cuda)
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((B, 40, cfg.num_feats)).astype(np.float32)
+    if name == "late_fusion":
+        x = (x, rng.standard_normal((B, 40, 20)).astype(np.float32))
+    step = step_lib.make_decode_step(model, threshold=0.5)
+    dispatch.reset_launch_counts()
+    best, emit = step(x)
+    assert best.shape == emit.shape and best.shape[0] == B
+    assert dispatch.launch_counts()["bilstm_tm_fwd"] == launches
+    assert dispatch.grouped_counts()["bilstm_tm_fwd"] == (launches if B > 32 else 0)
 
 
 @contextlib.contextmanager

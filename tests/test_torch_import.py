@@ -236,8 +236,7 @@ def test_recurrences_use_tensor_cores_and_a_per_direction_barrier():
         assert '#include "lstm_common.cuh"' in text, name
         assert "mma16816(" in text or "z_partial<" in text, name
         assert "grid.sync" not in text and "cooperative_groups" not in text, name
-        words = "(int B, int groups)" if name == "bilstm_tm_bwd" else "(int B)"
-        assert f'extern "C" int {name}_barrier_words{words}' in text, name
+        assert f'extern "C" int {name}_barrier_words(int B, int groups)' in text, name
 
 
 def test_ctc_kernels_stage_frames_ahead_and_scatter_without_atomics():
